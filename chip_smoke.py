@@ -10,8 +10,11 @@ Phases, each of which exits non-zero on failure:
 1. build every CUDA kernel of the port from the checkout's sources
    (nvcc, sm_90a, into build/torch_ext/);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it (K=256, S=1024, P=192*256 per
-   768x1024 frame, B=4), in bf16 and f32, plus one awkward size;
+   shapes its path gives it: the serving kernel at K=256, S=1024,
+   P=192*256 per 768x1024 frame, B=4; the two-view training kernels
+   (forward and backward) at B=16, P=80*80 per 320x320 crop, both views,
+   under a mixed objective and under the consistency loss alone;
+   each in bf16 and f32, plus an awkward size;
 3. serve full-width DGModel ``final`` (VGG16-BN, 1024x256 bank, seeded
    random weights, bf16, fused_mem=True) through VideoCounter: 768x1024
    frames by count_frames (B=4) and stream (4 batches of 16), a
@@ -21,7 +24,16 @@ Phases, each of which exits non-zero on failure:
    ``python -m dgvcc_tpu_torch --task serve`` with configs/sta_final.yml,
    counts four JPEG frames;
 4. time the serving path (frames/s at B=1, 4, 16; stream) and the kernel
-   alone against its plain version and one library call (SDPA).
+   alone against its plain version and one library call (SDPA);
+5. train full-width DGModel ``final`` as configs/sta_final.yml says (bf16
+   compute, f32 AdamW master weights, the OneCycle lr of epoch 0) on a
+   synthetic two-view batch of 16 crops of 320x320: step 1 on the kernel
+   path must agree with step 1 on the einsum path (fused_mem_train=False)
+   from the same weights, ten more steps on the repeated batch must keep
+   the loss finite and bring it down, and each step must launch the
+   forward and the backward kernel once; then ms/step and peak memory of
+   both paths, and the training kernels' times against their bounds and
+   their plain version.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -38,6 +50,8 @@ import time
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
 # cores, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -51,6 +65,33 @@ TOL_F32 = 1e-4                      # f32 kernel vs plain (summation order)
 TOL_BF16 = 2e-2                     # bf16 output vs f32 plain (one bf16 rounding)
 TOL_COUNTS = 2e-2                   # fused vs einsum serving counts, relative:
                                     # the einsum path rounds the attention to bf16
+
+TRAIN_B, TRAIN_CROP = 16, 320       # sta_final.yml: batch 16 of 320x320 crops
+TRAIN_P = (TRAIN_CROP // 4) ** 2    # 6400 rows per view and crop at stride 4
+# training kernels vs their plain version (TF32 off for the plain one):
+TOL_TRAIN_F32 = 1e-4                # f32 forward (loss_con relative): other order
+                                    # of summation
+TOL_TRAIN_F32_GRAD = 1e-3           # f32 gradients: longer sums, other order
+TOL_TRAIN_BF16 = 2e-2               # bf16 outputs: one bf16 rounding
+TOL_TRAIN_CON = 1e-3                # loss_con, relative: p is exact f32 in both
+TOL_TRAIN_DY = (0.05, 0.02)         # bf16 dy rtol, atol and dM relative norm:
+TOL_TRAIN_DM = 0.02                 # tests/test_mem_attention_train.py:86-94
+TOL_TRAIN_BF16_NORM = 1e-2          # bf16 out and dy, relative norm: the kernel
+                                    # rounds dl to bf16, the plain version does not
+                                    # (about 1e-3); the elementwise limits above are
+                                    # a third of a typical value at full width
+TOL_TRAIN_LOSS = {torch.float32: 1e-4,   # gradients of loss_con alone, relative
+                  torch.bfloat16: 1e-2}  # norm: f32 sums in another order; bf16
+                                         # as TOL_TRAIN_BF16_NORM
+# the train step, kernel path vs einsum path, step 1 from the same weights:
+TOL_STEP_LOSS = 1e-2                # loss parts, relative: up to the bank the two
+                                    # paths compute the same; its bf16 outputs may
+                                    # round to neighbouring values
+TOL_STEP_GRAD = 5e-2                # gradient relative norm: the two round the
+                                    # attention's cotangents to bf16 at other places
+                                    # (dp in the einsum path, dl in the kernel)
+STEP_GRADS = ("mem", "dec1.0.conv.weight", "den_dec.0.conv.weight",
+              "den_head.0.conv.weight")
 
 
 def log(msg):
@@ -102,6 +143,236 @@ def check_kernel(ma, b, p, dtype, tol, seed):
     return max_abs
 
 
+def train_objective(dtype):
+    """f32: the asymmetric objective of tests/test_mem_attention_train.py
+    (catches view sign errors); bf16: its non-cancelling one, so the two
+    views' dM terms do not cancel into bf16 noise. At these shapes its loss
+    term is about 1e-11 of dp, so check_train_kernels also holds the
+    gradients of loss_con alone."""
+    def f(o1, o2, con):
+        if dtype == torch.float32:
+            w = torch.arange(o1.numel(), dtype=torch.float32, device=o1.device)
+            return ((o1 * torch.cos(w).reshape(o1.shape)).sum()
+                    + 0.5 * (o2 * torch.sin(w).reshape(o2.shape)).sum() + 10.0 * con)
+        return o1.float().sum() + 0.5 * o2.float().sum() + 5.0 * con
+    return f
+
+
+def rel_norm(a, r):
+    return ((a - r).norm() / r.norm()).item()
+
+
+def check_train_kernels(mt, b, p, dtype, seed):
+    """Kernels #2 and #3 through memory_attention_train (forward, and the
+    gradients by torch.autograd.grad) against the plain version on the
+    same inputs. Two objectives: train_objective, and loss_con x rows x S
+    alone (cotangent g = rows x S, so dp = +-2 (p1 - p2)): dy1, dy2 and dM
+    of the second come from the consistency branch only."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y1, y2 = (torch.randn(b, p, K, generator=g, device="cuda").to(dtype) for _ in range(2))
+    mem = torch.randn(K, S, generator=g, device="cuda").to(dtype)
+    obj = train_objective(dtype)
+    res = {}
+    for name, fn in (("kernel", mt.memory_attention_train),
+                     ("plain", mt.memory_attention_train_reference)):
+        leaves = [t.clone().requires_grad_() for t in (y1, y2, mem)]
+        outs = fn(*leaves)
+        grads = torch.autograd.grad(obj(*outs), leaves, retain_graph=True)
+        con_grads = torch.autograd.grad(outs[2] * float(b * p * S), leaves)
+        res[name] = [t.detach().float() for t in outs] + [t.float() for t in grads + con_grads]
+        del outs, grads, con_grads, leaves
+    torch.cuda.synchronize()
+    (o1, o2, con, dy1, dy2, dm, cy1, cy2, cm) = res["kernel"]
+    (r1, r2, rcon, ry1, ry2, rdm, rc1, rc2, rcm) = res["plain"]
+    err = dict(out=max((o1 - r1).abs().max().item(), (o2 - r2).abs().max().item()),
+               out_rel=max(rel_norm(o1, r1), rel_norm(o2, r2)),
+               con_rel=abs(con.item() - rcon.item()) / abs(rcon.item()),
+               dy=max((dy1 - ry1).abs().max().item(), (dy2 - ry2).abs().max().item()),
+               dy_rel=max(rel_norm(dy1, ry1), rel_norm(dy2, ry2)),
+               dm_rel=rel_norm(dm, rdm),
+               con_dy_rel=max(rel_norm(cy1, rc1), rel_norm(cy2, rc2)),
+               con_dm_rel=rel_norm(cm, rcm))
+    loss_branch_ok = max(err["con_dy_rel"], err["con_dm_rel"]) <= TOL_TRAIN_LOSS[dtype]
+    if dtype == torch.float32:
+        ok = (all(torch.allclose(a, r, atol=TOL_TRAIN_F32, rtol=TOL_TRAIN_F32)
+                  for a, r in ((o1, r1), (o2, r2)))
+              and err["con_rel"] <= TOL_TRAIN_F32
+              and all(torch.allclose(a, r, atol=TOL_TRAIN_F32_GRAD, rtol=TOL_TRAIN_F32_GRAD)
+                      for a, r in ((dy1, ry1), (dy2, ry2), (dm, rdm)))
+              and loss_branch_ok)
+    else:
+        rtol, atol = TOL_TRAIN_DY
+        ok = (all(torch.allclose(a, r, atol=TOL_TRAIN_BF16, rtol=TOL_TRAIN_BF16)
+                  for a, r in ((o1, r1), (o2, r2)))
+              and err["out_rel"] <= TOL_TRAIN_BF16_NORM
+              and err["con_rel"] <= TOL_TRAIN_CON
+              and all(torch.allclose(a, r, atol=atol, rtol=rtol)
+                      for a, r in ((dy1, ry1), (dy2, ry2)))
+              and err["dy_rel"] <= TOL_TRAIN_BF16_NORM
+              and err["dm_rel"] < TOL_TRAIN_DM
+              and loss_branch_ok)
+    log(f"train kernels {str(dtype):>14} B={b} P={p} K={K} S={S}: out max_abs_err "
+        f"{err['out']:.3e} rel_norm_err {err['out_rel']:.3e}, loss_con rel_err "
+        f"{err['con_rel']:.3e}, dy max_abs_err {err['dy']:.3e} rel_norm_err "
+        f"{err['dy_rel']:.3e}, dM rel_norm_err {err['dm_rel']:.3e}; loss_con alone: "
+        f"dy rel_norm_err {err['con_dy_rel']:.3e}, dM rel_norm_err "
+        f"{err['con_dm_rel']:.3e} (tol {TOL_TRAIN_LOSS[dtype]}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"memory_attention_train disagrees with its plain version "
+             f"({dtype}, B={b}, P={p})")
+    return err
+
+
+def bound(flops, nbytes, peak_flops):
+    t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def synthetic_batch(seed):
+    """Two views of 16 crops (the second a perturbed copy, as augmented
+    views are), a density map of about 20 heads a crop (box-blurred points)
+    and its foreground map at stride 16, NCHW on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (TRAIN_B, 3, TRAIN_CROP, TRAIN_CROP)
+    img1 = torch.randn(shape, generator=g, device="cuda")
+    img2 = img1 + 0.25 * torch.randn(shape, generator=g, device="cuda")
+    heads = (torch.rand(TRAIN_B, 1, TRAIN_CROP, TRAIN_CROP, generator=g, device="cuda")
+             < 2e-4).float()
+    dmap = torch.nn.functional.avg_pool2d(heads, 9, stride=1, padding=4)
+    bmap = (torch.nn.functional.avg_pool2d(dmap, 16) > 0).float()
+    return {"img1": img1, "img2": img2, "dmap": dmap, "bmap": bmap}
+
+
+def train_phase(mt, gpu):
+    """Phase 5: the training main path. Returns the launch counts of its
+    run and the training kernels' times."""
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.config import load_config
+    from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+    from dgvcc_tpu_torch.train.state import create_train_state
+    from dgvcc_tpu_torch.train.steps import build_train_step
+
+    cfg = load_config(os.path.join(ROOT, "configs", "sta_final.yml"))
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+    def build(fused_mem_train):
+        model = MODELS.build(cfg.model["name"], dtype=dtype,
+                             fused_mem_train=fused_mem_train, **cfg.model.get("params", {}))
+        model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+        state = create_train_state(model, cfg.optimizer, cfg.scheduler)
+        loss = LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
+        return state, build_train_step(model, loss, cfg.mode, cfg.log_para)
+
+    batch = synthetic_batch(1)
+    gen = torch.Generator(device="cuda")
+
+    def run(path):
+        """One step on the repeated batch, with the same dropout draw."""
+        gen.manual_seed(cfg.seed)
+        return path[1](path[0], batch, gen, 0)[1]
+
+    kern, plain = build(True), build(False)
+    for (k1, v1), (k2, v2) in zip(kern[0].model.state_dict().items(),
+                                  plain[0].model.state_dict().items()):
+        if k1 != k2 or not torch.equal(v1, v2):
+            fail(f"seeded weights differ between the two train states at {k1}")
+    lr = kern[0].optimizer.param_groups[0]["lr"]
+    log(f"train: DGModel final (sta_final.yml), {dtype}, AdamW lr {lr:.6g} "
+        f"(OneCycle, epoch 0), batch {TRAIN_B}x2 views of {TRAIN_CROP}x{TRAIN_CROP}")
+
+    # ---- the main path: step 1 of both paths, ten more on the kernel path
+    mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    m_kern = {k: v.item() for k, v in run(kern).items()}
+    g_kern = {n: p.grad.detach().float().clone()
+              for n, p in kern[0].model.named_parameters() if n in STEP_GRADS}
+    m_plain = {k: v.item() for k, v in run(plain).items()}
+    g_plain = {n: p.grad.detach().float().clone()
+               for n, p in plain[0].model.named_parameters() if n in STEP_GRADS}
+    for k in m_kern:
+        a, b = m_kern[k], m_plain[k]
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        log(f"train step 1 {k}: kernel path {a:.6g}, einsum path {b:.6g}, rel diff "
+            f"{rel:.3e} (tol {TOL_STEP_LOSS})")
+        if not (math.isfinite(a) and (rel <= TOL_STEP_LOSS or abs(a - b) <= 1e-12)):
+            fail(f"train step 1: {k} of the kernel path disagrees with the einsum path")
+    for n in STEP_GRADS:
+        rel = ((g_kern[n] - g_plain[n]).norm() / g_plain[n].norm()).item()
+        log(f"train step 1 grad {n}: rel norm diff {rel:.3e} (tol {TOL_STEP_GRAD})")
+        if not rel <= TOL_STEP_GRAD:
+            fail(f"train step 1: the gradient of {n} disagrees with the einsum path")
+    losses = [m_kern["loss_total"]]
+    for _ in range(10):
+        losses.append(run(kern)["loss_total"].item())
+    launches = (mt.FWD_LAUNCHES, mt.BWD_LAUNCHES)
+    log(f"train kernel path, 11 steps: loss_total {[round(x, 4) for x in losses]}; "
+        f"memory_attention_train forward launched {launches[0]}x, backward "
+        f"{launches[1]}x")
+    if not all(math.isfinite(x) for x in losses):
+        fail("train: a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over 11 steps ({losses[0]} -> {losses[-1]})")
+    if launches != (len(losses), len(losses)):
+        fail(f"train: {len(losses)} steps launched the training kernels {launches} times")
+
+    # ---- ms/step and peak memory of both paths
+    for label, path in (("kernel path", kern), ("einsum path", plain)):
+        for _ in range(2):
+            run(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run(path)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 5
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        run(path)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"train step {label} (B={TRAIN_B}x2 {TRAIN_CROP}^2 bf16): {ms:.3f} ms/step, "
+            f"peak memory {peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB "
+            f"above the {resident / 2**30:.3f} GiB resident) [{gpu}]")
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    # ---- the training kernels alone, at the step's shapes
+    g = torch.Generator(device="cuda").manual_seed(30)
+    y1, y2, do1, do2 = (torch.randn(TRAIN_B, TRAIN_P, K, generator=g, device="cuda")
+                        .to(torch.bfloat16) for _ in range(4))
+    mem = torch.randn(K, S, generator=g, device="cuda").to(torch.bfloat16)
+    dcon = torch.ones((), device="cuda")
+    lse = mt.memory_attention_train_forward(y1, y2, mem)[3]
+    fwd = cuda_ms(lambda: mt.memory_attention_train_forward(y1, y2, mem), 20)
+    bwd = cuda_ms(lambda: mt.memory_attention_train_backward(y1, y2, mem, lse, do1, do2,
+                                                             dcon), 10)
+    with torch.no_grad():
+        fwd_plain = cuda_ms(lambda: mt.memory_attention_train_reference(y1, y2, mem), 5,
+                            warmup=1)
+    leaves = [t.clone().requires_grad_() for t in (y1, y2, mem)]
+    outs = mt.memory_attention_train_reference(*leaves)
+    bwd_plain = cuda_ms(lambda: torch.autograd.grad(outs, leaves, (do1, do2, dcon),
+                                                    retain_graph=True), 5, warmup=1)
+    del outs, leaves
+    n = TRAIN_B * TRAIN_P * K * S
+    # the work the TPU kernels do (scripts/kernel_bounds.py): forward two
+    # products a view, backward five; bf16 in and out, dM in f32
+    fwd_bound = bound(2 * 4.0 * n, 2.0 * (4 * TRAIN_B * TRAIN_P * K + K * S) + 4,
+                      PEAK_BF16_FLOPS)
+    bwd_bound = bound(2 * 10.0 * n, 2.0 * (6 * TRAIN_B * TRAIN_P * K + K * S) + 4.0 * K * S,
+                      PEAK_BF16_FLOPS)
+    times = {"fwd": dict(ms=fwd, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
+                         bound_by=fwd_bound[1]),
+             "bwd": dict(ms=bwd, plain_ms=bwd_plain, bound_ms=bwd_bound[0],
+                         bound_by=bwd_bound[1])}
+    for name, t in times.items():
+        log(f"train kernel {name} B={TRAIN_B} P={TRAIN_P} K={K} S={S} x2 views bf16: "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}; {t['ms'] / t['bound_ms']:.1f}x the bound) [{gpu}]")
+    return launches, times
+
+
 def check_counts(name, got, want, want_label="einsum path"):
     got, want = np.asarray(got), np.asarray(want)
     if not np.isfinite(got).all():
@@ -123,7 +394,6 @@ def check_cli(frames, VideoCounter):
 
     from PIL import Image
 
-    root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         for i, f in enumerate(frames):
             Image.fromarray(f).save(os.path.join(tmp, f"frame{i}.jpg"), quality=95)
@@ -132,9 +402,9 @@ def check_cli(frames, VideoCounter):
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "dgvcc_tpu_torch", "--config",
-             os.path.join(root, "configs", "sta_final.yml"), "--task", "serve",
+             os.path.join(ROOT, "configs", "sta_final.yml"), "--task", "serve",
              "--frames", tmp, "--batch", str(len(frames))],
-            capture_output=True, text=True, timeout=300, cwd=root)
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
     if out.returncode:
         fail(f"CLI serve exited {out.returncode}:\n{out.stderr[-3000:]}")
     lines = out.stdout.strip().splitlines()
@@ -153,9 +423,10 @@ def main():
         print("[chip_smoke] CUDA is not available: this script runs on an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     from dgvcc_tpu_torch.ops import _build
     from dgvcc_tpu_torch.ops import mem_attention as ma
+    from dgvcc_tpu_torch.ops import mem_attention_train as mt
     from dgvcc_tpu_torch.serve import VideoCounter
 
     t_start = time.perf_counter()
@@ -179,6 +450,15 @@ def main():
     err_f32 = check_kernel(ma, 4, P, torch.float32, TOL_F32, 2)
     check_kernel(ma, 3, 6400 + 37, torch.bfloat16, TOL_BF16, 3)
     check_kernel(ma, 3, 6400 + 37, torch.float32, TOL_F32, 4)
+    # the plain versions' float32 products in full float32 for these
+    # comparisons (TF32 off); the flags are put back after them
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    train_bf16 = check_train_kernels(mt, TRAIN_B, TRAIN_P, torch.bfloat16, 5)
+    train_f32 = check_train_kernels(mt, TRAIN_B, TRAIN_P, torch.float32, 6)
+    check_train_kernels(mt, 3, 6400 + 37, torch.bfloat16, 7)
+    check_train_kernels(mt, 3, 6400 + 37, torch.float32, 8)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
     # ---- 3. serve the main path -------------------------------------------
     torch.backends.cudnn.benchmark = True
@@ -226,7 +506,8 @@ def main():
         for c in (counter, plain):
             c.count_frames(f)
         for label, c in (("fused_mem=True", counter), ("fused_mem=False", plain)):
-            iters = 8 if b < 16 else 4
+            # B<=4 host-clock times spread by several percent over 8 calls
+            iters = 24 if b < 16 else 4
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(iters):
@@ -269,10 +550,16 @@ def main():
     log(f"kernel B=4 f32: memory_attention_fused {kern32:.4f} ms, bound "
         f"{1e3 * 4.0 * 4 * P * K * S / PEAK_F32_FLOPS:.4f} ms (f32 CUDA-core "
         f"peak) [{gpu}]")
+
+    # ---- 5. train the main path ----------------------------------------------
+    train_launches, train_times = train_phase(mt, gpu)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
-    # ---- 5. result --------------------------------------------------------
+    # ---- 6. result --------------------------------------------------------
     t4 = times[4]
+    train_shape = {"B": TRAIN_B, "P": TRAIN_P, "K": K, "S": S, "views": 2,
+                   "dtype": "bfloat16"}
+    source = "dgvcc_tpu_torch/csrc/mem_attention_train.cu"
     print(json.dumps({"kernels": [{
         "name": "memory_attention_fused", "route": "cuda",
         "source": "dgvcc_tpu_torch/csrc/mem_attention.cu",
@@ -281,7 +568,22 @@ def main():
         "max_abs_err": err_bf16, "max_err": err_bf16, "max_abs_err_f32": err_f32,
         "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
         "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
-        "shape": {"B": 4, "P": P, "K": K, "S": S, "dtype": "bfloat16"}}]}))
+        "shape": {"B": 4, "P": P, "K": K, "S": S, "dtype": "bfloat16"}}, {
+        "name": "memory_attention_train_fwd", "route": "cuda", "source": source,
+        "replaces": "dgvcc_tpu/ops/mem_attention_train.py:134",
+        "launches": train_launches[0], "ok": True,
+        "max_abs_err": train_bf16["out"], "max_err": train_bf16["out"],
+        "max_abs_err_f32": train_f32["out"], "out_rel_norm_err": train_bf16["out_rel"],
+        "loss_con_rel_err": train_bf16["con_rel"],
+        **train_times["fwd"], "library_ms": None, "shape": train_shape}, {
+        "name": "memory_attention_train_bwd", "route": "cuda", "source": source,
+        "replaces": "dgvcc_tpu/ops/mem_attention_train.py:177",
+        "launches": train_launches[1], "ok": True,
+        "max_abs_err": train_bf16["dy"], "max_err": train_bf16["dy"],
+        "max_abs_err_f32": train_f32["dy"], "dy_rel_norm_err": train_bf16["dy_rel"],
+        "dm_rel_norm_err": train_bf16["dm_rel"],
+        "loss_con_grad_rel_norm_err": max(train_bf16["con_dy_rel"], train_bf16["con_dm_rel"]),
+        **train_times["bwd"], "library_ms": None, "shape": train_shape}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

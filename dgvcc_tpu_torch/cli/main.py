@@ -8,7 +8,7 @@ streams per-frame counts over a directory of images and prints one
 ``name count`` line per frame and a throughput summary. The device is
 ``cuda`` unless ``--device`` or the config's ``device:`` key starts with
 ``cpu``. The other tasks of ``python -m dgvcc_tpu`` are not ported yet
-(ROADMAP.md, Queue 1).
+(ROADMAP.md, Queue 1; train / test / vis / train_test are item 3).
 """
 
 from __future__ import annotations
@@ -100,6 +100,12 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         ckpt: str = None, device: str = None):
     from dgvcc_tpu_torch.core.config import load_config
 
+    if task in ("train", "test", "vis", "train_test"):
+        raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
+                         "yet: it needs the data pipeline and DGTrainer, "
+                         "ROADMAP.md Queue 1 item 3 (the train step itself is "
+                         "dgvcc_tpu_torch.train; use python -m dgvcc_tpu for "
+                         "the task)")
     if task != "serve":
         raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
                          "yet; see ROADMAP.md, Queue 1 (use python -m "

@@ -41,3 +41,6 @@ class Registry:
 
 
 MODELS = Registry("model")
+LOSSES = Registry("loss")
+OPTIMIZERS = Registry("optimizer")
+SCHEDULERS = Registry("scheduler")

@@ -20,7 +20,7 @@ so this module needs neither JAX nor flax:
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,8 @@ def _t(a) -> torch.Tensor:
 def _bn(sd, prefix, p, s):
     sd[f"{prefix}.weight"] = _t(p["scale"])
     sd[f"{prefix}.bias"] = _t(p["bias"])
+    if s is None:
+        return
     sd[f"{prefix}.running_mean"] = _t(s["mean"])
     sd[f"{prefix}.running_var"] = _t(s["var"])
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -47,13 +49,15 @@ def _conv(sd, prefix, p):
         sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def dg_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
+def dg_state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping],
                             stage_splits=(0, 23, 33, 43)) -> Dict[str, torch.Tensor]:
     """JAX DGModel variables -> the port's (reference-layout) state_dict.
 
     ``stage_splits``: the model's encoder splits, which re-base the
     torchvision feature indices of ``conv{i}`` / ``bn{i}`` to the local
-    indices of each stage.
+    indices of each stage. With ``batch_stats=None``, ``params`` may be
+    any tree of the params' layout, a gradient for one: the result then
+    holds the parameters' keys only (no running statistics).
     """
     sd: Dict[str, torch.Tensor] = {}
     for enc, lo in zip(("enc1", "enc2", "enc3"), stage_splits[:3]):
@@ -63,7 +67,7 @@ def dg_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
             if kind == "conv":
                 _conv(sd, prefix, p)
             else:
-                _bn(sd, prefix, p, batch_stats[enc][name])
+                _bn(sd, prefix, p, batch_stats and batch_stats[enc][name])
     for name, p in params.items():
         if name.startswith("enc") or name == "memory":
             continue
@@ -72,7 +76,7 @@ def dg_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
         _conv(sd, f"{prefix}.conv", p["Conv_0"])
         if "BatchNorm_0" in p:
             _bn(sd, f"{prefix}.bn", p["BatchNorm_0"],
-                batch_stats[name]["BatchNorm_0"])
+                batch_stats and batch_stats[name]["BatchNorm_0"])
     if "memory" in params:
         sd["mem"] = _t(np.asarray(params["memory"]["mem"])[None])
     return sd

@@ -14,6 +14,8 @@ from typing import Any, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from dgvcc_tpu_torch.nn.layers import Conv2d
+
 # torchvision cfgs: 'M' = 2x2/2 max pool
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512, "M"]
 
@@ -50,7 +52,7 @@ def stage_channels(cfg: Sequence, batch_norm: bool, stop: int,
 
 class VGGFeatures(nn.Sequential):
     """``features[start:stop]`` with conv bias on, BN eps 1e-5 and
-    2x2/2 floor max pools; convs in ``dtype``, BN in float32."""
+    2x2/2 floor max pools; convs compute in ``dtype``, BN in float32."""
 
     def __init__(self, cfg: Sequence = tuple(VGG16_CFG), batch_norm: bool = True,
                  start: int = 0, stop: int = 10_000,
@@ -61,8 +63,8 @@ class VGGFeatures(nn.Sequential):
             if not (start <= idx < stop):
                 continue
             if kind == "conv":
-                layers.append(nn.Conv2d(ch, arg, 3, padding=1, bias=True,
-                                        dtype=dtype))
+                layers.append(Conv2d(ch, arg, 3, padding=1, bias=True,
+                                     dtype=dtype))
                 ch = arg
             elif kind == "bn":
                 layers.append(nn.BatchNorm2d(arg, eps=1e-5, momentum=0.1))

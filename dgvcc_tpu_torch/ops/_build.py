@@ -3,7 +3,8 @@
 Each source under ``dgvcc_tpu_torch/csrc/`` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface under
 ``build/torch_ext/`` at the root of the checkout, and loaded with
-``ctypes``. A library is rebuilt when its source is newer. Nothing is
+``ctypes``. A library is rebuilt when its source, or a header under
+``csrc/``, is newer. Nothing is
 built when this module is imported: the first call that needs a kernel
 builds it, and ``build_all`` builds every stale library at once, one
 ``nvcc`` process per source, all started together.
@@ -24,7 +25,8 @@ from typing import Dict
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_ext"
-SOURCES = {"mem_attention": CSRC / "mem_attention.cu"}
+SOURCES = {"mem_attention": CSRC / "mem_attention.cu",
+           "mem_attention_train": CSRC / "mem_attention_train.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,8 +52,10 @@ def library_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < SOURCES[name].stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [SOURCES[name], *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(f.stat().st_mtime for f in inputs)
 
 
 def build_all(names=None) -> Dict[str, str]:

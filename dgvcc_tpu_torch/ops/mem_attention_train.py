@@ -1,0 +1,196 @@
+"""Two-view memory attention for training, counterpart of
+dgvcc_tpu/ops/mem_attention_train.py.
+
+    p_i      = softmax_S(y_i . M / sqrt(K))          float32
+    out_i    = (p_i cast to M's dtype) . M^T         float32 sums, y's dtype
+    loss_con = mean((p_1 - p_2) ** 2)                float32
+
+``memory_attention_train`` is differentiable in y1, y2 and M. On CUDA
+tensors its forward launches the hand-written forward kernel and its
+backward the backward kernels (``csrc/mem_attention_train.cu``); neither
+view's (B, P, S) probabilities reach device memory. On CPU tensors, the
+caller's explicit choice, it computes ``memory_attention_train_reference``,
+the plain PyTorch version, whose gradient plain autograd gives. A CUDA
+tensor never takes the plain version: the kernels launch or the call
+raises.
+
+``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches (and nothing
+else), so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from dgvcc_tpu_torch.ops import _build
+
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+KERNEL_WIDTHS = (16, 256)  # the K values csrc/mem_attention_train.cu instantiates
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def memory_attention_train_reference(y1: torch.Tensor, y2: torch.Tensor,
+                                     mem: torch.Tensor):
+    """Plain version (the JAX package's einsum twin): float32 logits and
+    softmax; the probabilities cast to M's dtype before the second
+    product, summed in float32 and cast to y's dtype. (float64 inputs stay
+    float64 throughout.)"""
+    k = y1.shape[-1]
+    acc = torch.promote_types(mem.dtype, torch.float32)
+    mf = mem.to(acc)
+
+    def view(y):
+        logits = torch.matmul(y.to(acc), mf) / math.sqrt(k)
+        p = torch.softmax(logits, dim=-1)
+        out = torch.matmul(p.to(mem.dtype).to(acc), mf.t())
+        return p, out.to(y.dtype)
+
+    p1, out1 = view(y1)
+    p2, out2 = view(y2)
+    return out1, out2, torch.mean((p1 - p2) ** 2)
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("mem_attention_train")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mem_attention_train_fwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, i32, i32, i32,
+            ctypes.c_float, ptr]
+        lib.mem_attention_train_bwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            ctypes.c_longlong, i32, i32, i32, i32, ctypes.c_float, ptr]
+        lib.mem_attention_train_fwd.restype = i32
+        lib.mem_attention_train_bwd.restype = i32
+        lib.mem_attention_train_tile.argtypes = [i32, i32]
+        lib.mem_attention_train_tile.restype = i32
+        lib.mem_attention_train_error_string.argtypes = [i32]
+        lib.mem_attention_train_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(lib, err, what):
+    if err:
+        raise RuntimeError(f"mem_attention_train {what} kernel launch failed: "
+                           + lib.mem_attention_train_error_string(err).decode())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous rows from a 16-byte aligned base (the kernels read
+    16-byte vectors)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def memory_attention_train_forward(y1, y2, mem):
+    """Kernel #2 on validated, aligned CUDA tensors -> (out1, out2,
+    loss_con, lse), lse being each row's logsumexp, (2, B*P) float32."""
+    global FWD_LAUNCHES
+    lib = _kernel()
+    b, p, k = y1.shape
+    s = mem.shape[1]
+    rows, code = b * p, _DTYPE_CODE[y1.dtype]
+    dev = y1.device
+    out1, out2 = torch.empty_like(y1), torch.empty_like(y2)
+    lse = torch.empty(2, rows, dtype=torch.float32, device=dev)
+    tile = lib.mem_attention_train_tile(code, 0)
+    partial = torch.empty(-(-rows // tile), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.mem_attention_train_fwd(
+            y1.data_ptr(), y2.data_ptr(), mem.data_ptr(), out1.data_ptr(),
+            out2.data_ptr(), lse.data_ptr(), partial.data_ptr(), loss.data_ptr(),
+            rows, k, s, code, 1.0 / (rows * s), _stream(dev))
+    _check(lib, err, "forward")
+    FWD_LAUNCHES += 1
+    return out1, out2, loss, lse
+
+
+def _splits(rows: int, s: int, dtype: torch.dtype, device) -> int:
+    """Row ranges of the dM kernel: S-slices x splits blocks make one wave
+    on the card (one block per SM), at most one range per row tile."""
+    lib = _kernel()
+    code = _DTYPE_CODE[dtype]
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    slices = -(-s // lib.mem_attention_train_tile(code, 1))
+    row_tiles = -(-rows // lib.mem_attention_train_tile(code, 0))
+    return max(1, min(n_sm // slices, row_tiles))
+
+
+def memory_attention_train_backward(y1, y2, mem, lse, do1, do2, dcon):
+    """Kernel #3 -> (dy1, dy2, dM): dout cast to y's dtype, dM summed in
+    float32 and returned in M's dtype, as the JAX ``bwd_rule`` does."""
+    global BWD_LAUNCHES
+    lib = _kernel()
+    b, p, k = y1.shape
+    s = mem.shape[1]
+    rows, code = b * p, _DTYPE_CODE[y1.dtype]
+    dev = y1.device
+    do1, do2 = _aligned(do1.to(y1.dtype)), _aligned(do2.to(y2.dtype))
+    g = dcon.to(device=dev, dtype=torch.float32).reshape(()).contiguous()
+    splits = _splits(rows, s, y1.dtype, dev)
+    dy1, dy2 = torch.empty_like(y1), torch.empty_like(y2)
+    dsum = torch.empty(2, rows, dtype=torch.float32, device=dev)
+    scratch = torch.empty(splits, k, s, dtype=torch.float32, device=dev)
+    dm = torch.empty(k, s, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.mem_attention_train_bwd(
+            y1.data_ptr(), y2.data_ptr(), mem.data_ptr(), do1.data_ptr(),
+            do2.data_ptr(), lse.data_ptr(), g.data_ptr(), dy1.data_ptr(),
+            dy2.data_ptr(), dsum.data_ptr(), scratch.data_ptr(), dm.data_ptr(),
+            rows, k, s, code, splits, 2.0 / (rows * s), _stream(dev))
+    _check(lib, err, "backward")
+    BWD_LAUNCHES += 1
+    return dy1, dy2, dm.to(mem.dtype)
+
+
+class _MemoryAttentionTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y1, y2, mem):
+        out1, out2, loss, lse = memory_attention_train_forward(y1, y2, mem)
+        ctx.save_for_backward(y1, y2, mem, lse)
+        return out1, out2, loss
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do1, do2, dcon):
+        y1, y2, mem, lse = ctx.saved_tensors
+        return memory_attention_train_backward(y1, y2, mem, lse, do1, do2, dcon)
+
+
+def memory_attention_train(y1: torch.Tensor, y2: torch.Tensor, mem: torch.Tensor):
+    """y1, y2: (B, P, K) pixel features of the two views; mem: (K, S)
+    prototypes -> (out1, out2, loss_con). Any P; K in ``KERNEL_WIDTHS``;
+    y1, y2 and mem all bf16 or all f32."""
+    if (y1.dim() != 3 or y1.shape != y2.shape or mem.dim() != 2
+            or y1.shape[-1] != mem.shape[0]):
+        raise ValueError(f"memory_attention_train: y1 {tuple(y1.shape)}, y2 "
+                         f"{tuple(y2.shape)} and mem {tuple(mem.shape)} do not "
+                         "form (B,P,K), (B,P,K), (K,S)")
+    devices = {y1.device, y2.device, mem.device}
+    if devices == {torch.device("cpu")}:
+        return memory_attention_train_reference(y1, y2, mem)
+    if len(devices) != 1 or y1.device.type != "cuda":
+        raise ValueError(f"memory_attention_train: tensors on {sorted(map(str, devices))}; "
+                         "all must be on one CUDA device or all on the CPU")
+    if y1.dtype not in _DTYPE_CODE or {y2.dtype, mem.dtype} != {y1.dtype}:
+        raise TypeError(f"memory_attention_train takes bf16 or f32 y1, y2 and mem "
+                        f"of one dtype; got {y1.dtype}, {y2.dtype} and {mem.dtype}")
+    if y1.shape[-1] not in KERNEL_WIDTHS:
+        raise ValueError(f"memory_attention_train: K={y1.shape[-1]} has no kernel "
+                         f"instantiation (have {KERNEL_WIDTHS})")
+    if y1.numel() == 0:
+        raise ValueError("memory_attention_train: no rows")
+    return _MemoryAttentionTrain.apply(_aligned(y1), _aligned(y2), _aligned(mem))

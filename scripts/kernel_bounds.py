@@ -36,6 +36,15 @@ def main():
     row(f"#3 memory_attention_train bwd B={b} P={p} x2 views",
         2 * 10.0 * b * p * K * S, "bf16",
         2.0 * (6 * b * p * K + K * S) + 4.0 * K * S)
+    # the work the port's kernels (csrc/mem_attention_train.cu) do for the
+    # same function: the forward computes the logits twice (6 products),
+    # the backward recomputes logits and dout . M in both its row and its
+    # column kernel and sweeps S once more for D (18 products)
+    row(f"#2 as ported (6 products) B={b} P={p} x2 views",
+        2 * 6.0 * b * p * K * S, "bf16", 2.0 * (4 * b * p * K + K * S) + 4)
+    row(f"#3 as ported (18 products) B={b} P={p} x2 views",
+        2 * 18.0 * b * p * K * S, "bf16",
+        2.0 * (6 * b * p * K + K * S) + 4.0 * K * S)
     h, w, n = 768, 1024, 1024  # density map of a 768x1024 image, 1024 points
     row(f"#4 gaussian_density_pallas {h}x{w} N={n}",
         2.0 * h * w * n, "f32", 4.0 * (h * w + 3 * n))

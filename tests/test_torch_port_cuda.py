@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Needs an NVIDIA Hopper GPU and nvcc; every test skips without a card.
 On the card, run it without the JAX-side conftest (this file imports
@@ -6,15 +6,23 @@ torch and the port only):
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerances: f32 atol/rtol 1e-4 (the f32 kernel sums in another order);
-bf16 output against the f32 plain version on the same inputs 2e-2 (one
-bf16 rounding of the output, 2^-8 relative).
+Tolerances (TF32 off for the plain versions): f32 atol/rtol 1e-4 (the
+f32 kernels sum in another order), 1e-3 for the training gradients (longer
+sums, in another order); bf16 outputs against the plain version on the
+same inputs 2e-2 (one bf16 rounding of the output, 2^-8 relative), the
+training loss 1e-3 relative (p is exact f32 in both; f32 1e-4), its
+gradients 0.05 / 0.02 and dM to 0.02 in relative norm
+(tests/test_mem_attention_train.py), and bf16 outputs and dy also to 1e-2
+in relative norm (the kernel rounds dl to bf16, the plain version does
+not). The gradients of the consistency loss alone: relative norm 1e-4 in
+f32, 1e-2 in bf16.
 """
 
 import pytest
 import torch
 
 from dgvcc_tpu_torch.ops import mem_attention as ma
+from dgvcc_tpu_torch.ops import mem_attention_train as mt
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +85,146 @@ def test_dg_model_fused_matches_einsum_path(cuda):
         d_p, c_p = plain.to(cuda).eval()(x.to(cuda))
     torch.testing.assert_close(d_f, d_p, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(c_f, c_p, atol=0, rtol=0)
+
+
+def _train_objective(dtype):
+    """f32: the asymmetric objective of tests/test_mem_attention_train.py
+    (catches view sign errors); bf16: its non-cancelling one, whose two
+    views' dM terms do not cancel into bf16 noise."""
+    def f(out1, out2, con):
+        if dtype == torch.float32:
+            n = out1.numel()
+            w = torch.arange(n, dtype=torch.float32, device=out1.device)
+            return ((out1 * torch.cos(w).reshape(out1.shape)).sum()
+                    + 0.5 * (out2 * torch.sin(w).reshape(out2.shape)).sum() + 10.0 * con)
+        return out1.float().sum() + 0.5 * out2.float().sum() + 5.0 * con
+    return f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,p,k,s", [(2, 437, 16, 32), (2, 437, 16, 1001),
+                                     (1, 300, 256, 1024), (3, 437, 256, 1001)])
+def test_train_kernels_match_plain(cuda, dtype, b, p, k, s):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(b * p + k + s)
+    y1, y2 = (torch.randn(b, p, k, generator=g, device=cuda).to(dtype) for _ in range(2))
+    mem = torch.randn(k, s, generator=g, device=cuda).to(dtype)
+    obj = _train_objective(dtype)
+    grads = {}
+    for name, fn in (("kernel", mt.memory_attention_train),
+                     ("plain", mt.memory_attention_train_reference)):
+        a1, a2, m = (t.clone().requires_grad_() for t in (y1, y2, mem))
+        before = (mt.FWD_LAUNCHES, mt.BWD_LAUNCHES)
+        outs = fn(a1, a2, m)
+        grads[name] = (outs, torch.autograd.grad(obj(*outs), (a1, a2, m)))
+        torch.cuda.synchronize()
+        launched = (mt.FWD_LAUNCHES - before[0], mt.BWD_LAUNCHES - before[1])
+        assert launched == ((1, 1) if name == "kernel" else (0, 0))
+    (o1, o2, con), (dy1, dy2, dm) = grads["kernel"]
+    (r1, r2, rcon), (ry1, ry2, rdm) = grads["plain"]
+    assert o1.dtype == dtype and dy1.dtype == dtype and dm.dtype == dtype
+    if dtype == torch.float32:
+        for a, r in ((o1, r1), (o2, r2)):
+            torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(con, rcon, atol=0, rtol=1e-4)
+        for a, r in ((dy1, ry1), (dy2, ry2), (dm, rdm)):
+            torch.testing.assert_close(a, r, atol=1e-3, rtol=1e-3)
+    else:
+        for a, r in ((o1, r1), (o2, r2)):
+            torch.testing.assert_close(a.float(), r.float(), atol=2e-2, rtol=2e-2)
+            assert _rel_norm(a, r) <= 1e-2
+        torch.testing.assert_close(con, rcon, atol=0, rtol=1e-3)
+        for a, r in ((dy1, ry1), (dy2, ry2)):
+            torch.testing.assert_close(a.float(), r.float(), atol=0.02, rtol=0.05)
+            assert _rel_norm(a, r) <= 1e-2
+        assert _rel_norm(dm, rdm) < 0.02
+
+
+def _rel_norm(a, r):
+    return ((a.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,p,k,s", [(2, 437, 16, 32), (2, 437, 16, 1001),
+                                     (3, 437, 256, 1001), (16, 6400, 256, 1024)])
+def test_train_kernels_loss_branch_matches_plain(cuda, dtype, tol, b, p, k, s):
+    """The gradients of loss_con alone, scaled by rows x S (cotangent g =
+    rows x S, so dp = +-2 (p1 - p2)): dy1, dy2 and dM come from the
+    consistency branch of the backward only, which the mixed objective
+    above scales below its tolerances. Relative norm: f32 sums in another
+    order; bf16 dl is rounded once in the kernel and not in the plain
+    version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(b * p + k + s + 1)
+    y1, y2 = (torch.randn(b, p, k, generator=g, device=cuda).to(dtype) for _ in range(2))
+    mem = torch.randn(k, s, generator=g, device=cuda).to(dtype)
+    grads = {}
+    for name, fn in (("kernel", mt.memory_attention_train),
+                     ("plain", mt.memory_attention_train_reference)):
+        leaves = [t.clone().requires_grad_() for t in (y1, y2, mem)]
+        con = fn(*leaves)[2]
+        grads[name] = torch.autograd.grad(con * float(b * p * s), leaves)
+    for name, a, r in zip(("dy1", "dy2", "dM"), grads["kernel"], grads["plain"]):
+        assert a.dtype == dtype and r.norm() > 0, name
+        assert _rel_norm(a, r) <= tol, (name, _rel_norm(a, r))
+
+
+def test_train_kernels_reject_what_they_cannot_take(cuda):
+    y = torch.randn(1, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="K=32"):
+        mt.memory_attention_train(y, y, torch.randn(32, 16, device=cuda))
+    with pytest.raises(TypeError):
+        mt.memory_attention_train(y[..., :16].bfloat16(), y[..., :16].bfloat16(),
+                                  torch.randn(16, 16, device=cuda))
+    with pytest.raises(ValueError, match="CUDA device"):
+        mt.memory_attention_train(y[..., :16], y[..., :16], torch.randn(16, 16))
+
+
+def test_dg_forward_train_kernels_match_einsum_path(cuda):
+    """Tiny DGModel final trained one forward/backward on the card: the
+    training kernels against the bank's einsum path (fused_mem_train=False),
+    in f32 with TF32 off, from the same weights. Gradients are compared by
+    relative norm at 1e-4: cuDNN's backward sums in an order that changes
+    from run to run, so two runs of one path differ at that level too. A VGG
+    conv bias feeds a train-mode BN, so its exact gradient is 0 and its
+    computed one is that noise on both paths: it is held to being
+    negligible beside its conv's weight gradient."""
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.registry import MODELS
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tiny = dict(vgg_cfg=(8, "M", 8, "M", 16, "M", 16, "M"), stage_splits=(0, 8, 12, 16),
+                dec_widths=((16, 16), (16, 16), (16, 8)), mem_size=16, mem_dim=16,
+                den_dropout=0.0, cls_dropout=0.0)
+    g = torch.Generator().manual_seed(3)
+    img1 = torch.randn(2, 3, 64, 64, generator=g)
+    img2 = img1 + 0.1 * torch.randn(2, 3, 64, 64, generator=g)
+    c_gt = (torch.rand(2, 1, 4, 4, generator=g) > 0.5).float()
+    results = []
+    for fused in (True, False):
+        m = MODELS.build("final", fused_mem_train=fused, **tiny)
+        m.reset_parameters(torch.Generator().manual_seed(0))
+        m.to(cuda).train()
+        before = mt.FWD_LAUNCHES, mt.BWD_LAUNCHES
+        out = m.forward_train(img1.to(cuda), img2.to(cuda), c_gt.to(cuda))
+        (out[0].sum() + 0.5 * out[1].sum() + out[2].sum() + out[3].sum()
+         + 10.0 * out[5]).backward()
+        torch.cuda.synchronize()
+        launched = (mt.FWD_LAUNCHES - before[0], mt.BWD_LAUNCHES - before[1])
+        assert launched == ((1, 1) if fused else (0, 0))
+        results.append((out, {n: p.grad for n, p in m.named_parameters()}))
+    noise = {f"{n}.bias" for n, mod in m.named_modules()
+             if isinstance(mod, torch.nn.Conv2d) and mod.bias is not None}
+    (out_k, grads_k), (out_e, grads_e) = results
+    for a, b in zip(out_k, out_e):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    for n, ge in grads_e.items():
+        gk = grads_k[n]
+        assert gk is not None and ge is not None, n
+        if n in noise:
+            scale = grads_e[n[:-len("bias")] + "weight"].abs().max()
+            assert max(gk.abs().max(), ge.abs().max()) <= 1e-5 * scale, n
+        else:
+            rel = ((gk - ge).norm() / ge.norm()).item()
+            assert rel <= 1e-4, (n, rel)

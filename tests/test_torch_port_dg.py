@@ -61,9 +61,11 @@ def test_variant_flags_and_key_layout():
         dec_widths=((16, 16), (16, 16), (16, 8))).den_dec) == 1
     with pytest.raises(ValueError, match="stage_splits"):
         MODELS.build("base", vgg_cfg=(8, "M"))
-    # training-only YAML keys do not reach the eval model
-    assert MODELS.build("base", err_thrs=0.5, remat=True, pretrained=True,
-                        dec_widths=((16, 16), (16, 16), (16, 8))).use_mem is False
+    # the training YAML keys reach the model; `pretrained` (a weight-loading
+    # flag) is dropped
+    m = MODELS.build("base", err_thrs=0.25, remat=True, pretrained=True,
+                     dec_widths=((16, 16), (16, 16), (16, 8)))
+    assert m.use_mem is False and m.err_thrs == 0.25 and m.remat is True
 
 
 def test_bf16_model_keeps_bn_and_bank_in_f32():

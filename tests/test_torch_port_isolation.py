@@ -57,9 +57,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour where CUDA is absent")
     from dgvcc_tpu_torch.serve import VideoCounter, resolve_device
+    from dgvcc_tpu_torch.train.state import create_train_state
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VideoCounter.from_checkpoint("final", None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(torch.nn.Linear(2, 1), {"name": "adamw"})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VideoCounter(torch.nn.Identity())
     with pytest.raises(ValueError):

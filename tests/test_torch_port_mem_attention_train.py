@@ -1,0 +1,112 @@
+"""The port's two-view training attention
+(dgvcc_tpu_torch.ops.mem_attention_train) on the CPU, where it takes its
+plain version, against the JAX op: the Pallas kernel in interpret mode
+(tile 32) and the JAX einsum twin. The inputs are those of
+tests/test_mem_attention_train.py (seeded numpy, B=2, P=70 (not a tile
+multiple), K=16, S=32) and so are the tolerances: forward 1e-5; float32
+gradients of the asymmetric objective rtol 2e-4 / atol 2e-5; bfloat16
+gradients 0.05 / 0.02 with dM to 0.02 in relative norm (dM lands in bf16,
+so near-zero entries are pure rounding)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgvcc_tpu.ops.mem_attention_train import memory_attention_train as jax_train
+from dgvcc_tpu.ops.mem_attention_train import memory_attention_train_reference as jax_ref
+from dgvcc_tpu_torch.ops import mem_attention_train as mt
+
+GOLDENS = {"pallas_interpret": lambda a, b, m: jax_train(a, b, m, tile=32, interpret=True),
+           "jax_reference": jax_ref}
+
+
+def _toy():
+    rng = np.random.default_rng(0)
+    b, p, k, s = 2, 70, 16, 32
+    y1 = rng.normal(size=(b, p, k)).astype(np.float32)
+    y2 = rng.normal(size=(b, p, k)).astype(np.float32)
+    mem = (rng.normal(size=(k, s)) * 0.5).astype(np.float32)
+    return y1, y2, mem
+
+
+def _asymmetric(xp):
+    """sum(o1 w1) + 0.5 sum(o2 w2) + 10 con: catches view sign errors and
+    the softmax-VJP coupling (tests/test_mem_attention_train.py:41-50)."""
+    def f(o1, o2, con):
+        w1 = xp.cos(xp.arange(o1.size if xp is jnp else o1.numel(), dtype=xp.float32))
+        w2 = xp.sin(xp.arange(o2.size if xp is jnp else o2.numel(), dtype=xp.float32))
+        return (xp.sum(o1 * w1.reshape(o1.shape)) + 0.5 * xp.sum(o2 * w2.reshape(o2.shape))
+                + 10.0 * con)
+    return f
+
+
+def _non_cancelling(xp):
+    """The bf16 objective: the two views' dM terms do not cancel into
+    bf16 noise (tests/test_mem_attention_train.py:70-79)."""
+    def f(o1, o2, con):
+        if xp is jnp:
+            return jnp.sum(o1.astype(jnp.float32)) + 0.5 * jnp.sum(o2.astype(jnp.float32)) + 5.0 * con
+        return o1.float().sum() + 0.5 * o2.float().sum() + 5.0 * con
+    return f
+
+
+def _port_grads(objective, arrays, dtype):
+    ts = [torch.from_numpy(a).to(dtype).requires_grad_() for a in arrays]
+    outs = mt.memory_attention_train(*ts)
+    return torch.autograd.grad(objective(*outs), ts)
+
+
+@pytest.mark.parametrize("golden", sorted(GOLDENS))
+def test_forward_matches_jax(golden):
+    y1, y2, mem = _toy()
+    want = GOLDENS[golden](jnp.asarray(y1), jnp.asarray(y2), jnp.asarray(mem))
+    got = mt.memory_attention_train(*(torch.from_numpy(a) for a in (y1, y2, mem)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("golden", sorted(GOLDENS))
+def test_f32_gradients_match_jax(golden):
+    arrays = _toy()
+    fn = GOLDENS[golden]
+    want = jax.grad(lambda a, b, m: _asymmetric(jnp)(*fn(a, b, m)), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in arrays))
+    got = _port_grads(_asymmetric(torch), arrays, torch.float32)
+    for name, g, w in zip(("dy1", "dy2", "dmem"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("golden", sorted(GOLDENS))
+def test_bf16_gradients_match_jax(golden):
+    arrays = _toy()
+    fn = GOLDENS[golden]
+    want = jax.grad(lambda a, b, m: _non_cancelling(jnp)(*fn(a, b, m)), argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrays))
+    got = _port_grads(_non_cancelling(torch), arrays, torch.bfloat16)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    for name, g, w in zip(("dy1", "dy2"), got[:2], want[:2]):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=0.05, atol=0.02, err_msg=name)
+    a, b = got[2].float().numpy(), np.asarray(want[2], np.float32)
+    assert np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-9) < 0.02
+
+
+def test_plain_version_gradcheck_f64():
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn(*shape, generator=g, dtype=torch.float64, requires_grad=True)
+            for shape in ((1, 5, 4), (1, 5, 4), (4, 6))]
+    assert torch.autograd.gradcheck(mt.memory_attention_train_reference, args)
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    y1, y2, mem = (torch.from_numpy(a) for a in _toy())
+    before = (mt.FWD_LAUNCHES, mt.BWD_LAUNCHES)
+    got = mt.memory_attention_train(y1, y2, mem)
+    want = mt.memory_attention_train_reference(y1, y2, mem)
+    assert (mt.FWD_LAUNCHES, mt.BWD_LAUNCHES) == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="do not form"):
+        mt.memory_attention_train(y1, y2[:, :5], mem)

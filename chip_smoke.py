@@ -23,8 +23,12 @@ Phases, each of which exits non-zero on failure:
    the einsum path (fused_mem=False). Then the command line,
    ``python -m dgvcc_tpu_torch --task serve`` with configs/sta_final.yml,
    counts four JPEG frames;
+   The density-map kernel (#4) against its plain version at 768x1024 with
+   1024 points, 1080x1920 with 4000 (points on every border, outside the
+   image, in (-1, 0), and masked pad rows), no points, and 17x23;
 4. time the serving path (frames/s at B=1, 4, 16; stream) and the kernel
-   alone against its plain version and one library call (SDPA);
+   alone against its plain version and one library call (SDPA); the
+   density-map kernel against its plain version and cuBLAS A . B^T;
 5. train full-width DGModel ``final`` as configs/sta_final.yml says (bf16
    compute, f32 AdamW master weights, the OneCycle lr of epoch 0) on a
    synthetic two-view batch of 16 crops of 320x320: step 1 on the kernel
@@ -33,7 +37,17 @@ Phases, each of which exits non-zero on failure:
    the loss finite and bring it down, and each step must launch the
    forward and the backward kernel once; then ms/step and peak memory of
    both paths, and the training kernels' times against their bounds and
-   their plain version.
+   their plain version;
+6. from files to a trained model: write a dataset in the canonical layout
+   (40 JPEGs of 768x1024 with 50 to 600 head points each), make its
+   density maps with ``python -m dgvcc_tpu_torch.data.dmap_cli`` (one
+   kernel #4 launch per image; three maps against the numpy golden), then
+   ``DGTrainer.train_and_test`` with configs/sta_final.yml pointed there
+   for 2 epochs: kernels #2/#3 once per train step, kernel #1 in every
+   validation and test forward and no einsum-path bank forward, finite
+   losses and MAE, the JAX trainer's log.txt lines, ``last`` / ``best_*``
+   checkpoints that VideoCounter strict-loads, and ``--task test`` from the
+   best checkpoint on the command line printing the in-process MAE / MSE.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -43,6 +57,7 @@ a checkout of the repo, the script exits non-zero and prints no result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,6 +107,12 @@ TOL_STEP_GRAD = 5e-2                # gradient relative norm: the two round the
                                     # (dp in the einsum path, dl in the kernel)
 STEP_GRADS = ("mem", "dec1.0.conv.weight", "den_dec.0.conv.weight",
               "den_head.0.conv.weight")
+# density-map kernel vs its plain version (A . B^T, TF32 off) and the numpy
+# golden: f32; the kernel sums each pixel's covering points in point order
+# (FMA), the product and the golden (float64, rounded once) in their own
+TOL_DMAP = dict(atol=1e-5, rtol=1e-4)
+DMAP_SHAPES = ((768, 1024, 1024), (1080, 1920, 4000), (768, 1024, 0), (17, 23, 40))
+TOL_CLI_TEST = 1e-3                 # CLI --task test vs in-process test(), relative
 
 
 def log(msg):
@@ -317,6 +338,7 @@ def train_phase(mt, gpu):
         fail(f"train: {len(losses)} steps launched the training kernels {launches} times")
 
     # ---- ms/step and peak memory of both paths
+    ms_per_step = {}
     for label, path in (("kernel path", kern), ("einsum path", plain)):
         for _ in range(2):
             run(path)
@@ -325,7 +347,7 @@ def train_phase(mt, gpu):
         for _ in range(5):
             run(path)
         torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / 5
+        ms = ms_per_step[label] = 1e3 * (time.perf_counter() - t0) / 5
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         run(path)
@@ -362,6 +384,7 @@ def train_phase(mt, gpu):
                       PEAK_BF16_FLOPS)
     bwd_bound = bound(2 * 10.0 * n, 2.0 * (6 * TRAIN_B * TRAIN_P * K + K * S) + 4.0 * K * S,
                       PEAK_BF16_FLOPS)
+    step_ms = ms_per_step["kernel path"]
     times = {"fwd": dict(ms=fwd, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
                          bound_by=fwd_bound[1]),
              "bwd": dict(ms=bwd, plain_ms=bwd_plain, bound_ms=bwd_bound[0],
@@ -370,7 +393,307 @@ def train_phase(mt, gpu):
         log(f"train kernel {name} B={TRAIN_B} P={TRAIN_P} K={K} S={S} x2 views bf16: "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}; {t['ms'] / t['bound_ms']:.1f}x the bound) [{gpu}]")
-    return launches, times
+    return launches, times, step_ms
+
+
+def dmap_points(h, w, n, seed):
+    """n points over the image and a 10-pixel margin around it; with n >= 12
+    also points on every border, in (-1, 0) and outside; the last quarter
+    masked off as pad rows."""
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.rand(n, 2, generator=g) * torch.tensor([w + 20.0, h + 20.0]) - 10.0
+    if n >= 12:
+        pts[:8] = torch.tensor([[0.0, 0.0], [w - 0.5, h - 0.5], [-0.4, h / 2],
+                                [w / 2, -0.7], [w - 1.0, 3.0], [5.0, h - 1.0],
+                                [w + 0.5, 2.0], [-1.5, 4.0]])
+    mask = torch.ones(n, dtype=torch.bool)
+    mask[3 * n // 4:] = False
+    return pts.cuda(), mask.cuda()
+
+
+def check_dmap(dm):
+    """Kernel #4 against its plain version at DMAP_SHAPES, and against the
+    numpy golden at the first two. Returns the largest max_abs_err."""
+    worst = 0.0
+    for i, (h, w, n) in enumerate(DMAP_SHAPES):
+        pts, mask = dmap_points(h, w, n, seed=40 + i)
+        out = dm.gaussian_density(pts, mask, h, w)
+        torch.cuda.synchronize()
+        ref = dm.gaussian_density_reference(pts, mask, h, w)
+        err = (out - ref).abs().max().item()
+        ok = bool(torch.allclose(out, ref, **TOL_DMAP)) and out.shape == (h, w)
+        if i < 2:
+            golden = torch.from_numpy(dm.gaussian_density_fixed_np(
+                (h, w), pts[mask].cpu().numpy())).cuda()
+            ok = ok and bool(torch.allclose(out, golden, **TOL_DMAP))
+        worst = max(worst, err)
+        log(f"dmap kernel {h}x{w} N={n} ({int(mask.sum())} unmasked): max_abs_err "
+            f"{err:.3e} vs plain, sum {out.sum().item():.4f} (tol {TOL_DMAP}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"gaussian_density disagrees with its plain version or the golden "
+                 f"({h}x{w}, N={n})")
+    return worst
+
+
+def time_dmap(dm, gpu):
+    """Kernel #4 at 768x1024, N=1024 (all in the image, unmasked): its time,
+    the plain version's, cuBLAS A . B^T on the prebuilt f32 A (HxN) and B
+    (WxN), and the bound: the map written once and the points read once
+    over HBM, against the work these points need (each point's (2r+1)^2
+    window clipped to the image, one multiply-add a pixel) over the f32
+    CUDA-core peak."""
+    h, w, n = 768, 1024, 1024
+    g = torch.Generator(device="cuda").manual_seed(50)
+    pts = torch.rand(n, 2, generator=g, device="cuda") * torch.tensor(
+        [w - 1.0, h - 1.0], device="cuda")
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern = cuda_ms(lambda: dm.gaussian_density(pts, mask, h, w), 200, warmup=5)
+    plain = cuda_ms(lambda: dm.gaussian_density_reference(pts, mask, h, w), 20)
+    r = dm.scipy_radius(4.0, 7.0 / 4.0)
+    p = torch.trunc(pts).long()
+
+    def axis(size, c):
+        d = torch.arange(size, device="cuda")[:, None] - c[None, :]
+        return torch.exp(-0.5 * (d.float() / 4.0) ** 2) * (d.abs() <= r)
+
+    a, b = axis(h, p[:, 1]), axis(w, p[:, 0])
+    library = cuda_ms(lambda: torch.matmul(a, b.t()), 50)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    rows = (p[:, 1] + r).clamp_max(h - 1) - (p[:, 1] - r).clamp_min(0) + 1
+    cols = (p[:, 0] + r).clamp_max(w - 1) - (p[:, 0] - r).clamp_min(0) + 1
+    flops = 2.0 * float((rows * cols).sum())
+    nbytes = 4.0 * h * w + 9.0 * n
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    tpu_ms = bound(2.0 * h * w * n, 4.0 * (h * w + 3 * n), PEAK_F32_FLOPS)[0]
+    log(f"dmap kernel {h}x{w} N={n} f32: gaussian_density {kern:.4f} ms (200 back-to-back "
+        f"calls, device events), plain {plain:.4f} ms, cuBLAS A.B^T {library:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.3f} MFLOP; "
+        f"the TPU's dense form {tpu_ms:.4f} ms) [{gpu}]")
+    return dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by,
+                bound_ms_dense_form=tpu_ms)
+
+
+def write_dataset(root, seed=0):
+    """The canonical layout: train 32, val 4, test 4 JPEGs of 768x1024 (a
+    smooth random scene with noise) with 50 to 600 head points each."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = FRAME
+    for split, n in (("train", 32), ("val", 4), ("test", 4)):
+        os.makedirs(os.path.join(root, split))
+        for k in range(n):
+            low = rng.integers(0, 256, (12, 16, 3), dtype=np.uint8)
+            img = np.asarray(Image.fromarray(low).resize((w, h), Image.BICUBIC), np.float32)
+            img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, split, f"IMG_{k}.jpg"), quality=90)
+            pts = rng.uniform(0, [w, h], (int(rng.integers(50, 601)), 2)).astype(np.float32)
+            np.save(os.path.join(root, split, f"IMG_{k}.npy"), pts)
+
+
+# the JAX trainer's log.txt lines (dgvcc_tpu/train/trainer.py), numbers free
+LOG_LINES = [re.compile(p) for p in (
+    r"Start training and testing at \d{4}-\d\d-\d\d \d\d:\d\d:\d\d",
+    r"Epoch \d+: Training loss: \d+\.\d{4} Version: sta_final",
+    r"Epoch \d+: Val criterion: \d+\.\d{4} mse: \d+\.\d{4} best: \d+\.\d{4}, "
+    r"time: \d+\.\d{4}",
+    r"Epoch \d+: saving best model\.\.\.",
+    r"Start testing at .+", r"Testing results: mae: \d+\.\d{4} mse: \d+\.\d{4} ",
+    r"Saving test model\.\.\.", r"Testing results saved to .+", r"End testing at .+",
+    r"Best epoch: \d+, best criterion: \d+\.\d+", r"Training results saved to .+",
+    r"End training and testing at .+", r"Loading checkpoint from .+")]
+
+
+class TimedLoader:
+    """A loader that adds up the host time its consumer waits for batches."""
+
+    def __init__(self, loader):
+        self.loader, self.wait = loader, 0.0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.wait += time.perf_counter() - t
+            yield item
+
+
+def files_phase(ma, mt, dm, gpu, step_ms_repeated):
+    """Phase 6: from files to a trained model. Returns kernel #4's launches
+    on its path (the dmap_cli run)."""
+    import glob
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from dgvcc_tpu_torch.core.config import Config
+    from dgvcc_tpu_torch.data import dmap_cli
+    from dgvcc_tpu_torch.models.dg import MemoryBank
+    from dgvcc_tpu_torch.serve import VideoCounter
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_dataset(root)
+        log(f"files: wrote 40 JPEGs of {FRAME[0]}x{FRAME[1]} with points in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+        # ---- density maps through the command line (kernel #4)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch.data.dmap_cli",
+                              "--path", root], capture_output=True, text=True,
+                             timeout=300, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        if out.returncode:
+            fail(f"dmap_cli exited {out.returncode}:\n{out.stderr[-3000:]}")
+        last = out.stdout.strip().splitlines()[-1]
+        log(f"dmap_cli ({wall:.1f}s with start-up): {last}")
+        m = re.search(r"(\d+) of (\d+) images done in ([\d.]+)s; gaussian_density kernel "
+                      r"launched (\d+)x", last)
+        if not m or int(m.group(1)) != 40 or int(m.group(4)) != 40:
+            fail(f"dmap_cli did not launch the kernel once per image (40): {last}")
+        dmap_launches = int(m.group(4))
+        for split, k in (("train", 0), ("val", 1), ("test", 3)):
+            stem = os.path.join(root, split, f"IMG_{k}")
+            got = np.load(stem + "_dmap.npy")
+            want = dm.gaussian_density_fixed_np(FRAME, np.load(stem + ".npy"))
+            err = float(np.abs(got - want).max())
+            log(f"dmap_cli map {split}/IMG_{k}: {got.shape} {got.dtype}, sum "
+                f"{got.sum():.4f}, max_abs_err vs numpy golden {err:.3e}")
+            if got.dtype != np.float32 or not np.allclose(got, want, **TOL_DMAP):
+                fail(f"dmap_cli wrote a map that disagrees with the golden ({stem})")
+        img_fns = dmap_cli.list_images(root, ["train", "val", "test"])
+        dmap_cli.generate(img_fns[:2], overwrite=True)  # warm: CUDA and the library
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dmap_cli.generate(img_fns, overwrite=True)
+        per_image = 1e3 * (time.perf_counter() - t0) / len(img_fns)
+        log(f"dmap_cli generate (in process, CUDA up): {per_image:.3f} ms/image at "
+            f"{FRAME[0]}x{FRAME[1]} (read points, upload, kernel, download, np.save) "
+            f"[{gpu}]")
+
+        # ---- train_and_test with configs/sta_final.yml pointed at the files
+        with open(os.path.join(ROOT, "configs", "sta_final.yml")) as f:
+            raw = yaml.safe_load(f)
+        for split in ("train", "val", "test"):
+            raw[f"{split}_dataset"] = dict(raw[f"{split}_dataset"], params=dict(
+                raw[f"{split}_dataset"]["params"], root=root))
+        raw.update(num_epochs=2, log_dir=os.path.join(tmp, "logs"))
+        cfg_path = os.path.join(tmp, "sta_final.yml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(raw, f)
+        trainer = DGTrainer(Config.from_dict(raw))
+        trainer.build()
+        n_val, n_test = len(trainer.loaders["val"]), len(trainer.loaders["test"])
+        steps = len(trainer.loaders["train"])
+        train_ld, val_ld = (TimedLoader(trainer.loaders[k]) for k in ("train", "val"))
+        trainer.loaders.update(train=train_ld, val=val_ld)
+        marks = {"epoch": [], "val": []}
+        run_epoch, run_val = trainer.train_epoch, trainer.validate
+
+        def timed_epoch(*a):
+            t, w = time.perf_counter(), train_ld.wait
+            r = run_epoch(*a)
+            marks["epoch"].append((t, time.perf_counter(), train_ld.wait - w))
+            return r
+
+        def timed_val(*a):
+            t, w = time.perf_counter(), val_ld.wait
+            r = run_val(*a)
+            marks["val"].append((t, time.perf_counter(), val_ld.wait - w))
+            return r
+
+        trainer.train_epoch, trainer.validate = timed_epoch, timed_val
+        einsum = [0]
+        bank_forward = MemoryBank.forward
+
+        def counting(self, y, mem):
+            einsum[0] += not self.fused
+            return bank_forward(self, y, mem)
+
+        MemoryBank.forward = counting
+        try:
+            # ---- the main path of this phase: counts set to 0 just before
+            ma.LAUNCHES = mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+            trainer.train_and_test()
+            launches = {"memory_attention_fused": ma.LAUNCHES,
+                        "memory_attention_train_fwd": mt.FWD_LAUNCHES,
+                        "memory_attention_train_bwd": mt.BWD_LAUNCHES}
+        finally:
+            MemoryBank.forward = bank_forward
+        text = open(os.path.join(trainer.log_dir, "log.txt")).read()
+        n_tests = text.count("Testing results:")
+        log(f"train_and_test (sta_final.yml, 2 epochs x {steps} steps of B=16, val "
+            f"{n_val}, test {n_test} x {n_tests}): launches {launches}, einsum-path bank "
+            f"forwards {einsum[0]}")
+        if launches["memory_attention_train_fwd"] != 2 * steps or \
+                launches["memory_attention_train_bwd"] != 2 * steps:
+            fail(f"train: {2 * steps} steps launched the training kernels "
+                 f"{launches['memory_attention_train_fwd']} / "
+                 f"{launches['memory_attention_train_bwd']} times")
+        if launches["memory_attention_fused"] < 2 * n_val + n_tests * n_test or einsum[0]:
+            fail("eval: a validation or test forward did not go through kernel #1")
+        for line in text.splitlines():
+            if not any(p.fullmatch(line) for p in LOG_LINES):
+                fail(f"log.txt line not of the JAX trainer's shapes: {line!r}")
+        losses = [float(x) for x in re.findall(r"Training loss: (\S+)", text)]
+        maes = [float(x) for x in re.findall(r"Val criterion: (\S+)", text)]
+        log(f"train losses {losses}, val MAE {maes}")
+        if len(losses) != 2 or len(maes) != 2 or not all(map(math.isfinite, losses + maes)):
+            fail("train_and_test: a loss or val MAE is missing or not finite")
+
+        # ---- times, from the wrappers' marks
+        for e, ((t0, t1, tw), (v0, v1, vw)) in enumerate(zip(marks["epoch"], marks["val"])):
+            log(f"epoch {e}: {t1 - t0:.3f} s; train loop with the loader "
+                f"{1e3 * (v0 - t0) / steps:.3f} ms/step, of which waiting for the loader "
+                f"{1e3 * tw / steps:.3f} ({steps} steps; phase 5, repeated batch: "
+                f"{step_ms_repeated:.3f} ms/step); val {1e3 * (v1 - v0) / n_val:.3f} "
+                f"ms/image, of which waiting for the loader {1e3 * vw / n_val:.3f} ({n_val} "
+                f"of {FRAME[0]}x{FRAME[1]}); checkpoints and the rest "
+                f"{t1 - v1:.3f} s [{gpu}]")
+
+        # ---- checkpoints: strict loads, and --task test from best_* on the CLI
+        best = glob.glob(os.path.join(trainer.log_dir, "best_*.pth"))
+        last = os.path.join(trainer.log_dir, "last.pth")
+        if len(best) != 1 or not os.path.exists(last):
+            fail(f"checkpoints missing: last {os.path.exists(last)}, best {best}")
+        params = raw["model"]["params"]
+        for path in (last, best[0]):
+            VideoCounter.from_checkpoint("final", path, dtype=torch.bfloat16, **params)
+        log(f"VideoCounter.from_checkpoint strict-loaded {os.path.basename(last)} and "
+            f"{os.path.basename(best[0])}")
+        want = trainer.test(checkpoint=best[0])
+        out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", "--config", cfg_path,
+                              "--task", "test", "--ckpt", best[0]], capture_output=True,
+                             text=True, timeout=300, cwd=ROOT)
+        if out.returncode:
+            fail(f"CLI test exited {out.returncode}:\n{out.stderr[-3000:]}")
+        line = [ln for ln in out.stdout.splitlines() if ln.startswith("Testing results:")]
+        got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
+        log(f"CLI --task test {os.path.basename(best[0])}: {line[-1] if line else None}; "
+            f"in process: mae {want['mae']:.4f} mse {want['mse']:.4f}")
+        for k in ("mae", "mse"):
+            if k not in got or abs(float(got[k]) - want[k]) > TOL_CLI_TEST * max(want[k], 1.0):
+                fail(f"CLI --task test {k} {got.get(k)} != in-process {want[k]}")
+        return dmap_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def check_counts(name, got, want, want_label="einsum path"):
@@ -425,6 +748,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from dgvcc_tpu_torch.ops import _build
+    from dgvcc_tpu_torch.ops import dmap as dm
     from dgvcc_tpu_torch.ops import mem_attention as ma
     from dgvcc_tpu_torch.ops import mem_attention_train as mt
     from dgvcc_tpu_torch.serve import VideoCounter
@@ -458,6 +782,7 @@ def main():
     train_f32 = check_train_kernels(mt, TRAIN_B, TRAIN_P, torch.float32, 6)
     check_train_kernels(mt, 3, 6400 + 37, torch.bfloat16, 7)
     check_train_kernels(mt, 3, 6400 + 37, torch.float32, 8)
+    dmap_err = check_dmap(dm)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
     # ---- 3. serve the main path -------------------------------------------
@@ -550,12 +875,16 @@ def main():
     log(f"kernel B=4 f32: memory_attention_fused {kern32:.4f} ms, bound "
         f"{1e3 * 4.0 * 4 * P * K * S / PEAK_F32_FLOPS:.4f} ms (f32 CUDA-core "
         f"peak) [{gpu}]")
+    dmap_times = time_dmap(dm, gpu)
 
     # ---- 5. train the main path ----------------------------------------------
-    train_launches, train_times = train_phase(mt, gpu)
+    train_launches, train_times, step_ms = train_phase(mt, gpu)
+
+    # ---- 6. from files to a trained model ----------------------------------
+    dmap_launches = files_phase(ma, mt, dm, gpu, step_ms)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
-    # ---- 6. result --------------------------------------------------------
+    # ---- 7. result --------------------------------------------------------
     t4 = times[4]
     train_shape = {"B": TRAIN_B, "P": TRAIN_P, "K": K, "S": S, "views": 2,
                    "dtype": "bfloat16"}
@@ -583,7 +912,14 @@ def main():
         "max_abs_err_f32": train_f32["dy"], "dy_rel_norm_err": train_bf16["dy_rel"],
         "dm_rel_norm_err": train_bf16["dm_rel"],
         "loss_con_grad_rel_norm_err": max(train_bf16["con_dy_rel"], train_bf16["con_dm_rel"]),
-        **train_times["bwd"], "library_ms": None, "shape": train_shape}]}))
+        **train_times["bwd"], "library_ms": None, "shape": train_shape}, {
+        "name": "gaussian_density", "route": "cuda",
+        "source": "dgvcc_tpu_torch/csrc/dmap.cu",
+        "replaces": "dgvcc_tpu/ops/dmap.py:247",
+        "launches": dmap_launches, "ok": True,
+        "max_abs_err": dmap_err, "max_err": dmap_err, **dmap_times,
+        "shape": {"H": FRAME[0], "W": FRAME[1], "N": 1024, "sigma": 4.0, "radius": 7,
+                  "dtype": "float32"}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,20 +1,24 @@
 """Command line of the port.
 
-    python -m dgvcc_tpu_torch --config configs/X.yml --task serve \
-        --frames DIR [--ckpt x.pth] [--batch N] [--device cpu]
+    python -m dgvcc_tpu_torch --config configs/X.yml \
+        --task {train,test,vis,train_test,serve} [--ckpt x.pth] [--device cpu]
+        [--frames DIR] [--batch N]
 
-Reads the JAX package's YAML configs (core/config.py). ``--task serve``
-streams per-frame counts over a directory of images and prints one
-``name count`` line per frame and a throughput summary. The device is
-``cuda`` unless ``--device`` or the config's ``device:`` key starts with
-``cpu``. The other tasks of ``python -m dgvcc_tpu`` are not ported yet
-(ROADMAP.md, Queue 1; train / test / vis / train_test are item 3).
+Reads the JAX package's YAML configs (core/config.py). ``train``, ``test``,
+``vis`` and ``train_test`` drive ``train/trainer.py::DGTrainer`` (the log
+dir gets a snapshot of the config; ``--task test`` needs a checkpoint).
+``--task serve`` streams per-frame counts over a directory of images and
+prints one ``name count`` line per frame and a throughput summary. The
+device is ``cuda`` unless ``--device`` or the config's ``device:`` key
+starts with ``cpu``. The other tasks of ``python -m dgvcc_tpu`` are not
+ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import time
 
 TASKS = ("train", "test", "vis", "train_test", "generate", "serve", "export",
@@ -28,13 +32,6 @@ def _list_images(frames_dir: str):
     if not names:
         raise SystemExit(f"no images under {frames_dir}")
     return names
-
-
-def _device(cfg, override: str = None) -> str:
-    dev = str(override or cfg.device)
-    if dev.startswith("cpu"):
-        return "cpu"
-    return dev if dev.startswith("cuda") else "cuda"
 
 
 def _build_counter(cfg, device: str):
@@ -96,28 +93,46 @@ def _serve(cfg, frames_dir: str, batch: int, device: str):
           f"on {counter.device}")
 
 
+def _trainer_task(cfg, config_path: str, task: str, device: str):
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    trainer = DGTrainer(cfg, device=device)
+    # snapshot the config into the log dir (reference main.py:151)
+    shutil.copy(config_path, os.path.join(trainer.log_dir, os.path.basename(config_path)))
+    if task == "train":
+        trainer.train()
+    elif task == "test":
+        if cfg.checkpoint is None:
+            raise SystemExit("--task test requires a checkpoint (config key 'checkpoint' "
+                             "or --ckpt): random weights would report garbage metrics")
+        trainer.build()
+        trainer.load_ckpt(cfg.checkpoint)
+        trainer.test()
+    elif task == "vis":
+        trainer.vis(checkpoint=cfg.checkpoint)
+    else:
+        trainer.train_and_test()
+
+
 def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         ckpt: str = None, device: str = None):
     from dgvcc_tpu_torch.core.config import load_config
+    from dgvcc_tpu_torch.train.trainer import config_device
 
-    if task in ("train", "test", "vis", "train_test"):
-        raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
-                         "yet: it needs the data pipeline and DGTrainer, "
-                         "ROADMAP.md Queue 1 item 3 (the train step itself is "
-                         "dgvcc_tpu_torch.train; use python -m dgvcc_tpu for "
-                         "the task)")
-    if task != "serve":
+    if task not in ("train", "test", "vis", "train_test", "serve"):
         raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
                          "yet; see ROADMAP.md, Queue 1 (use python -m "
                          "dgvcc_tpu for it)")
     cfg = load_config(config_path)
     if ckpt is not None:
         cfg.checkpoint = ckpt
+    if task != "serve":
+        return _trainer_task(cfg, config_path, task, config_device(cfg, device))
     if isinstance(cfg.checkpoint, (list, tuple)):
         raise SystemExit("--task serve takes a single checkpoint path")
     if frames is None:
         raise SystemExit("--task serve requires --frames DIR")
-    _serve(cfg, frames, batch, _device(cfg, device))
+    _serve(cfg, frames, batch, config_device(cfg, device))
 
 
 def build_parser():

@@ -1,0 +1,23 @@
+"""File and console logger with the reference's log contract.
+
+A copy of ``dgvcc_tpu/core/logging.py``: every message is printed and
+appended to ``{log_dir}/log.txt`` like the reference Trainer.log
+(trainers/trainer.py:32-39), ``end=' '`` chaining metrics on one line.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+class RunLogger:
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_path = os.path.join(log_dir, "log.txt")
+
+    def log(self, msg: str, verbose: bool = True, end: str = "\n"):
+        if verbose:
+            print(msg, end=end, flush=True)
+        with open(self.log_path, "a") as f:
+            f.write(msg + end)

@@ -29,6 +29,9 @@ class Registry:
             return _do(fn)
         return _do
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._fns
+
     def build(self, name: str, **kwargs):
         return self.get(name)(**kwargs)
 
@@ -44,3 +47,4 @@ MODELS = Registry("model")
 LOSSES = Registry("loss")
 OPTIMIZERS = Registry("optimizer")
 SCHEDULERS = Registry("scheduler")
+DATASETS = Registry("dataset")

@@ -1,0 +1,324 @@
+"""Online datasets, counterpart of dgvcc_tpu/data/datasets.py.
+
+Copies of the JAX package's dataset classes (reference datasets/*.py):
+samples and batches are NHWC numpy dicts, ragged point lists are padded
+to bucketed shapes with validity masks, and every random decision draws
+from the per-sample ``random.Random`` the loader passes, in the JAX
+package's order, so one seed gives the same samples bit for bit.
+
+Registered: ``den`` (``DensityMapDataset``) and ``den_cls``
+(``DenClsDataset``), plus ``jhu_domain`` / ``jhu_domain_cls`` in
+``data/jhu.py``. The Bayesian-loss datasets (``bay``, ``jhu_domain_bay``)
+and the device-augmentation ``RawCropDataset`` are not ported: a config
+naming one raises with a pointer to ROADMAP.md.
+
+Kept from the JAX package, on purpose: ``den`` loads ``{name}_dmap.npy``
+(what ``data/dmap_cli.py`` writes) with a ``_dmap2`` fallback.
+
+Changed, on purpose: the second view of ``den_cls`` is made from the crop
+the first view's function returns. The JAX package keeps that crop on the
+dataset object (``self._last_pil``) and reads it back after the call, so
+with thread workers a sample can take another sample's crop as its second
+view; a crop passed back cannot be taken by another thread.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+from glob import glob
+from typing import Dict, List, Optional
+
+import numpy as np
+from PIL import Image
+
+from dgvcc_tpu_torch.core.registry import DATASETS
+from dgvcc_tpu_torch.data import transforms as T
+from dgvcc_tpu_torch.utils.misc import get_padding, random_crop
+
+
+def _point_bucket(n: int, step: int = 64) -> int:
+    return max(step, int(np.ceil(n / step)) * step)
+
+
+def pad_points(points_list: List[np.ndarray]) -> Dict[str, np.ndarray]:
+    """Ragged point lists -> (B, Nb, 2) points, (B, Nb) mask, (B,) counts."""
+    n_max = _point_bucket(max((len(p) for p in points_list), default=0))
+    b = len(points_list)
+    pts = np.zeros((b, n_max, 2), np.float32)
+    msk = np.zeros((b, n_max), bool)
+    for i, p in enumerate(points_list):
+        if len(p):
+            pts[i, :len(p)] = p
+            msk[i, :len(p)] = True
+    return {"points": pts, "pt_mask": msk,
+            "gt_count": np.asarray([len(p) for p in points_list], np.float32)}
+
+
+class CrowdDataset:
+    """(image, head points): reference datasets/base_dataset.py.
+
+    Layout: {root}/{train,val,test}/NAME.{jpg,png} + NAME.npy (points,
+    (N, 2) xy), with optional ``roi_map_path`` masking. Images of the
+    generation mode (``gen_root``, base_dataset.py:52-54, 89-92) and a
+    separate ``gt_dir`` are not ported. Subclasses give ``_train_sample``.
+    """
+
+    name = "base"
+
+    def __init__(self, root, crop_size, downsample, method, is_grey=False,
+                 unit_size=0, pre_resize=1, roi_map_path=None):
+        self.root = root
+        self.crop_size = (crop_size, crop_size) if isinstance(crop_size, int) else tuple(crop_size)
+        self.downsample = downsample
+        self.method = method
+        self.is_grey = is_grey
+        self.unit_size = unit_size
+        self.pre_resize = pre_resize
+        self.roi_map = (
+            np.load(roi_map_path, allow_pickle=True).tolist()
+            if roi_map_path is not None else None
+        )
+        if method not in ("train", "val", "test"):
+            raise ValueError("method must be train, val or test")
+        self.img_fns = self._list_images()
+
+    def _list_images(self):
+        return sorted(
+            glob(os.path.join(self.root, self.method, "*.jpg"))
+            + glob(os.path.join(self.root, self.method, "*.png"))
+        )
+
+    def __len__(self):
+        return len(self.img_fns)
+
+    # ---- IO ---------------------------------------------------------------
+
+    def _load_img(self, img_fn):
+        img = Image.open(img_fn).convert("RGB")
+        if self.roi_map is not None:
+            arr = np.array(img) * np.expand_dims(self.roi_map, 2)
+            img = Image.fromarray(arr.astype(np.uint8))
+        return img, os.path.splitext(img_fn)[1]
+
+    def _gt_path(self, img_fn, img_ext):
+        base = os.path.basename(img_fn).rsplit(".", 1)[0]
+        gt_fn = img_fn.replace(img_ext, ".npy")
+        # augmented-image aliases share the source gt (den_cls_dataset.py:44-47)
+        if base.endswith("_aug"):
+            gt_fn = gt_fn.replace("_aug", "")
+            base = base[:-4]
+        elif base.endswith("_aug2"):
+            gt_fn = gt_fn.replace("_aug2", "")
+            base = base[:-5]
+        return gt_fn, base
+
+    def _load_gt(self, gt_fn):
+        gt = np.load(gt_fn)
+        if self.roi_map is not None and len(gt) > 0:
+            roi = np.asarray(self.roi_map)
+            keep = roi[gt[:, 1].astype(int), gt[:, 0].astype(int)].astype(bool)
+            gt = gt[keep]
+        return gt.astype(np.float64).reshape(-1, 2)
+
+    def _load_dmap(self, gt_fn, base):
+        for suffix in ("_dmap", "_dmap2"):
+            p = gt_fn.replace(base + ".npy", base + suffix + ".npy")
+            if os.path.exists(p):
+                dmap = np.load(p)
+                break
+        else:
+            raise FileNotFoundError(f"no density map for {base} next to {gt_fn}")
+        if self.roi_map is not None:
+            # mask density outside the ROI like the image and points
+            # (den_dataset.py:27-31)
+            dmap = dmap * np.asarray(self.roi_map, np.float32)
+        return dmap
+
+    # ---- sampling ---------------------------------------------------------
+
+    def __getitem__(self, index, rng: Optional[random.Random] = None):
+        rng = rng or random
+        img_fn = self.img_fns[index]
+        img, img_ext = self._load_img(img_fn)
+        gt_fn, base = self._gt_path(img_fn, img_ext)
+        gt = self._load_gt(gt_fn)
+        if self.method == "train":
+            return self._train_sample(img, gt, gt_fn, base, rng)
+        return self._val_sample(img, gt, base, rng)
+
+    def _train_sample(self, img, gt, gt_fn, base, rng) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def _maybe_grey(self, img, rng):
+        if rng.random() > 0.88:
+            img = img.convert("L").convert("RGB")
+        return img
+
+    def _val_pad(self, img, gt):
+        """pre_resize + pad to a unit_size multiple (base_dataset.py:157-183)."""
+        if self.pre_resize != 1:
+            img = img.resize((int(img.size[0] * self.pre_resize),
+                              int(img.size[1] * self.pre_resize)))
+        if self.unit_size and self.unit_size > 0:
+            w, h = img.size
+            us = self.unit_size
+            new_w = w if w % us == 0 else (w // us + 1) * us
+            new_h = h if h % us == 0 else (h // us + 1) * us
+            padding, h, w = get_padding(h, w, new_h, new_w)
+            img = T.pil_pad(img, padding)
+            if len(gt) > 0:
+                gt = gt + [padding[0], padding[1]]
+        else:
+            padding = (0, 0, 0, 0)
+        return img, gt, padding
+
+    def _val_view(self, img, gt, name):
+        """(sample, the padded PIL image it was made from)."""
+        img, gt, padding = self._val_pad(img, gt)
+        gt = gt / self.downsample
+        return {
+            "img1": T.to_tensor_normalize(img),
+            "gt": gt.astype(np.float32),
+            "name": name,
+            "padding": padding,
+        }, img
+
+    def _val_sample(self, img, gt, name, rng) -> Dict:
+        return self._val_view(img, gt, name)[0]
+
+
+@DATASETS.register("den")
+class DensityMapDataset(CrowdDataset):
+    """(image, points, density map): reference datasets/den_dataset.py.
+
+    Train: the dmap is resized with mass renormalization, cropped, and
+    sum-pool downsampled (den_dataset.py:75-111), so the count is kept.
+    """
+
+    name = "den"
+
+    def _train_sample(self, img, gt, gt_fn, base, rng):
+        dmap = self._load_dmap(gt_fn, base).astype(np.float32)
+        return self._train_with_dmap(img, gt, dmap, rng)[0]
+
+    def _train_with_dmap(self, img, gt, dmap, rng, resize_enabled=True):
+        """(sample, the final PIL crop it was made from)."""
+        w, h = img.size
+        img = self._maybe_grey(img, rng)
+
+        if resize_enabled:
+            # den resizes unconditionally (the min-size guard is commented
+            # out in den_dataset.py:70; the padding below handles images
+            # that shrink under the crop size)
+            factor = self.pre_resize * (rng.random() * 0.5 + 0.75)
+            new_w, new_h = int(w * factor), int(h * factor)
+            if factor != 1.0:
+                w, h = new_w, new_h
+                img = img.resize((w, h))
+                mass = dmap.sum()
+                dimg = Image.fromarray(dmap)
+                dmap = np.asarray(dimg.resize((w, h), Image.BILINEAR), np.float32)
+                if dmap.sum() > 0:
+                    dmap = dmap * (mass / dmap.sum())  # mass renorm (den_dataset.py:75-78)
+                gt = gt * factor
+
+        if min(w, h) < min(self.crop_size):
+            padding, h, w = get_padding(h, w, self.crop_size[0], self.crop_size[1])
+            img = T.pil_pad(img, padding)
+            dmap = T.np_pad_hw(dmap, padding)
+            if len(gt) > 0:
+                gt = gt + [padding[0], padding[1]]
+
+        i, j = random_crop(h, w, self.crop_size[0], self.crop_size[1], rng)
+        h, w = self.crop_size
+        img = img.crop((j, i, j + w, i + h))
+        dmap = dmap[i : i + h, j : j + w]
+        if len(gt) > 0:
+            gt = gt - [j, i]
+            keep = (gt[:, 0] >= 0) & (gt[:, 0] <= w) & (gt[:, 1] >= 0) & (gt[:, 1] <= h)
+            gt = gt[keep]
+        else:
+            gt = np.empty([0, 2])
+
+        # count-preserving sum-pool downsample (den_dataset.py:109-111)
+        ds = self.downsample
+        if ds > 1:
+            dh, dw = h // ds, w // ds
+            dmap = dmap.reshape(dh, ds, dw, ds).sum(axis=(1, 3))
+        if len(gt) > 0:
+            gt = gt / ds
+
+        if rng.random() > 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            dmap = dmap[:, ::-1].copy()
+            if len(gt) > 0:
+                gt[:, 0] = (w // ds if ds > 1 else w) - gt[:, 0]
+
+        return {
+            "img1": T.to_tensor_normalize(img),
+            "gt": gt.astype(np.float32),
+            "dmap": dmap[..., None].astype(np.float32),
+        }, img
+
+    @staticmethod
+    def collate(samples):
+        out = {
+            "img1": np.stack([s["img1"] for s in samples]),
+            "dmap": np.stack([s["dmap"] for s in samples]),
+        }
+        out.update(pad_points([s["gt"] for s in samples]))
+        return out
+
+
+@DATASETS.register("den_cls")
+class DenClsDataset(DensityMapDataset):
+    """Two views with a foreground block map: reference
+    datasets/den_cls_dataset.py. img1 = the clean crop, img2 = heavy
+    photometric aug of the SAME crop; bmap = (16x16 block sum of dmap) > 0
+    (den_cls_dataset.py:62-64). Random resize is off
+    (den_cls_dataset.py:87-101)."""
+
+    name = "den_cls"
+    BLOCK = 16
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.photo = T.TwoViewPhotometric()
+
+    def _train_sample(self, img, gt, gt_fn, base, rng):
+        dmap = self._load_dmap(gt_fn, base).astype(np.float32)
+        s, crop = self._train_with_dmap(img, gt, dmap, rng, resize_enabled=False)
+        s["img2"] = T.to_tensor_normalize(self.photo(crop, rng))
+        d = s["dmap"][..., 0]
+        bh, bw = d.shape[0] // self.BLOCK, d.shape[1] // self.BLOCK
+        block = d.reshape(bh, self.BLOCK, bw, self.BLOCK).sum(axis=(1, 3))
+        s["bmap"] = (block > 0).astype(np.float32)[..., None]
+        return s
+
+    def _val_sample(self, img, gt, name, rng):
+        s, padded = self._val_view(img, gt, name)
+        s["img2"] = T.to_tensor_normalize(self.photo(padded, rng))
+        return s
+
+    @staticmethod
+    def collate(samples):
+        out = {
+            "img1": np.stack([s["img1"] for s in samples]),
+            "img2": np.stack([s["img2"] for s in samples]),
+            "dmap": np.stack([s["dmap"] for s in samples]),
+            "bmap": np.stack([s["bmap"] for s in samples]),
+        }
+        out.update(pad_points([s["gt"] for s in samples]))
+        return out
+
+
+def _not_ported(name):
+    def build(**_):
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported to dgvcc_tpu_torch yet: it feeds the "
+            "Bayesian loss, ROADMAP.md Queue 1 item 6")
+    DATASETS.register(name, build)
+
+
+_not_ported("bay")

@@ -1,2 +1,2 @@
-"""Training of the port: optimizers and schedulers, the train state and
-the per-mode train step."""
+"""Training of the port: optimizers and schedulers, the train state, the
+per-mode train step, checkpoints and the trainer."""

@@ -48,6 +48,14 @@ def main():
     h, w, n = 768, 1024, 1024  # density map of a 768x1024 image, 1024 points
     row(f"#4 gaussian_density_pallas {h}x{w} N={n}",
         2.0 * h * w * n, "f32", 4.0 * (h * w + 3 * n))
+    # the port's kernel (csrc/dmap.cu) does the sparse work instead: one
+    # multiply-add per pixel of each point's (2r+1)^2 window (r = 7), the
+    # map written once, the points (x, y f32 and a mask byte) read once;
+    # each of the (h/32)*(w/32) blocks also tests every point for its tile
+    # (from L2, not counted as HBM bytes)
+    r = 7
+    row(f"#4 as ported (sparse) {h}x{w} N={n}, {h // 32 * (w // 32)} tiles",
+        2.0 * (2 * r + 1) ** 2 * n, "f32", 4.0 * h * w + 9.0 * n)
 
 
 if __name__ == "__main__":

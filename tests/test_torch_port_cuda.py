@@ -15,7 +15,8 @@ gradients 0.05 / 0.02 and dM to 0.02 in relative norm
 (tests/test_mem_attention_train.py), and bf16 outputs and dy also to 1e-2
 in relative norm (the kernel rounds dl to bf16, the plain version does
 not). The gradients of the consistency loss alone: relative norm 1e-4 in
-f32, 1e-2 in bf16.
+f32, 1e-2 in bf16. The density-map kernel: atol 1e-5 / rtol 1e-4 against
+its plain version and the numpy golden (f32, other summation order).
 """
 
 import pytest
@@ -142,6 +143,54 @@ def test_train_kernels_match_plain(cuda, dtype, b, p, k, s):
 
 def _rel_norm(a, r):
     return ((a.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30)).item()
+
+
+def _dmap_points(h, w, n, seed):
+    """n points over the image and a margin around it, a few on every
+    border, some in (-1, 0) (truncated onto row / column 0) and some
+    outside the image; the last quarter masked off as pad rows."""
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.rand(n, 2, generator=g) * torch.tensor([w + 20.0, h + 20.0]) - 10.0
+    if n >= 12:
+        pts[:8] = torch.tensor([[0.0, 0.0], [w - 0.5, h - 0.5], [-0.4, h / 2],
+                                [w / 2, -0.7], [w - 1.0, 3.0], [5.0, h - 1.0],
+                                [w + 0.5, 2.0], [-1.5, 4.0]])
+    mask = torch.ones(n, dtype=torch.bool)
+    mask[3 * n // 4:] = False
+    return pts, mask
+
+
+@pytest.mark.parametrize("h,w,n", [(768, 1024, 1024), (1080, 1920, 4000), (768, 1024, 0),
+                                   (17, 23, 40)])
+def test_dmap_kernel_matches_plain(cuda, h, w, n):
+    """Kernel #4 against its plain version (A . B^T, TF32 off) on the card:
+    atol 1e-5, rtol 1e-4 (float32; the kernel sums the covering points in
+    point order, the product in its own order)."""
+    from dgvcc_tpu_torch.ops import dmap
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pts, mask = _dmap_points(h, w, n, seed=h + w + n)
+    before = dmap.LAUNCHES
+    out = dmap.gaussian_density(pts.to(cuda), mask.to(cuda), h, w)
+    torch.cuda.synchronize()
+    assert dmap.LAUNCHES == before + 1
+    assert out.shape == (h, w) and out.dtype == torch.float32
+    ref = dmap.gaussian_density_reference(pts.to(cuda), mask.to(cuda), h, w)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+    golden = dmap.gaussian_density_fixed_np((h, w), pts[mask].numpy())
+    torch.testing.assert_close(out.cpu(), torch.from_numpy(golden), atol=1e-5, rtol=1e-4)
+
+
+def test_dmap_kernel_rejects_what_it_cannot_take(cuda):
+    from dgvcc_tpu_torch.ops import dmap
+
+    pts, mask = _dmap_points(10, 10, 16, seed=0)
+    with pytest.raises(TypeError):
+        dmap.gaussian_density(pts.double().to(cuda), mask.to(cuda), 10, 10)
+    with pytest.raises(ValueError, match="CUDA device"):
+        dmap.gaussian_density(pts.to(cuda), mask, 10, 10)
+    with pytest.raises(ValueError, match="radius"):
+        dmap.gaussian_density(pts.to(cuda), mask.to(cuda), 10, 10, sigma=40.0)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])

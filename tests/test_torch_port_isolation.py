@@ -68,3 +68,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_trainer_counter_and_dmap_cli_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour where CUDA is absent")
+    from dgvcc_tpu_torch.core.config import Config
+    from dgvcc_tpu_torch.data import dmap_cli
+    from dgvcc_tpu_torch.ops.tiling import TiledCounter
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    cfg = Config.from_dict({"device": "tpu", "log_dir": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DGTrainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TiledCounter(torch.nn.Linear(2, 1), 1000.0, 64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dmap_cli.generate([])
+    assert TiledCounter(torch.nn.Linear(2, 1), 1000.0, 64, device="cpu").device.type == "cpu"

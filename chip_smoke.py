@@ -11,7 +11,12 @@ Phases, each of which exits non-zero on failure:
    (nvcc, sm_90a, into build/torch_ext/);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it: the serving kernel at K=256, S=1024,
-   P=192*256 per 768x1024 frame, B=4; the two-view training kernels
+   P=192*256 per 768x1024 frame, B=4, and in bf16 at its edges (rows
+   below one 128-row tile, the validation shape B=1, S below one chunk,
+   S % 8 != 0, every width) and bit for bit across two calls; its build
+   must hold wgmma fed by TMA (SASS: HGMMA and UTMALDG, no HMMA) with no
+   serialised wgmma (ptxas C7512) and no spill at K=256; the
+   two-view training kernels
    (forward and backward) at B=16, P=80*80 per 320x320 crop, both views,
    under a mixed objective and under the consistency loss alone;
    each in bf16 and f32, plus an awkward size;
@@ -144,24 +149,58 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def check_kernel(ma, b, p, dtype, tol, seed):
+def check_kernel(ma, b, p, dtype, tol, seed, k=K, s=S):
+    """Kernel #1 against its f32 plain version on the same inputs; with
+    two calls bit for bit in bf16 (no float atomics)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    y = torch.randn(b, p, K, generator=g, device="cuda").to(dtype)
-    mem = torch.randn(K, S, generator=g, device="cuda").to(dtype)
+    y = torch.randn(b, p, k, generator=g, device="cuda").to(dtype)
+    mem = torch.randn(k, s, generator=g, device="cuda").to(dtype)
     out = ma.memory_attention_fused(y, mem)
+    again = ma.memory_attention_fused(y, mem)
     torch.cuda.synchronize()
     ref = ma.memory_attention_reference(y.float(), mem.float())
     err = (out.float() - ref).abs()
     max_abs = err.max().item()
     max_rel = (err / ref.abs().clamp_min(1e-3)).max().item()
-    ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol))
-    log(f"kernel {str(dtype):>14} B={b} P={p} K={K} S={S}: max_abs_err="
-        f"{max_abs:.3e} max_rel_err(|ref|>=1e-3)={max_rel:.3e} tol={tol} "
-        f"{'ok' if ok else 'MISMATCH'}")
+    same = bool(torch.equal(out, again))
+    ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)) and same
+    log(f"kernel {str(dtype):>14} B={b} P={p} K={k} S={s}: max_abs_err="
+        f"{max_abs:.3e} max_rel_err(|ref|>=1e-3)={max_rel:.3e} tol={tol}, two calls "
+        f"{'bit-identical' if same else 'DIFFER'} {'ok' if ok else 'MISMATCH'}")
     if not ok:
-        fail(f"memory_attention_fused disagrees with its plain version "
-             f"({dtype}, B={b}, P={p})")
+        fail(f"memory_attention_fused disagrees with its plain version or with "
+             f"itself ({dtype}, B={b}, P={p}, K={k}, S={s})")
     return max_abs
+
+
+# kernel #1's bf16 edges (B, P, K, S): rows below one 128-row tile, the
+# validation shape (B=1), S below one 64-prototype chunk, S % 8 != 0 at
+# K=256 (M padded for its tensor map), every width
+EDGES_BF16 = ((1, 37, 256, 1024), (1, P, 256, 1024), (2, 300, 256, 40),
+              (1, 1001, 256, 1001), (2, 333, 16, 200), (2, 333, 32, 200),
+              (2, 333, 64, 200), (2, 333, 128, 200), (2, 333, 256, 200))
+MMA_SYNC_BF16_ERR = 1.793e-3  # the earlier mma.sync kernel's, B=4 (PERF.md)
+
+
+def check_sass(lib):
+    """Kernel #1's bf16 instantiations run on wgmma fed by TMA: their SASS
+    holds HGMMA and UTMALDG and no HMMA (the earlier kernel's mma.sync)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        fail("cuobjdump not found: kernel #1's SASS cannot be checked")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    bodies = [f for f in re.split(r"\n\s*Function : ", sass)
+              if "mem_attention_bf16_kernel" in f.splitlines()[0]]
+    counts = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in bodies)
+              for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
+    log(f"SASS of {os.path.basename(lib)}, {len(bodies)} bf16 kernels: {counts}")
+    if len(bodies) != 5 or not counts["HGMMA"] or not counts["UTMALDG"] or counts["HMMA"]:
+        fail("kernel #1's bf16 build does not run on wgmma fed by TMA")
+    return counts
 
 
 def train_objective(dtype):
@@ -768,12 +807,26 @@ def main():
                 log(f"nvcc {name}: {line.strip()}")
     log(f"built {sorted(logs) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f}s")
+    # the report of the library on disk (kept beside it), built now or not;
+    # a serialised wgmma (C7512) or a spill halves the kernel's speed and
+    # passes every check of its values, so it fails here
+    ptxas_k256 = _build.ptxas_report(_build.build_log("mem_attention"),
+                                     "mem_attention_bf16_kernelILi256E")
+    log(f"ptxas, kernel #1 bf16 K=256: {' | '.join(ptxas_k256)}")
+    faults = _build.ptxas_faults(ptxas_k256)
+    if faults:
+        fail(f"kernel #1's bf16 K=256 build: {'; '.join(faults)}")
+    sass = check_sass(str(_build.library_path("mem_attention")))
 
     # ---- 2. kernels vs plain versions -------------------------------------
     err_bf16 = check_kernel(ma, 4, P, torch.bfloat16, TOL_BF16, 1)
+    log(f"kernel #1 bf16 B=4: max_abs_err {err_bf16:.3e} (the earlier mma.sync "
+        f"kernel: {MMA_SYNC_BF16_ERR:.3e})")
     err_f32 = check_kernel(ma, 4, P, torch.float32, TOL_F32, 2)
     check_kernel(ma, 3, 6400 + 37, torch.bfloat16, TOL_BF16, 3)
     check_kernel(ma, 3, 6400 + 37, torch.float32, TOL_F32, 4)
+    err_edges = max(check_kernel(ma, b, p, torch.bfloat16, TOL_BF16, 60 + i, k, s)
+                    for i, (b, p, k, s) in enumerate(EDGES_BF16))
     # the plain versions' float32 products in full float32 for these
     # comparisons (TF32 off); the flags are put back after them
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -895,8 +948,11 @@ def main():
         "replaces": "dgvcc_tpu/ops/mem_attention.py:59",
         "launches": launches, "ok": True,
         "max_abs_err": err_bf16, "max_err": err_bf16, "max_abs_err_f32": err_f32,
+        "max_abs_err_edges": err_edges, "ptxas_k256": ptxas_k256, "sass": sass,
         "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
         "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
+        "ms_b1": times[1]["ms"], "library_ms_b1": times[1]["library_ms"],
+        "bound_ms_b1": times[1]["bound_ms"],
         "shape": {"B": 4, "P": P, "K": K, "S": S, "dtype": "bfloat16"}}, {
         "name": "memory_attention_train_fwd", "route": "cuda", "source": source,
         "replaces": "dgvcc_tpu/ops/mem_attention_train.py:134",

@@ -3,7 +3,8 @@
 //
 //     out[r, :] = softmax_S(y[r, :] . M / sqrt(K)) . M^T      r < rows
 //
-// y: (rows, K) row-major, M: (K, S) row-major, out: (rows, K) in y's type.
+// y: (rows, K) row-major, M: (K, S) row-major with rows `ld` values apart,
+// out: (rows, K) in y's type.
 //
 // Replaces the Pallas TPU kernel dgvcc_tpu/ops/mem_attention.py
 // (_kernel / memory_attention_fused), which holds the whole bank in VMEM
@@ -15,210 +16,348 @@
 // moved (bf16 y in, out) -- 1024 flops per byte at K=256, S=1024, far
 // above the card's ~295 bf16 flops per byte, so the tensor cores bound it.
 //
-// bf16 kernel: one pass with an online softmax (flash-attention style).
-// A block of 4 warps takes 64 rows, 16 per warp, and two blocks share an
-// SM (107.5 KB of shared memory each at K=256); the y tile stays in
-// shared memory, and M streams through a double buffer of S-chunks
-// (cp.async). For each chunk a warp computes its logits with bf16
-// mma.sync m16n8k16 (f32 accumulation: bf16 x bf16 is exact in f32),
-// updates each row's running max and sum in f32, and accumulates
-// p . M^T into registers, rescaling them when the max grows. p stays in
-// f32 as the Pallas kernel keeps it: it is split p = hi + lo into two bf16
-// values (16 significant bits, more than TF32) and p . M^T = hi . M^T +
-// lo . M^T, so p is never rounded to bf16 as the einsum path does. The
-// (rows, S) attention never reaches device memory.
+// bf16 kernel: one pass with an online softmax (flash-attention style) on
+// wgmma, fed by TMA, warp-specialised, persistent.
+//   * A block is one producer warpgroup, in which one thread issues every
+//     TMA load, and kConsumers warpgroups of 64 rows each; setmaxnreg
+//     moves registers from the producer to the consumers.
+//   * One block per SM walks over 128-row tiles. The producer loads a y
+//     tile (128 x K) once per tile into one of kYBufs buffers, and M in
+//     S-chunks (K x kChunk) into a ring of kStages stages, each guarded by
+//     a full and an empty mbarrier. TMA zero-fills rows past `rows` and
+//     columns past S; the kernel masks s >= S to -inf.
+//   * Both products read the same shared copy of an M chunk: the logits
+//     y . M with wgmma (A = the y tile, B = the chunk through an MN-major
+//     descriptor), then o += p . M^T with the register form of wgmma (A =
+//     p packed to bf16 from the logits' accumulators, B = the same chunk
+//     through a K-major descriptor). The online softmax (running max and
+//     sum in f32, exp2 with log2(e) folded into the scale) runs on the
+//     accumulator layout in registers. A warpgroup issues the next chunk's
+//     logits and this chunk's p . M^T together and takes the softmax while
+//     the second runs, and the two consumer warpgroups take turns to issue
+//     (ping-pong), so one's softmax overlaps the other's products.
+//   * p is rounded to bf16 for the second product, as SDPA and the JAX
+//     package's bf16 einsum path round the attention; o, the sum and the
+//     max stay f32. The epilogue normalises o, stages it in bf16 in the
+//     warpgroup's rows of the y tile and writes it with a TMA store
+//     (clipped at `rows`).
+//   * No float atomics: every output row is written once, by one block.
+//   * The constants below are the design's; scripts/sweep_mem_attention.py
+//     builds and times their variants (H100 times in PERF.md: 64-prototype
+//     chunks, 3 stages and 2 y buffers measured fastest).
 //
 // f32 kernel: two passes (row statistics, then the normalised p) in plain
 // f32 FMA on the CUDA cores, no TF32 anywhere.
 //
 // Any number of rows (masked tail) and any S (masked tail); K must be one
-// of the instantiated widths (16, 32, 64, 128, 256).
+// of the instantiated widths (16, 32, 64, 128, 256). The bf16 kernel needs
+// 16-byte aligned y, M and out and a row pitch `ld` of M that is a
+// multiple of 8 (the wrapper pads M's columns).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
-using namespace mma_sm90;
+using namespace wgmma_sm90;
 
-// ------------------------------------------------------ bf16 / mma.sync
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;   // rows per block, 16 per warp
-constexpr int kChunk = 64;           // prototypes per S-chunk
-constexpr int kLdM = kChunk + 8;     // bf16 row pitch of an M chunk (144 B)
+// -------------------------------------------------------- bf16 / wgmma, TMA
+constexpr int kChunk = 64;        // prototypes per S-chunk, a multiple of 64
+constexpr int kStages = 3;        // M chunks in flight
+constexpr int kYBufs = 2;         // y tiles in flight (the next tile's loads early)
+constexpr int kConsumers = 2;     // consumer warpgroups, 64 rows each, taking turns
+constexpr int kTileRows = 64 * kConsumers;
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 * (40 + 2 * 232) = 384 * 168
+constexpr int kSmemMax = 232448;
+constexpr int kEpilogueBar = 1;   // named barriers: 1 + wg (a warpgroup's epilogue),
+constexpr int kTurnBar = 3;       // 3 + wg (its turn to issue products)
+static_assert(kConsumers == 2, "ping-pong: two consumer warpgroups");
 
 template <int K>
-struct MmaSmem {
-  static constexpr int kLdY = K + 8;                               // bf16 pitch
-  static constexpr size_t y = 0;                                   // kRows x kLdY
-  static constexpr size_t m = size_t(kRows) * kLdY * 2;            // 2 x K x kLdM
-  static constexpr size_t m_stage = size_t(K) * kLdM * 2;
-  static constexpr size_t bytes = m + 2 * m_stage;
+struct Layout {
+  static constexpr int kPw = K < 64 ? K : 64;            // values per y row of a panel
+  static constexpr int kRowBytes = 2 * kPw;              // = the y tile's swizzle
+  static constexpr int kPanels = K / kPw;
+  static constexpr uint32_t kYPanel = kTileRows * kRowBytes;
+  static constexpr uint32_t kYTile = kYPanel * kPanels;  // 128 x K bf16
+  static constexpr uint32_t kMPanel = K * 128;           // K rows x 64 prototypes
+  static constexpr uint32_t kMStage = kMPanel * (kChunk / 64);
+  static constexpr uint32_t y = 0;                       // offsets from a 1024-aligned base
+  static constexpr uint32_t m = y + kYBufs * kYTile;
+  static constexpr uint32_t bars = m + kStages * kMStage;
+  static constexpr uint32_t bytes = bars + 16 * (kYBufs + kStages) + 1024;  // + alignment
+  static_assert(kChunk % 64 == 0, "kChunk");
+  static_assert(bytes <= kSmemMax, "shared memory");
 };
 
-// p = hi + lo: two bf16 pairs carrying (x0, x1) to 16 significant bits
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+constexpr int kPanelsS = kChunk / 64;  // 64-prototype panels of a chunk
+
+// s = y . M[:, chunk] (issued, not waited for): A = this warpgroup's 64 y
+// rows at `ya` (K-major, y's swizzle), B = the chunk at `mb` (MN-major,
+// 128 B). A slice's descriptor is the base one plus its offset >> 4.
+template <int K>
+__device__ __forceinline__ void issue_logits(float (&s)[kPanelsS][32], uint32_t ya, uint32_t mb) {
+  using L = Layout<K>;
+  constexpr int kSlicesY = L::kPw / 16;  // k16 slices per y panel
+  const uint64_t da = make_desc(ya, 16, 8 * L::kRowBytes, L::kRowBytes);
+  const uint64_t db = make_desc(mb, L::kMPanel, 1024, 128);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int pp = 0; pp < kPanelsS; ++pp)
+      wgmma_ss<64, 0, 1>(s[pp], da + (((kk / kSlicesY) * L::kYPanel + (kk % kSlicesY) * 32) >> 4),
+                         db + ((pp * L::kMPanel + kk * 2048) >> 4), kk > 0);
+}
+
+// o += p . M[:, chunk]^T (issued, not waited for): A = p in registers,
+// B = the same chunk at `mb` (K-major, 128 B)
+template <int K>
+__device__ __forceinline__ void issue_accumulate(float (&o)[K / 2],
+                                                 const uint32_t (&pa)[kChunk / 16][4],
+                                                 uint32_t mb) {
+  using L = Layout<K>;
+  const uint64_t db = make_desc(mb, 16, 1024, 128);
+#pragma unroll
+  for (int j = 0; j < kChunk / 16; ++j)
+    wgmma_rs<K, 0>(o, pa[j], db + (((j / 4) * L::kMPanel + (j % 4) * 32) >> 4), 1);
+}
+
+// s (logits of the chunk from s0, accumulator layout) -> exp2 values; the
+// running max (log2 units) and this thread's share of the sum of rows g,
+// g + 8; alpha rescales what o holds of the chunks before
+__device__ __forceinline__ void online_softmax(float (&s)[kPanelsS][32], float (&m_run)[2],
+                                               float (&l_run)[2], float (&alpha)[2], int s0,
+                                               int S, int q, float scale_log2) {
+  const bool tail = s0 + kChunk > S;
+  const int lim = S - s0 - 2 * q;  // column 64 pp + 8 (i / 4) + (i & 1) of the chunk is >= S
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int pp = 0; pp < kPanelsS; ++pp)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float v = s[pp][i] * scale_log2;
+      if (tail && 64 * pp + 8 * (i / 4) + (i & 1) >= lim) v = -INFINITY;
+      s[pp][i] = v;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m_run[h], mx[h]);  // finite: every chunk has a column < S
+    alpha[h] = fast_exp2(m_run[h] - m_new);
+    m_run[h] = m_new;
+    l_run[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int pp = 0; pp < kPanelsS; ++pp)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float e = fast_exp2(s[pp][i] - m_run[(i >> 1) & 1]);
+      l_run[(i >> 1) & 1] += e;
+      s[pp][i] = e;
+    }
+}
+
+// p (f32 accumulator layout) -> bf16 A fragments of the k16 slices
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kChunk / 16][4],
+                                       const float (&s)[kPanelsS][32]) {
+#pragma unroll
+  for (int j = 0; j < kChunk / 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[j][i] = pack_bf16(s[j / 4][8 * (j % 4) + 2 * i], s[j / 4][8 * (j % 4) + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+__device__ __forceinline__ void fence_chunk(float (&s)[kPanelsS][32]) {
+#pragma unroll
+  for (int pp = 0; pp < kPanelsS; ++pp) fence_regs(s[pp]);
+}
+__device__ __forceinline__ void fence_chunk(uint32_t (&pa)[kChunk / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kChunk / 16; ++j) fence_regs(pa[j]);
 }
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, 2)
-mem_attention_bf16_kernel(const __nv_bfloat16* __restrict__ y,
-                          const __nv_bfloat16* __restrict__ mem,
-                          __nv_bfloat16* __restrict__ out,
-                          int64_t rows, int S, float scale) {
-  using L = MmaSmem<K>;
-  constexpr int kLdY = L::kLdY;
-  constexpr int kNt = K / 8;  // n8 tiles of the output row
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem + L::y);
-  __nv_bfloat16* ms0 = reinterpret_cast<__nv_bfloat16*>(smem + L::m);
-  __nv_bfloat16* ms1 = reinterpret_cast<__nv_bfloat16*>(smem + L::m + L::m_stage);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
-  const int64_t row0 = int64_t(blockIdx.x) * kRows;
+__global__ void __launch_bounds__(kThreads, 1)
+mem_attention_bf16_kernel(const __grid_constant__ CUtensorMap y_map,
+                          const __grid_constant__ CUtensorMap m_map,
+                          const __grid_constant__ CUtensorMap out_map, int n_tiles, int S,
+                          float scale_log2) {
+  using L = Layout<K>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* y_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* y_empty = y_full + kYBufs;
+  uint64_t* m_full = y_empty + kYBufs;
+  uint64_t* m_empty = m_full + kStages;
   const int n_chunks = (S + kChunk - 1) / kChunk;
 
-  // prologue: the y tile and M chunk 0 in one cp.async group
-  for (int i = threadIdx.x; i < kRows * (K / 8); i += kThreads) {
-    const int r = i / (K / 8), v = i % (K / 8);
-    const bool in = row0 + r < rows;
-    cp_async16(ys + r * kLdY + v * 8, in ? y + (row0 + r) * K + v * 8 : y, in ? 16 : 0);
-  }
-  load_m_chunk<K, kChunk, kThreads>(mem, S, 0, ms0);
-  cp_async_commit();
-
-  // ldmatrix lane addressing: lane l supplies row (l & 7) of 8x8 matrix l >> 3
-  const int mi = lane >> 3, mr = lane & 7;
-  const __nv_bfloat16* ya = ys + (warp * 16 + (mi & 1) * 8 + mr) * kLdY + (mi >> 1) * 8;
-
-  float o[kNt][4];
-#pragma unroll
-  for (int n = 0; n < kNt; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8
-  float l_run[2] = {0.f, 0.f};               // this thread's share of the sum
-
-  for (int c = 0; c < n_chunks; ++c) {
-    const int s0 = c * kChunk;
-    const __nv_bfloat16* ms = (c & 1) ? ms1 : ms0;
-    if (c + 1 < n_chunks) {
-      load_m_chunk<K, kChunk, kThreads>(mem, S, s0 + kChunk, (c & 1) ? ms0 : ms1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kYBufs; ++i) {
+      mbar_init(y_full + i, 1);
+      mbar_init(y_empty + i, kConsumers);
     }
-    __syncthreads();
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(m_full + i, 1);
+      mbar_init(m_empty + i, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // logits of the warp's 16 rows x kChunk columns
-    float sc[kChunk / 8][4];
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, ya + kk * 16);
-#pragma unroll
-      for (int np = 0; np < kChunk / 16; ++np) {
-        // B = M chunk rows k, columns s: transposed 8x8 loads give (k pair, s)
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, ms + (kk * 16 + (mi & 1) * 8 + mr) * kLdM + np * 16 + (mi >> 1) * 8);
-        mma_bf16(sc[2 * np], a, b[0], b[1]);
-        mma_bf16(sc[2 * np + 1], a, b[2], b[3]);
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(y_map);
+      tma_prefetch_map(m_map);
+      tma_prefetch_map(out_map);
+      uint32_t it = 0, t = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++t) {
+        const uint32_t yb = t % kYBufs;
+        mbar_wait(y_empty + yb, ((t / kYBufs) & 1) ^ 1);
+        mbar_arrive_expect_tx(y_full + yb, L::kYTile);
+        unsigned char* ys = smem + L::y + yb * L::kYTile;
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_2d(ys + p * L::kYPanel, y_map, p * L::kPw, tile * kTileRows, y_full + yb);
+        for (int c = 0; c < n_chunks; ++c, ++it) {
+          const uint32_t st = it % kStages;
+          mbar_wait(m_empty + st, ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(m_full + st, L::kMStage);
+          unsigned char* ms = smem + L::m + st * L::kMStage;
+          for (int p = 0; p < kChunk / 64; ++p)
+            tma_load_2d(ms + p * L::kMPanel, m_map, c * kChunk + p * 64, 0, m_full + st);
+        }
       }
     }
+  } else {
+    // ---------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    // warp-uniform to the compiler (a broadcast), so that the descriptors
+    // derived from it live in uniform registers
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+    const int lt = threadIdx.x % 128;
+    const int warp = lt / 32, lane = lt % 32;
+    const int q = lane % 4;  // the accumulator's column pair
+    uint32_t it = 0, t = 0;
+    // a warpgroup issues its products between turn_begin and turn_end; the
+    // two take turns, starting with warpgroup 0, so that one's softmax runs
+    // while the other's products keep the tensor cores busy
+    if (wg == 0) named_barrier_arrive(kTurnBar, 256);
+    auto turn_begin = [&] { named_barrier_sync(kTurnBar + wg, 256); };
+    auto turn_end = [&] { named_barrier_arrive(kTurnBar + 1 - wg, 256); };
 
-    // online softmax: thread holds rows g (regs 0, 1) and g + 8 (regs 2, 3)
-    float mx[2] = {-INFINITY, -INFINITY};
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++t) {
+      const uint32_t yb = t % kYBufs;
+      unsigned char* ys = smem + L::y + yb * L::kYTile;
+      const uint32_t ya = smem_u32(ys) + wg * 64 * L::kRowBytes;  // this warpgroup's rows
+      float o[K / 2];
 #pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n) {
+      for (int i = 0; i < K / 2; ++i) o[i] = 0.f;
+      float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 of the warp, log2 units
+      float l_run[2] = {0.f, 0.f};               // this thread's share of the sum
+      float s[kPanelsS][32];                     // logits, then p, of one chunk
+      uint32_t pa[kChunk / 16][4];               // p in bf16 as wgmma A fragments
+      auto stage = [&](uint32_t st) { return smem_u32(smem + L::m + st * L::kMStage); };
+
+      mbar_wait(y_full + yb, (t / kYBufs) & 1);
+      float alpha[2];
+      // chunk 0: logits, softmax; then chunk c's logits beside chunk c-1's
+      // p . M^T, the softmax of c while the second runs
+      uint32_t prev = it % kStages;
+      mbar_wait(m_full + prev, (it / kStages) & 1);
+      ++it;
+      turn_begin();
+      wgmma_fence();
+      issue_logits<K>(s, ya, stage(prev));
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      fence_chunk(s);
+      online_softmax(s, m_run, l_run, alpha, 0, S, q, scale_log2);
+      pack_p(pa, s);
+      for (int c = 1; c < n_chunks; ++c, ++it) {
+        const uint32_t st = it % kStages;
+        mbar_wait(m_full + st, (it / kStages) & 1);
+        fence_regs(o);
+        fence_chunk(pa);
+        turn_begin();
+        wgmma_fence();
+        issue_logits<K>(s, ya, stage(st));
+        wgmma_commit();
+        issue_accumulate<K>(o, pa, stage(prev));
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<1>();
+        fence_chunk(s);
+        online_softmax(s, m_run, l_run, alpha, c * kChunk, S, q, scale_log2);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_chunk(pa);
+        if (lt == 0) mbar_arrive(m_empty + prev);
+        rescale(o, alpha);
+        pack_p(pa, s);
+        prev = st;
+      }
+      fence_regs(o);
+      fence_chunk(pa);
+      turn_begin();
+      wgmma_fence();
+      issue_accumulate<K>(o, pa, stage(prev));
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lt == 0) mbar_arrive(m_empty + prev);
+
+      // epilogue: normalise, stage bf16 rows in this warpgroup's rows of the
+      // y tile (its own reads of them are complete), TMA store. The
+      // addresses derive from an opaque lane so that they are recomputed
+      // here, not held in registers across the tile loop.
+      float inv[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = s0 + n * 8 + 2 * t + (e & 1) < S;
-        sc[n][e] = ok ? sc[n][e] * scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+      for (int h = 0; h < 2; ++h) {
+        float l = l_run[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        inv[h] = 1.f / l;
+      }
+      const uint32_t ln = opaque(lane), yaddr = smem_u32(ys);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t row = wg * 64 + warp * 16 + ln / 4 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < K / 8; ++j) {
+          const uint32_t col = 8 * j + 2 * (ln % 4);
+          st_shared_u32(yaddr + (col / L::kPw) * L::kYPanel +
+                            swizzle(row * L::kRowBytes + (col % L::kPw) * 2, L::kRowBytes),
+                        pack_bf16(o[4 * j + 2 * h] * inv[h], o[4 * j + 2 * h + 1] * inv[h]));
+        }
+      }
+      fence_proxy_async();
+      named_barrier_sync(kEpilogueBar + wg, 128);
+      if (lt == 0) {
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_store_2d(out_map, ys + p * L::kYPanel + wg * 64 * L::kRowBytes, p * L::kPw,
+                       tile * kTileRows + wg * 64);
+        tma_store_commit();
+        tma_store_wait_read<0>();
+        mbar_arrive(y_empty + yb);
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_run[h], mx[h]);
-      alpha[h] = __expf(m_run[h] - m_new);
-      m_run[h] = m_new;
-      l_run[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int n = 0; n < kNt; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[n][e] = __expf(sc[n][e] - m_run[e >> 1]);
-        l_run[e >> 1] += sc[n][e];
-      }
-    }
-
-    // o += p . M^T, p = hi + lo; B = M^T chunk (s, k): plain 8x8 loads of
-    // M rows k give (s pair, k)
-#pragma unroll
-    for (int j = 0; j < kChunk / 16; ++j) {
-      uint32_t ph[4], pl[4];
-      split_bf16(sc[2 * j][0], sc[2 * j][1], ph[0], pl[0]);
-      split_bf16(sc[2 * j][2], sc[2 * j][3], ph[1], pl[1]);
-      split_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1], ph[2], pl[2]);
-      split_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int np = 0; np < kNt / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ms + (np * 16 + (mi >> 1) * 8 + mr) * kLdM + j * 16 + (mi & 1) * 8);
-        mma_bf16(o[2 * np], ph, b[0], b[1]);
-        mma_bf16(o[2 * np], pl, b[0], b[1]);
-        mma_bf16(o[2 * np + 1], ph, b[2], b[3]);
-        mma_bf16(o[2 * np + 1], pl, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  // normalise, stage the warp's 16 rows in its own rows of the y tile,
-  // then write them out in 16-byte pieces
-  float inv_l[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = l_run[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv_l[h] = 1.f / l;
-  }
-  __nv_bfloat16* yw = ys + warp * 16 * kLdY;
-#pragma unroll
-  for (int n = 0; n < kNt; ++n) {
-    *reinterpret_cast<uint32_t*>(yw + g * kLdY + n * 8 + 2 * t) =
-        pack_bf16(o[n][0] * inv_l[0], o[n][1] * inv_l[0]);
-    *reinterpret_cast<uint32_t*>(yw + (g + 8) * kLdY + n * 8 + 2 * t) =
-        pack_bf16(o[n][2] * inv_l[1], o[n][3] * inv_l[1]);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * (K / 8); i += 32) {
-    const int r = i / (K / 8), v = i % (K / 8);
-    const int64_t row = row0 + warp * 16 + r;
-    if (row < rows)
-      *reinterpret_cast<uint4*>(out + row * K + v * 8) =
-          *reinterpret_cast<const uint4*>(yw + r * kLdY + v * 8);
+    if (lt == 0) tma_store_wait<0>();
   }
 }
 
@@ -305,49 +444,75 @@ mem_attention_f32_kernel(const float* __restrict__ y, const float* __restrict__ 
   }
 }
 
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
 template <int K>
-cudaError_t dispatch(const void* y, const void* mem, void* out, int64_t rows, int S,
+cudaError_t launch_bf16(const void* y, const void* mem, void* out, int64_t rows, int S, int ld,
+                        cudaStream_t stream) {
+  using L = Layout<K>;
+  if (rows > int64_t(0x7fffffff) - kTileRows || ld % 8 != 0 || ld < S)
+    return cudaErrorInvalidValue;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap y_map, m_map, out_map;
+  if (!make_map_2d(&y_map, y, rows, K, 2 * K, kTileRows, L::kPw, L::kRowBytes) ||
+      !make_map_2d(&m_map, mem, K, S, 2 * uint64_t(ld), K, 64, 128) ||
+      !make_map_2d(&out_map, out, rows, K, 2 * K, 64, L::kPw, L::kRowBytes))
+    return cudaErrorInvalidValue;
+  const int n_tiles = int((rows + kTileRows - 1) / kTileRows);
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorNoDevice;
+  cudaError_t err = cudaFuncSetAttribute(mem_attention_bf16_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(L::bytes));
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(float(K));
+  const dim3 grid(unsigned(n_tiles < sms ? n_tiles : sms));  // persistent: a block per SM
+  mem_attention_bf16_kernel<K><<<grid, kThreads, L::bytes, stream>>>(y_map, m_map, out_map,
+                                                                     n_tiles, S, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t dispatch(const void* y, const void* mem, void* out, int64_t rows, int S, int ld,
                      int dtype, cudaStream_t stream) {
+  if (dtype == 1) return launch_bf16<K>(y, mem, out, rows, S, ld, stream);
+  if (ld != S) return cudaErrorInvalidValue;
   const float scale = 1.f / sqrtf(float(K));
-  cudaError_t err;
-  if (dtype == 1) {
-    const size_t smem = MmaSmem<K>::bytes;
-    err = cudaFuncSetAttribute(mem_attention_bf16_kernel<K>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid(unsigned((rows + kRows - 1) / kRows));
-    mem_attention_bf16_kernel<K><<<grid, kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(mem),
-        static_cast<__nv_bfloat16*>(out), rows, S, scale);
-  } else {
-    const size_t smem = (size_t(kRowsF) * (K + 1) + size_t(K) * kLdMF) * sizeof(float);
-    err = cudaFuncSetAttribute(mem_attention_f32_kernel<K>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid(unsigned((rows + kRowsF - 1) / kRowsF));
-    mem_attention_f32_kernel<K><<<grid, 128, smem, stream>>>(
-        static_cast<const float*>(y), static_cast<const float*>(mem),
-        static_cast<float*>(out), rows, S, scale);
-  }
+  const size_t smem = (size_t(kRowsF) * (K + 1) + size_t(K) * kLdMF) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(mem_attention_f32_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(unsigned((rows + kRowsF - 1) / kRowsF));
+  mem_attention_f32_kernel<K><<<grid, 128, smem, stream>>>(
+      static_cast<const float*>(y), static_cast<const float*>(mem), static_cast<float*>(out),
+      rows, S, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
-// cudaErrorInvalidValue for a K that has no instantiation.
+// dtype: 0 = float32, 1 = bfloat16; ld: the row pitch of M in values (S
+// for float32; a multiple of 8, at least S, for bfloat16). Returns a
+// cudaError_t (0 = launched): cudaErrorInvalidValue for a K that has no
+// instantiation or arguments the kernel does not take.
 extern "C" int mem_attention_fwd(const void* y, const void* mem, void* out,
-                                 long long rows, int K, int S, int dtype,
+                                 long long rows, int K, int S, int ld, int dtype,
                                  void* stream) {
   if (rows <= 0) return 0;
   if (S <= 0 || (dtype != 0 && dtype != 1)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 16: return int(dispatch<16>(y, mem, out, rows, S, dtype, st));
-    case 32: return int(dispatch<32>(y, mem, out, rows, S, dtype, st));
-    case 64: return int(dispatch<64>(y, mem, out, rows, S, dtype, st));
-    case 128: return int(dispatch<128>(y, mem, out, rows, S, dtype, st));
-    case 256: return int(dispatch<256>(y, mem, out, rows, S, dtype, st));
+    case 16: return int(dispatch<16>(y, mem, out, rows, S, ld, dtype, st));
+    case 32: return int(dispatch<32>(y, mem, out, rows, S, ld, dtype, st));
+    case 64: return int(dispatch<64>(y, mem, out, rows, S, ld, dtype, st));
+    case 128: return int(dispatch<128>(y, mem, out, rows, S, ld, dtype, st));
+    case 256: return int(dispatch<256>(y, mem, out, rows, S, ld, dtype, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -1,7 +1,8 @@
-// Warp-level building blocks shared by the port's bf16 kernels: cp.async
-// copies, ldmatrix loads and the m16n8k16 bf16 mma.sync with f32
-// accumulation, and the streaming of an S-chunk of the bank M into shared
-// memory.
+// Warp-level building blocks of the training kernels' bf16 paths
+// (mem_attention_train.cu): cp.async copies, ldmatrix loads and the
+// m16n8k16 bf16 mma.sync with f32 accumulation, and the streaming of an
+// S-chunk of the bank M into shared memory. The Hopper blocks (wgmma, TMA,
+// mbarriers) are in wgmma_sm90.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

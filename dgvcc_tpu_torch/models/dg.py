@@ -42,12 +42,14 @@ class MemoryBank(nn.Module):
     is the model's ``mem`` (reference key layout).
 
     ``forward`` (one view). ``fused``: the serving kernel
-    (``ops/mem_attention.py``), which keeps the attention in float32 into
-    the second product. That kernel has no backward, so with ``fused`` a
-    forward that needs gradients raises; off, ``forward`` takes the einsum
-    path, as the JAX model's training forward does (``create_train_state``
-    turns ``fused`` off). The einsum path: float32 logits and softmax, the
-    attention cast to the compute dtype before the second product.
+    (``ops/mem_attention.py``): float32 logits and online softmax, the
+    attention rounded to the compute dtype before the second product, as
+    the einsum path rounds it. That kernel has no backward, so with
+    ``fused`` a forward that needs gradients raises; off, ``forward``
+    takes the einsum path, as the JAX model's training forward does
+    (``create_train_state`` turns ``fused`` off). The einsum path: float32
+    logits and softmax, the attention cast to the compute dtype before the
+    second product.
 
     ``pair`` (two views, training). ``fused_train``: True = the training
     kernels (``ops/mem_attention_train.py``) on CUDA tensors and their

@@ -3,8 +3,9 @@
 Each source under ``dgvcc_tpu_torch/csrc/`` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface under
 ``build/torch_ext/`` at the root of the checkout, and loaded with
-``ctypes``. A library is rebuilt when its source, or a header under
-``csrc/``, is newer. Nothing is
+``ctypes``; nvcc's log (ptxas's register and spill report) is kept beside
+it, so that a library that is up to date still has its report. A library
+is rebuilt when its source, or a header under ``csrc/``, is newer. Nothing is
 built when this module is imported: the first call that needs a kernel
 builds it, and ``build_all`` builds every stale library at once, one
 ``nvcc`` process per source, all started together.
@@ -16,11 +17,12 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
@@ -49,6 +51,17 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
+
+
+def log_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.log"
+
+
+def build_log(name: str) -> str:
+    """nvcc's log of the build of the library ``name`` now on disk ("" if
+    it has none)."""
+    path = log_path(name)
+    return path.read_text() if path.exists() else ""
 
 
 def _stale(name: str) -> bool:
@@ -81,10 +94,41 @@ def build_all(names=None) -> Dict[str, str]:
                           f"(exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            log_path(name).write_text(out)
             os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def ptxas_report(log: str, kernel: str) -> List[str]:
+    """The lines of nvcc's ``-Xptxas -v`` log about the entry functions whose
+    mangled name contains ``kernel``: spills, registers, and ptxas's
+    warning that it serialised their wgmma instructions (C7512), which
+    ptxas prints before the function's own lines."""
+    lines, current = [], ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            current = m.group(1)
+        elif (kernel in current and ("registers" in ln or "spill" in ln)
+              or "Performance Loss" in ln and kernel in ln):
+            lines.append(ln.split(":", 1)[-1].strip())
+    return lines
+
+
+def ptxas_faults(report: List[str]) -> List[str]:
+    """What in a ``ptxas_report`` makes a kernel slow though it stays right:
+    serialised wgmma instructions (C7512) and spilled registers. An empty
+    report is a fault too: the kernel's lines were not found."""
+    if not report:
+        return ["no ptxas lines for the kernel"]
+    faults = [ln for ln in report if "C7512" in ln]
+    for ln in report:
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            faults.append(ln)
+    return faults
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -28,11 +28,13 @@ _lib = None
 
 
 def memory_attention_reference(y: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
-    """Plain version: both products and the softmax in float32, the
-    result cast back to y's dtype."""
+    """Plain version: the logits and the softmax in float32; the attention
+    rounded to y's dtype before the second product (a no-op in float32),
+    as the bf16 kernel rounds p; that product in float32, the result cast
+    back to y's dtype."""
     k = y.shape[-1]
     logits = torch.matmul(y.float(), mem.float()) / math.sqrt(k)
-    attn = torch.softmax(logits, dim=-1)
+    attn = torch.softmax(logits, dim=-1).to(y.dtype).float()
     return torch.matmul(attn, mem.float().t()).to(y.dtype)
 
 
@@ -42,7 +44,7 @@ def _kernel():
         lib = _build.load("mem_attention")
         lib.mem_attention_fwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.mem_attention_fwd.restype = ctypes.c_int
         lib.mem_attention_error_string.argtypes = [ctypes.c_int]
         lib.mem_attention_error_string.restype = ctypes.c_char_p
@@ -70,18 +72,24 @@ def memory_attention_fused(y: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
     if k not in KERNEL_WIDTHS:
         raise ValueError(f"memory_attention_fused: K={k} has no kernel "
                          f"instantiation (have {KERNEL_WIDTHS})")
-    # the kernel reads 16-byte vectors: contiguous rows from aligned bases
+    # contiguous rows from 16-byte aligned bases (the bf16 kernel's TMA
+    # tensor maps need both)
     y, mem = y.contiguous(), mem.contiguous()
     if y.data_ptr() % 16:
         y = y.clone()
-    if mem.data_ptr() % 16:
+    s = mem.shape[1]
+    if y.dtype == torch.bfloat16 and s % 8:
+        # and a row pitch of M that is a multiple of 16 bytes: zero columns
+        # up to a multiple of 8, which the kernel never reads (s >= S)
+        mem = torch.nn.functional.pad(mem, (0, 8 - s % 8))
+    elif mem.data_ptr() % 16:
         mem = mem.clone()
     out = torch.empty_like(y)
     lib = _kernel()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mem_attention_fwd(y.data_ptr(), mem.data_ptr(), out.data_ptr(),
-                                    b * p, k, mem.shape[1], _DTYPE_CODE[y.dtype],
+                                    b * p, k, s, mem.shape[1], _DTYPE_CODE[y.dtype],
                                     stream)
     if err:
         raise RuntimeError("mem_attention kernel launch failed: "

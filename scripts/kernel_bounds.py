@@ -14,11 +14,13 @@ PEAK = {"bf16": 989e12, "f32": 67e12}   # H100 SXM dense FLOP/s (tensor cores, C
 HBM = 3.35e12                           # H100 SXM bytes/s
 
 
-def row(name, flops, kind, nbytes):
+def row(name, flops, kind, nbytes, l2_bytes=None):
     t_ops, t_bytes = 1e3 * flops / PEAK[kind], 1e3 * nbytes / HBM
     by = "operations" if t_ops >= t_bytes else "bytes"
+    l2 = "" if l2_bytes is None else f" | L2->SM bank {l2_bytes / 1e9:.2f} GB"
     print(f"{name:<58} {flops / 1e9:9.1f} GFLOP ({kind}) {t_ops:8.4f} ms | "
-          f"{nbytes / 1e6:8.1f} MB {t_bytes:8.4f} ms | bound {max(t_ops, t_bytes):.4f} ms ({by})")
+          f"{nbytes / 1e6:8.1f} MB {t_bytes:8.4f} ms | bound {max(t_ops, t_bytes):.4f} ms "
+          f"({by}){l2}")
 
 
 def main():
@@ -27,6 +29,18 @@ def main():
         p = 192 * 256
         row(f"#1 memory_attention_fused serve B={b} P={p}",
             4.0 * b * p * K * S, "bf16", 2.0 * (2 * b * p * K + K * S))
+    # the work the port's designs of #1 (csrc/mem_attention.cu) do for the
+    # same function, and the bank bytes each block streams from L2 into
+    # shared memory (every block reads all of M; HBM bytes, and so the
+    # bound, unchanged): the first design, on mma.sync, splits p into bf16
+    # hi + lo and runs p . M^T twice (3 products) in blocks of 64 rows; the
+    # wgmma design rounds p to bf16 once (2 products) in tiles of 128 rows
+    for b in (1, 4):
+        p = 192 * 256
+        for design, products, tile in (("mma.sync, 3 products, 64-row", 3, 64),
+                                       ("wgmma, 2 products, 128-row", 2, 128)):
+            row(f"#1 as ported ({design}) B={b}", 2.0 * products * b * p * K * S, "bf16",
+                2.0 * (2 * b * p * K + K * S), -(-b * p // tile) * 2.0 * K * S)
     b, p = 16, 80 * 80  # training: 320^2 crops at stride 4, two views
     row(f"#2 memory_attention_train fwd B={b} P={p} x2 views",
         2 * 4.0 * b * p * K * S, "bf16",

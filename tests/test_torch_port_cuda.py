@@ -53,6 +53,36 @@ def test_kernel_matches_plain(cuda, dtype, tol, b, p, k, s):
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
 
 
+# the bf16 kernel's edges: rows below one 128-row tile, the validation
+# shape, S below one 64-prototype chunk, S % 8 != 0 at K=256 (M padded for
+# its tensor map), and every width; held against the f32 plain version
+@pytest.mark.parametrize("b,p,k,s", [(1, 37, 256, 1024), (1, 49152, 256, 1024),
+                                     (2, 300, 256, 40), (1, 1000, 256, 1001),
+                                     (2, 333, 16, 200), (2, 333, 32, 200),
+                                     (2, 333, 64, 200), (2, 333, 128, 200),
+                                     (2, 333, 256, 200)])
+def test_bf16_kernel_edges_match_plain(cuda, b, p, k, s):
+    g = torch.Generator(device=cuda).manual_seed(7 * b * p + k + s)
+    y = torch.randn(b, p, k, generator=g, device=cuda).bfloat16()
+    mem = torch.randn(k, s, generator=g, device=cuda).bfloat16()
+    out = ma.memory_attention_fused(y, mem)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == y.shape
+    ref = ma.memory_attention_reference(y.float(), mem.float())
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+def test_bf16_kernel_is_deterministic(cuda):
+    """No float atomics: two calls on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    y = torch.randn(2, 6437, 256, generator=g, device=cuda).bfloat16()
+    mem = torch.randn(256, 1001, generator=g, device=cuda).bfloat16()
+    first = ma.memory_attention_fused(y, mem)
+    second = ma.memory_attention_fused(y, mem)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_kernel_rejects_what_it_cannot_take(cuda):
     y = torch.randn(1, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="K=48"):

@@ -8,14 +8,15 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel of the port from the checkout's sources
-   (nvcc, sm_90a, into build/torch_ext/);
+   (nvcc, sm_90a, into build/torch_ext/); the bf16 builds of the serving
+   kernel and of the training backward's rows and cols kernels must hold
+   wgmma fed by TMA (SASS, body by body: HGMMA and UTMALDG, no HMMA) with
+   no serialised wgmma (ptxas C7512) and no spill at K=256;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it: the serving kernel at K=256, S=1024,
    P=192*256 per 768x1024 frame, B=4, and in bf16 at its edges (rows
    below one 128-row tile, the validation shape B=1, S below one chunk,
-   S % 8 != 0, every width) and bit for bit across two calls; its build
-   must hold wgmma fed by TMA (SASS: HGMMA and UTMALDG, no HMMA) with no
-   serialised wgmma (ptxas C7512) and no spill at K=256; the
+   S % 8 != 0, every width) and bit for bit across two calls; the
    two-view training kernels
    (forward and backward) at B=16, P=80*80 per 320x320 crop, both views,
    under a mixed objective and under the consistency loss alone;
@@ -42,7 +43,7 @@ Phases, each of which exits non-zero on failure:
    the loss finite and bring it down, and each step must launch the
    forward and the backward kernel once; then ms/step and peak memory of
    both paths, and the training kernels' times against their bounds and
-   their plain version;
+   their plain version, the backward's also per launch by kernel name;
 6. from files to a trained model: write a dataset in the canonical layout
    (40 JPEGs of 768x1024 with 50 to 600 head points each), make its
    density maps with ``python -m dgvcc_tpu_torch.data.dmap_cli`` (one
@@ -182,24 +183,51 @@ EDGES_BF16 = ((1, 37, 256, 1024), (1, P, 256, 1024), (2, 300, 256, 40),
 MMA_SYNC_BF16_ERR = 1.793e-3  # the earlier mma.sync kernel's, B=4 (PERF.md)
 
 
-def check_sass(lib):
-    """Kernel #1's bf16 instantiations run on wgmma fed by TMA: their SASS
-    holds HGMMA and UTMALDG and no HMMA (the earlier kernel's mma.sync)."""
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")
+
+
+def sass_counts(sass, pattern):
+    """{function name: {op: count}} of the function bodies of ``cuobjdump
+    -sass`` text whose (mangled) name matches the regular expression
+    ``pattern``, counted body by body."""
+    bodies = {}
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = f.splitlines()[0].strip()
+        if re.search(pattern, name):
+            bodies[name] = {op: len(re.findall(rf"\b{op}\b", f)) for op in SASS_OPS}
+    return bodies
+
+
+def wgmma_tma_faults(bodies, n_expected):
+    """What in ``sass_counts`` shows a kernel off wgmma fed by TMA: a count
+    of bodies other than ``n_expected``, a body without HGMMA or UTMALDG,
+    or one with HMMA (mma.sync)."""
+    faults = [] if len(bodies) == n_expected else [
+        f"{len(bodies)} function bodies, expected {n_expected}"]
+    for name, c in bodies.items():
+        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+            faults.append(f"{name}: {c}")
+    return faults
+
+
+def check_sass(lib, pattern, n_expected, what):
+    """The bf16 kernels of ``lib`` whose names match ``pattern`` run on
+    wgmma fed by TMA: every one of their SASS bodies holds HGMMA and
+    UTMALDG and no HMMA. Returns the counts summed over those bodies."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
-        fail("cuobjdump not found: kernel #1's SASS cannot be checked")
+        fail(f"cuobjdump not found: the SASS of {what} cannot be checked")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    bodies = [f for f in re.split(r"\n\s*Function : ", sass)
-              if "mem_attention_bf16_kernel" in f.splitlines()[0]]
-    counts = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in bodies)
-              for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
-    log(f"SASS of {os.path.basename(lib)}, {len(bodies)} bf16 kernels: {counts}")
-    if len(bodies) != 5 or not counts["HGMMA"] or not counts["UTMALDG"] or counts["HMMA"]:
-        fail("kernel #1's bf16 build does not run on wgmma fed by TMA")
+    bodies = sass_counts(sass, pattern)
+    counts = {op: sum(c[op] for c in bodies.values()) for op in SASS_OPS}
+    log(f"SASS of {os.path.basename(lib)}, {len(bodies)} bf16 kernels of {what}: {counts}")
+    faults = wgmma_tma_faults(bodies, n_expected)
+    if faults:
+        fail(f"{what}: bf16 build does not run on wgmma fed by TMA: {'; '.join(faults)}")
     return counts
 
 
@@ -282,6 +310,22 @@ def check_train_kernels(mt, b, p, dtype, seed):
         fail(f"memory_attention_train disagrees with its plain version "
              f"({dtype}, B={b}, P={p})")
     return err
+
+
+def launch_times(fn, iters):
+    """Device time of each kernel that ``fn`` launches, by kernel name:
+    {name: (launches per call, ms per launch)} under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / iters, getattr(e, "self_device_time_total", 0) / 1e3 / e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
 
 
 def bound(flops, nbytes, peak_flops):
@@ -404,10 +448,17 @@ def train_phase(mt, gpu):
                         .to(torch.bfloat16) for _ in range(4))
     mem = torch.randn(K, S, generator=g, device="cuda").to(torch.bfloat16)
     dcon = torch.ones((), device="cuda")
-    lse = mt.memory_attention_train_forward(y1, y2, mem)[3]
+    out1, out2, _, lse, q = mt.memory_attention_train_forward(y1, y2, mem)
     fwd = cuda_ms(lambda: mt.memory_attention_train_forward(y1, y2, mem), 20)
-    bwd = cuda_ms(lambda: mt.memory_attention_train_backward(y1, y2, mem, lse, do1, do2,
-                                                             dcon), 10)
+
+    def backward():
+        return mt.memory_attention_train_backward(y1, y2, mem, lse, q, out1, out2, do1, do2,
+                                                  dcon)
+
+    bwd = cuda_ms(backward, 10)
+    for name, (n, ms) in launch_times(backward, 5).items():
+        log(f"train kernel bwd, per launch: {name} {ms:.4f} ms ({n:g} launches a call) "
+            f"[{gpu}]")
     with torch.no_grad():
         fwd_plain = cuda_ms(lambda: mt.memory_attention_train_reference(y1, y2, mem), 5,
                             warmup=1)
@@ -810,13 +861,21 @@ def main():
     # the report of the library on disk (kept beside it), built now or not;
     # a serialised wgmma (C7512) or a spill halves the kernel's speed and
     # passes every check of its values, so it fails here
-    ptxas_k256 = _build.ptxas_report(_build.build_log("mem_attention"),
-                                     "mem_attention_bf16_kernelILi256E")
-    log(f"ptxas, kernel #1 bf16 K=256: {' | '.join(ptxas_k256)}")
-    faults = _build.ptxas_faults(ptxas_k256)
-    if faults:
-        fail(f"kernel #1's bf16 K=256 build: {'; '.join(faults)}")
-    sass = check_sass(str(_build.library_path("mem_attention")))
+    ptxas = {}
+    for lib, kernel, what in (
+            ("mem_attention", "mem_attention_bf16_kernelILi256E", "kernel #1"),
+            ("mem_attention_train", "mat_bwd_rows_bf16ILi256E", "kernel #3 rows"),
+            ("mem_attention_train", "mat_bwd_cols_bf16ILi256E", "kernel #3 cols")):
+        ptxas[kernel] = _build.ptxas_report(_build.build_log(lib), kernel)
+        log(f"ptxas, {what} bf16 K=256: {' | '.join(ptxas[kernel])}")
+        faults = _build.ptxas_faults(ptxas[kernel])
+        if faults:
+            fail(f"{what}'s bf16 K=256 build: {'; '.join(faults)}")
+    ptxas_k256 = ptxas["mem_attention_bf16_kernelILi256E"]
+    sass = check_sass(str(_build.library_path("mem_attention")), "mem_attention_bf16_kernel",
+                      5, "kernel #1")
+    sass_bwd = check_sass(str(_build.library_path("mem_attention_train")),
+                          "mat_bwd_(rows|cols)_bf16", 4, "kernel #3")
 
     # ---- 2. kernels vs plain versions -------------------------------------
     err_bf16 = check_kernel(ma, 4, P, torch.bfloat16, TOL_BF16, 1)

@@ -25,23 +25,29 @@
 // of warp w + 4 hold the same (row, s) of the two views. Two sweeps over S:
 // (1) each row's max and sum; (2) exact normalized p in f32, the loss term
 // (p1 - p2)^2 (view 2 hands its p to view 1 through shared memory), and
-// out_i += round_bf16(p_i) . M^T. Each row's logsumexp is saved for the
-// backward (2 x rows f32). sum_partials adds the per-block loss terms in
-// a fixed order (one block) and divides by rows * S.
+// out_i += round_bf16(p_i) . M^T. Saved for the backward: each row's
+// logsumexp (2 x rows f32) and q = <p1, p1>_S, <p2, p2>_S, <p1, p2>_S (3 x
+// rows f32, summed by view 1's warps beside the loss term). sum_partials
+// adds the per-block loss terms in a fixed order (one block) and divides
+// by rows * S.
 //
 // Backward (g = the loss's cotangent, gc = 2 g / (rows * S), D = <dp, p>_S):
 //     dp_i = dout_i . M  +/-  gc (p1 - p2)
 //     dl_i = p_i (dp_i - D_i)
 //     dy_i = dl_i . M^T / sqrt(K)
 //     dM   = sum_i dout_i^T . round(p_i) + y_i^T . dl_i / sqrt(K)
-//   (a) mat_bwd_rows: per 64-row tile of both views, p from the saved
-//       logsumexp; one sweep over S for D, a second for dl and dy. Writes
-//       dy and D.
-//   (b) mat_bwd_cols: a block owns a (K x 64) slice of dM and a range of
-//       row tiles (`splits` ranges, so 16 S-tiles x splits blocks fill the
-//       card); it recomputes p and dl on its slice and writes its partial
-//       dM to a (splits, K, S) f32 scratch.
+// D needs no sweep over S (the flash-attention identity): <dout_i . M,
+// p_i>_S = <dout_i, p_i . M^T>_K, taken as <dout_i, out_i>_K (out's
+// rounding, and round(p) for p), and the consistency term adds gc (q_ii -
+// q_12) (row_dsum).
+//   (a) mat_bwd_rows: per tile of 64 rows of both views, D, then one sweep
+//       over S: p from the saved logsumexp, dp, dl and dy. Writes dy and D.
+//   (b) mat_bwd_cols: a block owns a slice of prototypes (K x kColsC of dM)
+//       and a range of row tiles (`splits` ranges, so slices x splits
+//       blocks fill the card); it recomputes p and dl on its slice and
+//       writes its partial dM to a (splits, K, S) f32 scratch.
 //   (c) reduce_splits sums the scratch over splits in order.
+// bf16: (a) and (b) on wgmma fed by TMA (the section below says how).
 // dl is rounded to bf16 (after the 1/sqrt(K) scale, a power of two at
 // K = 16, 64, 256) for the tensor-core products dl . M^T and y^T . dl.
 //
@@ -52,15 +58,17 @@
 // more products than that count: the forward computes the logits twice
 // (6 products of rows x K x S per view pair instead of 4: 322.1 GFLOP,
 // 1.5x), the backward recomputes the logits and dout . M in both (a) and
-// (b) and takes one extra sweep for D (18 products instead of 10:
-// 966.4 GFLOP, 1.8x). In exchange nothing of size rows x S ever reaches
-// device memory: 16 x 6400 x 1024 f32 is 419 MB per tensor.
+// (b) (14 products instead of 10: 751.6 GFLOP, 1.4x, 0.7600 ms at the
+// peak). In exchange nothing of size rows x S ever reaches device memory:
+// 16 x 6400 x 1024 f32 is 419 MB per tensor.
 //
 // f32 kernels: the same structure in plain f32 FMA on the CUDA cores (no
 // TF32), 32 rows a block, 4 threads a row, for holding the kernels against
 // the plain version at 1e-4.
 //
 // Any number of rows (masked tail) and any S (masked tail); K in {16, 256}.
+// The bf16 backward reads M through a tensor map: its rows `ld` values
+// apart, a multiple of 8 (the wrapper pads M's columns).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,17 +76,17 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
 using namespace mma_sm90;
+namespace wg = wgmma_sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;  // every kernel: 8 warps
 constexpr int kRows = 64;      // bf16: rows of each view per block, 16 a warp
 constexpr int kChunkF = 64;    // bf16 forward: prototypes per S-chunk
-constexpr int kChunkB = 32;    // bf16 backward rows: prototypes per S-chunk
-constexpr int kCols = 64;      // bf16 backward cols: the block's S-slice
 constexpr int kRowsF32 = 32;   // f32: rows of each view per block
 constexpr int kColsF32 = 32;   // f32: prototypes per S-chunk / S-slice
 
@@ -169,6 +177,44 @@ __device__ void store_rows(const float (&o)[K / 8][4], bf16* stage,
   }
 }
 
+// the sum over the 4 consecutive lanes that share a row
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// D = <dout, out>_K + gc (q_ii - q_12) of `row` of view `view` (D = <dp, p>_S
+// with out = p . M^T: <dout . M, p>_S = <dout, p . M^T>_K; the consistency
+// term's <+-(p1 - p2), p_i>_S from the forward's q sums), by the 4 lanes of
+// the row's quad; every lane of the quad returns it
+template <int K, typename T>
+__device__ float row_dsum(const T* __restrict__ dout, const T* __restrict__ out,
+                          const float* __restrict__ qsum, int64_t rows, int64_t row, int view,
+                          int t, float gc) {
+  float acc = 0.f;
+  if (row < rows) {
+    const T* d = dout + row * K;
+    const T* o = out + row * K;
+    if constexpr (sizeof(T) == 2) {
+      for (int k = 8 * t; k < K; k += 32) {
+        const uint4 a = *reinterpret_cast<const uint4*>(d + k);
+        const uint4 b = *reinterpret_cast<const uint4*>(o + k);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(b2[i]);
+          acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+        }
+      }
+    } else {
+      for (int k = t; k < K; k += 4) acc = fmaf(d[k], o[k], acc);
+    }
+  }
+  acc = quad_sum(acc);
+  return row < rows ? acc + gc * (qsum[view * rows + row] - qsum[2 * rows + row]) : 0.f;
+}
+
 // sum over a block's 256 threads into thread 0 (fixed order); `red` (8
 // floats of shared memory) may be a buffer the block was still reading
 __device__ float block_sum(float v, float* red) {
@@ -198,7 +244,7 @@ template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
 mat_fwd_bf16(const bf16* __restrict__ y1, const bf16* __restrict__ y2,
              const bf16* __restrict__ mem, bf16* __restrict__ out1,
-             bf16* __restrict__ out2, float* __restrict__ lse,
+             bf16* __restrict__ out2, float* __restrict__ lse, float* __restrict__ qsum,
              float* __restrict__ partial, int64_t rows, int S, float scale) {
   using L = FwdSmem<K>;
   constexpr int kN = kChunkF;
@@ -225,6 +271,7 @@ mat_fwd_bf16(const bf16* __restrict__ y1, const bf16* __restrict__ y2,
   for (int n = 0; n < K / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, inv_l[2];
   float loss = 0.f;
+  float q11[2] = {0.f, 0.f}, q22[2] = {0.f, 0.f}, q12[2] = {0.f, 0.f};  // view 0's warps
   const bool valid[2] = {row0 + wr * 16 + g < rows, row0 + wr * 16 + g + 8 < rows};
 
   // sweep 1 (it < n_chunks): row max and sum; sweep 2: p, loss, out
@@ -292,8 +339,11 @@ mat_fwd_bf16(const bf16* __restrict__ y1, const bf16* __restrict__ y2,
         for (int n = 0; n < kN / 8; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float d = sc[n][e] - xw[(n * 4 + e) * 32 + lane];
+            const float p2 = xw[(n * 4 + e) * 32 + lane], d = sc[n][e] - p2;
             loss += valid[e >> 1] ? d * d : 0.f;
+            q11[e >> 1] += sc[n][e] * sc[n][e];
+            q22[e >> 1] += p2 * p2;
+            q12[e >> 1] += sc[n][e] * p2;
           }
       }
       p_x_mt<K, kN>(sc, mc, lane, o);
@@ -309,273 +359,454 @@ mat_fwd_bf16(const bf16* __restrict__ y1, const bf16* __restrict__ y2,
       if (valid[h])
         lse[view * rows + row0 + wr * 16 + g + 8 * h] = m_run[h] + logf(l_run[h]);
   }
+  if (view == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float q[3] = {quad_sum(q11[h]), quad_sum(q22[h]), quad_sum(q12[h])};
+      if (t == 0 && valid[h])
+        for (int i = 0; i < 3; ++i) qsum[i * rows + row0 + wr * 16 + g + 8 * h] = q[i];
+    }
+  }
   const float s = block_sum(loss, xch);
   if (threadIdx.x == 0) partial[blockIdx.x] = s;
 }
 
-// ====================================================== bf16 backward rows
+// ======================================== bf16 backward: wgmma fed by TMA
+// Both kernels are warp-specialised like kernel #1 (csrc/mem_attention.cu):
+// one producer warpgroup, in which one thread issues every TMA load, and
+// two consumer warpgroups; setmaxnreg moves registers from the producer to
+// the consumers. Tiles arrive through TMA with the swizzle of their row
+// width, and each is read by wgmma through descriptors of that swizzle, in
+// whichever of its two majors a product needs. Their times on the card
+// beside the bound: PERF.md, section 6.
+constexpr int kBwdThreads = 384;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * (24 + 2 * 240) <= 65536
+constexpr int kSmemMax = 232448;
+constexpr int kChunkR = 64;   // rows kernel: prototypes per M chunk (one 128-byte panel)
+constexpr int kStagesR = 2;   // rows kernel: M chunks in flight
+constexpr int kHalf = 32;     // rows of each view in a warpgroup's 64 (view 1 above
+                              // view 2); the cols kernel's row tile
+constexpr int kRowsR = 2 * kHalf;  // rows kernel: rows of each view per tile
+constexpr int kColsC = 128;   // cols kernel: the block's S-slice, 64 per warpgroup
+constexpr int kBufsC = 2;     // cols kernel: row tiles in flight
+constexpr int kWgBar = 1;     // named barriers: 1 + wg a consumer warpgroup's own
+
 template <int K>
-struct RowsSmem {
-  static constexpr size_t tile = size_t(kRows) * ld_rows<K>() * 2;
-  static constexpr size_t stage = size_t(K) * (kChunkB + 8) * 2;
-  static constexpr size_t y = 0;                    // 2 row tiles of y
-  static constexpr size_t dout = 2 * tile;          // 2 row tiles of dout
-  static constexpr size_t m = 4 * tile;             // 2 M stages
-  static constexpr size_t x = m + 2 * stage;        // exchange, f32
-  static constexpr size_t bytes = x + size_t(4) * (kChunkB / 2) * 32 * 4;
+struct BwdPanels {
+  static constexpr int kPw = K < 64 ? K : 64;   // values per tile row of a panel
+  static constexpr int kRowBytes = 2 * kPw;     // = the tiles' swizzle
+  static constexpr int kPanels = K / kPw;
+  static constexpr uint32_t kPanel = 64 * kRowBytes;   // 64 tile rows of one panel
+  static constexpr uint32_t kTile = kPanel * kPanels;  // 64 x K bf16
+  static constexpr uint32_t kMPanel = K * 128;         // K rows x 64 prototypes
 };
 
-// p (exact, from the saved logsumexp) and dp = dout . M +/- gc (p1 - p2)
-// of the warp's 16 rows on one S-chunk; the views trade p through `xw`
-template <int K, int kN>
-__device__ __forceinline__ void p_and_dp(const bf16* ya, const bf16* da, const bf16* mc,
-                                         int lane, int view, int s0, int S, float scale,
-                                         const float (&lse_r)[2], float gc, float* xw,
-                                         float (&p)[kN / 8][4], float (&dp)[kN / 8][4]) {
-  const int t = lane & 3;
-  rows_x_m<K, kN>(ya, mc, lane, p);
-  rows_x_m<K, kN>(da, mc, lane, dp);
-#pragma unroll
-  for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      p[n][e] = s0 + n * 8 + 2 * t + (e & 1) < S ? __expf(p[n][e] * scale - lse_r[e >> 1])
-                                                 : 0.f;
-  if (view == 1) {
-#pragma unroll
-    for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) xw[(n * 4 + e) * 32 + lane] = p[n][e];
-  }
-  __syncthreads();
-  if (view == 0) {
-#pragma unroll
-    for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float d = p[n][e] - xw[(n * 4 + e) * 32 + lane];
-        xw[(n * 4 + e) * 32 + lane] = d;
-        dp[n][e] += gc * d;
-      }
-  }
-  __syncthreads();
-  if (view == 1) {
-#pragma unroll
-    for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] -= gc * xw[(n * 4 + e) * 32 + lane];
-  }
-}
+template <int K>
+struct RowsLayout : BwdPanels<K> {
+  using B = BwdPanels<K>;
+  static constexpr uint32_t y = 0;                        // y, y, dout, dout (warpgroups 0, 1)
+  static constexpr uint32_t m = y + 4 * B::kTile;         // the ring of M chunks
+  static constexpr uint32_t xch = m + kStagesR * B::kMPanel;  // p of each warpgroup, f32
+  static constexpr uint32_t bars = xch + 2 * kRowsR * kChunkR * 4;
+  static constexpr uint32_t bytes = bars + 8 * (2 + 2 * kStagesR) + 1024;  // + alignment
+  static_assert(bytes <= kSmemMax, "shared memory");
+};
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
-mat_bwd_rows_bf16(const bf16* __restrict__ y1, const bf16* __restrict__ y2,
-                  const bf16* __restrict__ mem, const bf16* __restrict__ do1,
-                  const bf16* __restrict__ do2, const float* __restrict__ lse,
-                  const float* __restrict__ g_ct, bf16* __restrict__ dy1,
-                  bf16* __restrict__ dy2, float* __restrict__ dsum, int64_t rows,
-                  int S, float scale, float inv_n2) {
-  using L = RowsSmem<K>;
-  constexpr int kN = kChunkB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem + L::y);
-  bf16* ds = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* ms = reinterpret_cast<bf16*>(smem + L::m);
-  float* xch = reinterpret_cast<float*>(smem + L::x);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int view = warp >> 2, wr = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t row0 = int64_t(blockIdx.x) * kRows;
-  const int n_chunks = (S + kN - 1) / kN;
-  constexpr int kStage = K * (kN + 8);
-  const float gc = *g_ct * inv_n2;
+struct ColsLayout : BwdPanels<K> {
+  using B = BwdPanels<K>;
+  static constexpr uint32_t kBuf = 2 * B::kTile;          // stacked y, then stacked dout
+  static constexpr uint32_t kPTile = 64 * 128;            // 64 rows x 64 prototypes bf16
+  static constexpr uint32_t m = 0;                        // the S-slice, 2 panels
+  static constexpr uint32_t buf = m + 2 * B::kMPanel;
+  static constexpr uint32_t pl = buf + kBufsC * kBuf;     // per warpgroup: p-hat, dl
+  static constexpr uint32_t bars = pl + 4 * kPTile;
+  static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kBufsC) + 1024;
+  static_assert(bytes <= kSmemMax, "shared memory");
+};
 
-  load_rows<K>(y1, rows, row0, ys);
-  load_rows<K>(y2, rows, row0, ys + kRows * ld_rows<K>());
-  load_rows<K>(do1, rows, row0, ds);
-  load_rows<K>(do2, rows, row0, ds + kRows * ld_rows<K>());
-  load_m_chunk<K, kN, kThreads>(mem, S, 0, ms);
-  cp_async_commit();
-
-  const int off = (view * kRows + wr * 16) * ld_rows<K>();
-  const bf16* ya = ys + off;
-  const bf16* da = ds + off;
-  float* xw = xch + wr * (kN / 2) * 32;
-  int64_t row[2];
-  float lse_r[2], dsum_r[2] = {0.f, 0.f};
+// s = A . M[:, 64 prototypes] (issued, not waited for): A = 64 tile rows
+// at `a` (K-major, the tiles' swizzle), B = the prototypes' panel at `mb`
+// (MN-major, 128 B)
+template <int K>
+__device__ __forceinline__ void issue_tile_x_m(float (&s)[32], uint32_t a, uint32_t mb) {
+  using B = BwdPanels<K>;
+  constexpr int kSlices = B::kPw / 16;  // k16 slices per panel
+  const uint64_t da = wg::make_desc(a, 16, 8 * B::kRowBytes, B::kRowBytes);
+  const uint64_t db = wg::make_desc(mb, B::kMPanel, 1024, 128);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row[h] = row0 + wr * 16 + g + 8 * h;
-    lse_r[h] = row[h] < rows ? lse[view * rows + row[h]] : INFINITY;
-  }
-  float o[K / 8][4];
-#pragma unroll
-  for (int n = 0; n < K / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int kk = 0; kk < K / 16; ++kk)
+    wg::wgmma_ss<64, 0, 1>(s, da + (((kk / kSlices) * B::kPanel + (kk % kSlices) * 32) >> 4),
+                           db + ((kk * 2048) >> 4), kk > 0);
+}
 
-  // sweep 1 (it < n_chunks): D = <dp, p>_S; sweep 2: dl and dy
-  for (int it = 0; it < 2 * n_chunks; ++it) {
-    const int s0 = (it % n_chunks) * kN;
-    const bf16* mc = ms + (it & 1) * kStage;
-    if (it + 1 < 2 * n_chunks) {
-      load_m_chunk<K, kN, kThreads>(mem, S, ((it + 1) % n_chunks) * kN,
-                                    ms + ((it + 1) & 1) * kStage);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// logits of a 64-prototype chunk from s0 (accumulator layout) -> p = exp(l /
+// sqrt(K) - lse), 0 for prototypes past S and rows whose lse2 is +inf
+__device__ __forceinline__ void probs(float (&s)[32], const float (&lse2)[2], int s0, int S,
+                                      int q, float scale_log2) {
+  const int lim = S - s0 - 2 * q;  // column 8 (i / 4) + (i & 1) of the thread is >= S
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s[i] = 8 * (i / 4) + (i & 1) < lim ? wg::fast_exp2(s[i] * scale_log2 - lse2[(i >> 1) & 1])
+                                       : 0.f;
+}
+
+// rows kernel. Per tile of 64 rows of both views; consumer warpgroup w
+// takes rows 32 w .. 32 w + 31 of both views stacked into its 64 (view 1
+// above view 2), so its warps w and w + 2 hold the same (row, s) of the two
+// views and the two warpgroups run apart (one's softmax beside the other's
+// products). One sweep over S in 64-prototype chunks: logits = y . Mc and
+// dp = dout . Mc (SS, Mc MN-major), p from the saved lse, the views trade p
+// through shared memory, dl = p (dp +/- gc (p1 - p2) - D) / sqrt(K), then
+// dy += dl . Mc^T (RS: dl in registers, Mc K-major). D comes from the
+// forward (row_dsum) and is written for the cols kernel. Persistent.
+template <int K>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+mat_bwd_rows_bf16(const __grid_constant__ CUtensorMap y1_map,
+                  const __grid_constant__ CUtensorMap y2_map,
+                  const __grid_constant__ CUtensorMap d1_map,
+                  const __grid_constant__ CUtensorMap d2_map,
+                  const __grid_constant__ CUtensorMap m_map,
+                  const __grid_constant__ CUtensorMap dy1_map,
+                  const __grid_constant__ CUtensorMap dy2_map, const bf16* __restrict__ do1,
+                  const bf16* __restrict__ do2, const bf16* __restrict__ out1,
+                  const bf16* __restrict__ out2, const float* __restrict__ lse,
+                  const float* __restrict__ qsum, const float* __restrict__ g_ct,
+                  float* __restrict__ dsum, int64_t rows, int n_tiles, int S, float scale,
+                  float inv_n2) {
+  using L = RowsLayout<K>;
+  constexpr uint32_t kV2 = kHalf * L::kRowBytes;  // view 2's rows in a stacked panel
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* t_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* t_empty = t_full + 1;
+  uint64_t* m_full = t_empty + 1;
+  uint64_t* m_empty = m_full + kStagesR;
+  const int n_chunks = (S + kChunkR - 1) / kChunkR;
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(t_full, 1);
+    wg::mbar_init(t_empty, 2);
+    for (int i = 0; i < kStagesR; ++i) {
+      wg::mbar_init(m_full + i, 1);
+      wg::mbar_init(m_empty + i, 2);
     }
-    __syncthreads();
-    float p[kN / 8][4], dp[kN / 8][4];
-    p_and_dp<K, kN>(ya, da, mc, lane, view, s0, S, scale, lse_r, gc, xw, p, dp);
-    if (it < n_chunks) {
-#pragma unroll
-      for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dsum_r[e >> 1] += dp[n][e] * p[n][e];
-    } else {
-      if (it == n_chunks) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          dsum_r[h] += __shfl_xor_sync(0xffffffffu, dsum_r[h], 1);
-          dsum_r[h] += __shfl_xor_sync(0xffffffffu, dsum_r[h], 2);
-          if (t == 0 && row[h] < rows) dsum[view * rows + row[h]] = dsum_r[h];
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    wg::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      uint32_t it = 0, t = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++t) {
+        wg::mbar_wait(t_empty, (t & 1) ^ 1);
+        wg::mbar_arrive_expect_tx(t_full, 4 * L::kTile);
+        for (int w = 0; w < 2; ++w)
+          for (int p = 0; p < L::kPanels; ++p) {
+            unsigned char* dst = smem + L::y + w * L::kTile + p * L::kPanel;
+            const int r = tile * kRowsR + w * kHalf;
+            wg::tma_load_2d(dst, y1_map, p * L::kPw, r, t_full);
+            wg::tma_load_2d(dst + kV2, y2_map, p * L::kPw, r, t_full);
+            wg::tma_load_2d(dst + 2 * L::kTile, d1_map, p * L::kPw, r, t_full);
+            wg::tma_load_2d(dst + 2 * L::kTile + kV2, d2_map, p * L::kPw, r, t_full);
+          }
+        for (int c = 0; c < n_chunks; ++c, ++it) {
+          const uint32_t st = it % kStagesR;
+          wg::mbar_wait(m_empty + st, ((it / kStagesR) & 1) ^ 1);
+          wg::mbar_arrive_expect_tx(m_full + st, L::kMPanel);
+          wg::tma_load_2d(smem + L::m + st * L::kMPanel, m_map, c * kChunkR, 0, m_full + st);
         }
       }
-#pragma unroll
-      for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[n][e] = p[n][e] * (dp[n][e] - dsum_r[e >> 1]) * scale;  // dl / sqrt(K)
-      p_x_mt<K, kN>(p, mc, lane, o);
     }
-    __syncthreads();
-  }
-  store_rows<K>(o, const_cast<bf16*>(ya), view ? dy2 : dy1, rows, row0 + wr * 16,
-                lane);
-}
+  } else {
+    // ----------------------------------------------------------- consumers
+    wg::setmaxnreg_inc<kConsumerRegs>();
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32, q = lane % 4;
+    const int view = warp / 2;  // warps 0, 1: view 1's rows; 2, 3: view 2's
+    const float gc = *g_ct * inv_n2;
+    const float log2e = 1.4426950408889634f, scale_log2 = scale * log2e;
+    float4* xch = reinterpret_cast<float4*>(smem + L::xch) + w * (64 * kChunkR / 4);
+    const uint32_t ya = wg::smem_u32(smem + L::y + w * L::kTile);
+    const uint32_t da = ya + 2 * L::kTile;
+    uint32_t it = 0, t = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++t) {
+      const int64_t row0 = int64_t(tile) * kRowsR + w * kHalf;  // of each view
+      float lse2[2], dd[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = row0 + (warp % 2) * 16 + lane / 4 + 8 * h;
+        dd[h] = row_dsum<K>(view ? do2 : do1, view ? out2 : out1, qsum, rows, row, view, q, gc);
+        if (q == 0 && row < rows) dsum[view * rows + row] = dd[h];
+        lse2[h] = row < rows ? lse[view * rows + row] * log2e : INFINITY;
+      }
+      float o[K / 2];
+#pragma unroll
+      for (int i = 0; i < K / 2; ++i) o[i] = 0.f;
+      wg::mbar_wait(t_full, t & 1);
 
-// ====================================================== bf16 backward cols
-template <int K>
-struct ColsSmem {
-  static constexpr int kLdP = kCols + 8;
-  static constexpr size_t tile = size_t(kRows) * ld_rows<K>() * 2;
-  static constexpr size_t ptile = size_t(kRows) * kLdP * 2;
-  static constexpr size_t m = 0;                               // M slice
-  static constexpr size_t y = size_t(K) * kLdP * 2;            // 2 row tiles of y
-  static constexpr size_t dout = y + 2 * tile;                 // 2 row tiles of dout
-  static constexpr size_t ph = dout + 2 * tile;                // 2 tiles of round(p)
-  static constexpr size_t dl = ph + 2 * ptile;                 // 2 tiles of dl/sqrt(K)
-  static constexpr size_t x = dl + 2 * ptile;                  // exchange, f32
-  static constexpr size_t bytes = x + size_t(4) * (kCols / 2) * 32 * 4;
-};
-
-template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
-mat_bwd_cols_bf16(const bf16* __restrict__ y1, const bf16* __restrict__ y2,
-                  const bf16* __restrict__ mem, const bf16* __restrict__ do1,
-                  const bf16* __restrict__ do2, const float* __restrict__ lse,
-                  const float* __restrict__ dsum, const float* __restrict__ g_ct,
-                  float* __restrict__ scratch, int64_t rows, int S, float scale,
-                  float inv_n2, int tiles_per_split) {
-  static_assert(kCols / 8 == kThreads / 32, "one n8 column tile of dM per warp");
-  using L = ColsSmem<K>;
-  constexpr int kLd = ld_rows<K>(), kLdP = L::kLdP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ms = reinterpret_cast<bf16*>(smem + L::m);
-  bf16* ys = reinterpret_cast<bf16*>(smem + L::y);
-  bf16* ds = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L::ph);
-  bf16* ls = reinterpret_cast<bf16*>(smem + L::dl);
-  float* xch = reinterpret_cast<float*>(smem + L::x);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int view = warp >> 2, wr = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;
-  const int s0 = blockIdx.x * kCols;
-  const int n_tiles = int((rows + kRows - 1) / kRows);
-  const int tile0 = blockIdx.y * tiles_per_split;
-  const int tile1 = min(n_tiles, tile0 + tiles_per_split);
-  const float gc = *g_ct * inv_n2;
-
-  load_m_chunk<K, kCols, kThreads>(mem, S, s0, ms);
-  cp_async_commit();
-  const int off = (view * kRows + wr * 16) * kLd;
-  const int poff = (view * kRows + wr * 16) * kLdP;
-  float* xw = xch + wr * (kCols / 2) * 32;
-  float acc[K / 16][4];  // dM rows mt*16 + (g, g+8), columns s0 + 8 warp + 2t (+1)
+      for (int c = 0; c < n_chunks; ++c, ++it) {
+        const uint32_t st = it % kStagesR;
+        const uint32_t mb = wg::smem_u32(smem + L::m + st * L::kMPanel);
+        wg::mbar_wait(m_full + st, (it / kStagesR) & 1);
+        float s[32], dp[32];
+        wg::wgmma_fence();
+        issue_tile_x_m<K>(s, ya, mb);
+        issue_tile_x_m<K>(dp, da, mb);
+        wg::wgmma_commit();
+        wg::wgmma_wait<0>();
+        wg::fence_regs(s);
+        wg::fence_regs(dp);
+        probs(s, lse2, c * kChunkR, S, q, scale_log2);
+        // trade p between warps w and w + 2 (the other view's same rows):
+        // their reads of the last chunk's are done
+        wg::named_barrier_sync(kWgBar + w, 128);
 #pragma unroll
-  for (int mt = 0; mt < K / 16; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
-
-  for (int tile = tile0; tile < tile1; ++tile) {
-    const int64_t row0 = int64_t(tile) * kRows;
-    load_rows<K>(y1, rows, row0, ys);
-    load_rows<K>(y2, rows, row0, ys + kRows * kLd);
-    load_rows<K>(do1, rows, row0, ds);
-    load_rows<K>(do2, rows, row0, ds + kRows * kLd);
-    cp_async_commit();
-    float lse_r[2], dsum_r[2];
+        for (int i = 0; i < 8; ++i)
+          xch[i * 128 + lt] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+        wg::named_barrier_sync(kWgBar + w, 128);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t row = row0 + wr * 16 + g + 8 * h;
-      lse_r[h] = row < rows ? lse[view * rows + row] : INFINITY;
-      dsum_r[h] = row < rows ? dsum[view * rows + row] : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    float p[kCols / 8][4], dp[kCols / 8][4];
-    p_and_dp<K, kCols>(ys + off, ds + off, ms, lane, view, s0, S, scale, lse_r, gc, xw,
-                       p, dp);
-    bf16* pw = ps + poff;
-    bf16* lw = ls + poff;
+        for (int i = 0; i < 8; ++i) {
+          const float4 x = xch[i * 128 + (lt ^ 64)];
+          const float po[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-    for (int n = 0; n < kCols / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(pw + g * kLdP + n * 8 + 2 * t) = pack_bf16(p[n][0], p[n][1]);
-      *reinterpret_cast<uint32_t*>(pw + (g + 8) * kLdP + n * 8 + 2 * t) =
-          pack_bf16(p[n][2], p[n][3]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = p[n][e] * (dp[n][e] - dsum_r[e >> 1]) * scale;
-      *reinterpret_cast<uint32_t*>(lw + g * kLdP + n * 8 + 2 * t) = pack_bf16(p[n][0], p[n][1]);
-      *reinterpret_cast<uint32_t*>(lw + (g + 8) * kLdP + n * 8 + 2 * t) =
-          pack_bf16(p[n][2], p[n][3]);
-    }
-    __syncthreads();
-    // dM[:, this warp's 8 columns] += dout^T . round(p) + y^T . dl / sqrt(K),
-    // the tile's 64 rows of both views as the reduction axis
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const bf16* dv = ds + v * kRows * kLd;
-      const bf16* yv = ys + v * kRows * kLd;
-#pragma unroll
-      for (int kk = 0; kk < kRows / 32; ++kk) {
-        uint32_t bp[4], bl[4];
-        const int prow = (v * kRows + kk * 32 + mi * 8 + mr) * kLdP + warp * 8;
-        ldmatrix_x4_trans(bp, ps + prow);
-        ldmatrix_x4_trans(bl, ls + prow);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = kk * 32 + half * 16 + (mi >> 1) * 8 + mr;
-#pragma unroll
-          for (int mt = 0; mt < K / 16; ++mt) {
-            uint32_t fa[4];
-            ldmatrix_x4_trans(fa, dv + r * kLd + mt * 16 + (mi & 1) * 8);
-            mma_bf16(acc[mt], fa, bp[2 * half], bp[2 * half + 1]);
-            ldmatrix_x4_trans(fa, yv + r * kLd + mt * 16 + (mi & 1) * 8);
-            mma_bf16(acc[mt], fa, bl[2 * half], bl[2 * half + 1]);
+          for (int e = 0; e < 4; ++e) {
+            const int j = 4 * i + e;  // dl / sqrt(K); view 2's dp takes -gc (p1 - p2)
+            s[j] = s[j] * (dp[j] + gc * (s[j] - po[e]) - dd[e >> 1]) * scale;
           }
         }
+        uint32_t pa[kChunkR / 16][4];  // dl in bf16 as wgmma A fragments
+#pragma unroll
+        for (int j = 0; j < kChunkR / 16; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pa[j][i] = wg::pack_bf16(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]);
+        wg::fence_regs(o);
+#pragma unroll
+        for (int j = 0; j < kChunkR / 16; ++j) wg::fence_regs(pa[j]);
+        wg::wgmma_fence();
+        const uint64_t db = wg::make_desc(mb, 16, 1024, 128);
+#pragma unroll
+        for (int j = 0; j < kChunkR / 16; ++j)
+          wg::wgmma_rs<K, 0>(o, pa[j], db + ((j * 32) >> 4), 1);
+        wg::wgmma_commit();
+        wg::wgmma_wait<0>();
+        wg::fence_regs(o);
+        if (lt == 0) wg::mbar_arrive(m_empty + st);
+      }
+
+      // epilogue: dy in bf16, staged in this warpgroup's y tile (its reads
+      // are done), TMA store of each view's 32 rows (clipped at `rows`)
+      const uint32_t ln = wg::opaque(lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t row = warp * 16 + ln / 4 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < K / 8; ++j) {
+          const uint32_t col = 8 * j + 2 * (ln % 4);
+          wg::st_shared_u32(ya + (col / L::kPw) * L::kPanel +
+                                wg::swizzle(row * L::kRowBytes + (col % L::kPw) * 2, L::kRowBytes),
+                            wg::pack_bf16(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]));
+        }
+      }
+      wg::fence_proxy_async();
+      wg::named_barrier_sync(kWgBar + w, 128);
+      if (lt == 0) {
+        unsigned char* stage = smem + L::y + w * L::kTile;
+        for (int p = 0; p < L::kPanels; ++p) {
+          wg::tma_store_2d(dy1_map, stage + p * L::kPanel, p * L::kPw, int(row0));
+          wg::tma_store_2d(dy2_map, stage + p * L::kPanel + kV2, p * L::kPw, int(row0));
+        }
+        wg::tma_store_commit();
+        wg::tma_store_wait_read<0>();
+        wg::mbar_arrive(t_empty);
       }
     }
-    __syncthreads();  // row tiles and p / dl tiles are free for the next tile
+    if (lt == 0) wg::tma_store_wait<0>();
   }
-  cp_async_wait<0>();  // a block with no row tile still waits for its M slice
-  float* dst = scratch + size_t(blockIdx.y) * K * S;
-#pragma unroll
-  for (int mt = 0; mt < K / 16; ++mt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = mt * 16 + g + 8 * (e >> 1), s = s0 + warp * 8 + 2 * t + (e & 1);
-      if (s < S) dst[size_t(k) * S + s] = acc[mt][e];
+}
+
+// byte offset of the accumulator pair (j, h) of lane `ln` of warp `warp` in
+// a 64 x 64 bf16 tile of 128-byte rows, 128-byte swizzle (MN-major operand)
+__device__ __forceinline__ uint32_t ptile_off(int warp, uint32_t ln, int j, int h) {
+  return wg::swizzle((warp * 16 + ln / 4 + 8 * h) * 128 + (8 * j + 2 * (ln % 4)) * 2, 128);
+}
+
+__device__ __forceinline__ float2 bf16x2_at(const unsigned char* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// cols kernel. A block owns a 128-prototype slice of dM (64 per consumer
+// warpgroup) and a range of row tiles; a row tile is 32 rows of each view
+// stacked into 64 (view 1 above view 2), so each warpgroup trades p between
+// its warps w and w + 2 and sums dM over both views in one product. Per
+// tile and warpgroup: logits and dp on its 64 prototypes (SS), p from lse,
+// D from the rows kernel, round(p) and dl / sqrt(K) into its p-hat and dl
+// tiles (bf16, MN-major), then dM^T += round(p)^T . dout + dl^T . y / sqrt(K)
+// (SS, both operands MN-major, the 64 rows the reduction axis), kept in
+// registers across the row tiles and written to this split's partial.
+template <int K>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+mat_bwd_cols_bf16(const __grid_constant__ CUtensorMap y1_map,
+                  const __grid_constant__ CUtensorMap y2_map,
+                  const __grid_constant__ CUtensorMap d1_map,
+                  const __grid_constant__ CUtensorMap d2_map,
+                  const __grid_constant__ CUtensorMap m_map, const float* __restrict__ lse,
+                  const float* __restrict__ dsum, const float* __restrict__ g_ct,
+                  float* __restrict__ scratch, int64_t rows, int S, float scale, float inv_n2,
+                  int tiles_per_split) {
+  using L = ColsLayout<K>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* m_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* t_full = m_full + 1;
+  uint64_t* t_empty = t_full + kBufsC;
+  const int s0 = blockIdx.x * kColsC;
+  const int n_tiles = int((rows + kHalf - 1) / kHalf);
+  const int tile0 = blockIdx.y * tiles_per_split;
+  const int tile1 = min(n_tiles, tile0 + tiles_per_split);
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(m_full, 1);
+    for (int i = 0; i < kBufsC; ++i) {
+      wg::mbar_init(t_full + i, 1);
+      wg::mbar_init(t_empty + i, 2);
     }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    wg::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      wg::mbar_arrive_expect_tx(m_full, 2 * L::kMPanel);
+      for (int h = 0; h < 2; ++h)
+        wg::tma_load_2d(smem + L::m + h * L::kMPanel, m_map, s0 + 64 * h, 0, m_full);
+      uint32_t t = 0;
+      for (int tile = tile0; tile < tile1; ++tile, ++t) {
+        const uint32_t b = t % kBufsC;
+        wg::mbar_wait(t_empty + b, ((t / kBufsC) & 1) ^ 1);
+        wg::mbar_arrive_expect_tx(t_full + b, L::kBuf);
+        for (int p = 0; p < L::kPanels; ++p) {  // view 1 in rows 0-31, view 2 in 32-63
+          unsigned char* dst = smem + L::buf + b * L::kBuf + p * L::kPanel;
+          constexpr uint32_t v2 = kHalf * L::kRowBytes;
+          wg::tma_load_2d(dst, y1_map, p * L::kPw, tile * kHalf, t_full + b);
+          wg::tma_load_2d(dst + v2, y2_map, p * L::kPw, tile * kHalf, t_full + b);
+          wg::tma_load_2d(dst + L::kTile, d1_map, p * L::kPw, tile * kHalf, t_full + b);
+          wg::tma_load_2d(dst + L::kTile + v2, d2_map, p * L::kPw, tile * kHalf, t_full + b);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    wg::setmaxnreg_inc<kConsumerRegs>();
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;  // 64 prototypes each
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32, q = lane % 4;
+    const int view = warp / 2;  // warps 0, 1: view 1's rows; 2, 3: view 2's
+    const float gc = *g_ct * inv_n2;
+    const float log2e = 1.4426950408889634f, scale_log2 = scale * log2e;
+    const int c0 = s0 + 64 * w;
+    const uint32_t mb = wg::smem_u32(smem + L::m + w * L::kMPanel);
+    unsigned char* ptile = smem + L::pl + w * 2 * L::kPTile;  // p-hat, then dl
+    const uint32_t pa = wg::smem_u32(ptile), la = pa + L::kPTile;
+    float acc[K / 2];  // dM^T: prototypes c0 + 16 warp + g (+ 8), columns 8 j + 2 q (+ 1)
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) acc[i] = 0.f;
+    wg::mbar_wait(m_full, 0);  // also with no row tile: the slice's load completes
+
+    uint32_t t = 0;
+    for (int tile = tile0; tile < tile1; ++tile, ++t) {
+      const uint32_t b = t % kBufsC;
+      const uint32_t ya = wg::smem_u32(smem + L::buf + b * L::kBuf), da = ya + L::kTile;
+      float lse2[2], dd[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = int64_t(tile) * kHalf + (warp % 2) * 16 + lane / 4 + 8 * h;
+        lse2[h] = row < rows ? lse[view * rows + row] * log2e : INFINITY;
+        dd[h] = row < rows ? dsum[view * rows + row] : 0.f;
+      }
+      wg::mbar_wait(t_full + b, (t / kBufsC) & 1);
+      float s[32], dp[32];
+      wg::wgmma_fence();
+      issue_tile_x_m<K>(s, ya, mb);
+      issue_tile_x_m<K>(dp, da, mb);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(s);
+      wg::fence_regs(dp);
+      probs(s, lse2, c0, S, q, scale_log2);
+      // round(p) into the p-hat tile and p - round(p) into the dl tile; the
+      // other view's row sits 32 rows away (4096 bytes: the swizzle keeps).
+      // The addresses derive from an opaque lane, so that they are
+      // recomputed in each tile, not held in registers across the loop.
+      const uint32_t ln = wg::opaque(lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t off = ptile_off(warp, ln, j, h);
+          const float a = s[4 * j + 2 * h], c = s[4 * j + 2 * h + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+          const float2 hf = __bfloat1622float2(hi);
+          wg::st_shared_u32(pa + off, *reinterpret_cast<const uint32_t*>(&hi));
+          wg::st_shared_u32(la + off, wg::pack_bf16(a - hf.x, c - hf.y));
+        }
+      wg::named_barrier_sync(kWgBar + w, 128);
+      // dp += gc (p - p_other): view 1's dp takes +gc (p1 - p2), view 2's -gc (p1 - p2)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t off = ptile_off(warp, ln, j, h) ^ 4096u;
+          const float2 hi = bf16x2_at(ptile + off), lo = bf16x2_at(ptile + L::kPTile + off);
+          dp[4 * j + 2 * h] += gc * (s[4 * j + 2 * h] - (hi.x + lo.x));
+          dp[4 * j + 2 * h + 1] += gc * (s[4 * j + 2 * h + 1] - (hi.y + lo.y));
+          // one pair of loads in flight, not all 16: hoisted, they spill
+          // at 240 registers
+          asm volatile("" ::: "memory");
+        }
+      wg::named_barrier_sync(kWgBar + w, 128);  // every read of the dl tile is done
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          wg::st_shared_u32(la + ptile_off(warp, ln, j, h),
+                            wg::pack_bf16(s[i] * (dp[i] - dd[h]) * scale,
+                                          s[i + 1] * (dp[i + 1] - dd[h]) * scale));
+        }
+      wg::fence_proxy_async();
+      wg::named_barrier_sync(kWgBar + w, 128);
+      // dM^T += round(p)^T . dout + (dl / sqrt(K))^T . y over the 64 rows
+      const uint64_t dpa = wg::make_desc(pa, L::kPTile, 1024, 128);
+      const uint64_t dla = wg::make_desc(la, L::kPTile, 1024, 128);
+      const uint64_t ddo = wg::make_desc(da, L::kPanel, 8 * L::kRowBytes, L::kRowBytes);
+      const uint64_t dya = wg::make_desc(ya, L::kPanel, 8 * L::kRowBytes, L::kRowBytes);
+      wg::fence_regs(acc);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wg::wgmma_ss<K, 1, 1>(acc, dpa + ((j * 2048) >> 4), ddo + ((j * 16 * L::kRowBytes) >> 4), 1);
+        wg::wgmma_ss<K, 1, 1>(acc, dla + ((j * 2048) >> 4), dya + ((j * 16 * L::kRowBytes) >> 4), 1);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(acc);
+      if (lt == 0) wg::mbar_arrive(t_empty + b);
+    }
+    // this split's partial dM (K x S, f32), transposed out of the registers
+    float* dst = scratch + size_t(blockIdx.y) * K * S;
+    const int g = lane / 4;
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = c0 + warp * 16 + g + 8 * (e >> 1), k = 8 * j + 2 * q + (e & 1);
+        if (s < S) dst[size_t(k) * S + s] = acc[4 * j + e];
+      }
+  }
 }
 
 // ========================================================== f32 / CUDA cores
@@ -662,7 +893,7 @@ template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
 mat_fwd_f32(const float* __restrict__ y1, const float* __restrict__ y2,
             const float* __restrict__ mem, float* __restrict__ out1,
-            float* __restrict__ out2, float* __restrict__ lse,
+            float* __restrict__ out2, float* __restrict__ lse, float* __restrict__ qsum,
             float* __restrict__ partial, int64_t rows, int S, float scale) {
   extern __shared__ float fsm[];
   float* ys = fsm;                                // 2 row tiles
@@ -677,6 +908,7 @@ mat_fwd_f32(const float* __restrict__ y1, const float* __restrict__ y2,
   const float* ya = ys + view * f32_tile_floats<K>() + r * (K + 1);
   const int n_chunks = (S + kColsF32 - 1) / kColsF32;
   float m_run = -INFINITY, l_run = 0.f, loss = 0.f;
+  float q11 = 0.f, q22 = 0.f, q12 = 0.f;  // view 0's threads
   float acc[K / 4];
 #pragma unroll
   for (int i = 0; i < K / 4; ++i) acc[i] = 0.f;
@@ -714,11 +946,14 @@ mat_fwd_f32(const float* __restrict__ y1, const float* __restrict__ y2,
 #pragma unroll
           for (int j = 0; j < kColsF32 / 4; ++j) xs[r * kLdC + q + 4 * j] = lg[j];
         __syncthreads();
-        if (view == 0 && valid)
+        if (view == 0)
 #pragma unroll
           for (int j = 0; j < kColsF32 / 4; ++j) {
-            const float d = lg[j] - xs[r * kLdC + q + 4 * j];
-            loss += d * d;
+            const float p2 = xs[r * kLdC + q + 4 * j], d = lg[j] - p2;
+            loss += valid ? d * d : 0.f;
+            q11 += lg[j] * lg[j];
+            q22 += p2 * p2;
+            q12 += lg[j] * p2;
           }
         f32_x_mt<K>(lg, ms, q, group, acc);
       }
@@ -730,6 +965,11 @@ mat_fwd_f32(const float* __restrict__ y1, const float* __restrict__ y2,
     for (int i = 0; i < K / 4; ++i) out[row * K + q + 4 * i] = acc[i];
     if (q == 0) lse[view * rows + row] = m_run + logf(l_run);
   }
+  if (view == 0) {
+    const float qs[3] = {quad_sum(q11), quad_sum(q22), quad_sum(q12)};
+    if (valid && q == 0)
+      for (int i = 0; i < 3; ++i) qsum[i * rows + row] = qs[i];
+  }
   const float s = block_sum(loss, xs);
   if (threadIdx.x == 0) partial[blockIdx.x] = s;
 }
@@ -738,10 +978,11 @@ template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
 mat_bwd_rows_f32(const float* __restrict__ y1, const float* __restrict__ y2,
                  const float* __restrict__ mem, const float* __restrict__ do1,
-                 const float* __restrict__ do2, const float* __restrict__ lse,
-                 const float* __restrict__ g_ct, float* __restrict__ dy1,
-                 float* __restrict__ dy2, float* __restrict__ dsum, int64_t rows, int S,
-                 float scale, float inv_n2) {
+                 const float* __restrict__ do2, const float* __restrict__ out1,
+                 const float* __restrict__ out2, const float* __restrict__ lse,
+                 const float* __restrict__ qsum, const float* __restrict__ g_ct,
+                 float* __restrict__ dy1, float* __restrict__ dy2, float* __restrict__ dsum,
+                 int64_t rows, int S, float scale, float inv_n2) {
   extern __shared__ float fsm[];
   float* ys = fsm;                                // 2 row tiles of y
   float* ds = ys + 2 * f32_tile_floats<K>();      // 2 row tiles of dout
@@ -759,34 +1000,24 @@ mat_bwd_rows_f32(const float* __restrict__ y1, const float* __restrict__ y2,
   const size_t off = view * f32_tile_floats<K>() + r * (K + 1);
   const float lse_r = valid ? lse[view * rows + row] : INFINITY;
   const int n_chunks = (S + kColsF32 - 1) / kColsF32;
-  float dsum_r = 0.f;
+  const float dsum_r =
+      row_dsum<K>(view ? do2 : do1, view ? out2 : out1, qsum, rows, row, view, q, gc);
+  if (valid && q == 0) dsum[view * rows + row] = dsum_r;
   float acc[K / 4];
 #pragma unroll
   for (int i = 0; i < K / 4; ++i) acc[i] = 0.f;
 
-  for (int pass = 0; pass < 2; ++pass) {
-    if (pass == 1) {
-      dsum_r += __shfl_xor_sync(0xffffffffu, dsum_r, 1);
-      dsum_r += __shfl_xor_sync(0xffffffffu, dsum_r, 2);
-      if (valid && q == 0) dsum[view * rows + row] = dsum_r;
-    }
-    for (int c = 0; c < n_chunks; ++c) {
-      const int s0 = c * kColsF32;
-      __syncthreads();
-      f32_load_m<K>(mem, S, s0, ms);
-      __syncthreads();
-      float p[kColsF32 / 4], dp[kColsF32 / 4];
-      f32_p_and_dp<K>(ys + off, ds + off, ms, q, view, s0, S, scale, lse_r, gc,
-                      xs + r * kLdC, p, dp);
-      if (pass == 0) {
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s0 = c * kColsF32;
+    __syncthreads();
+    f32_load_m<K>(mem, S, s0, ms);
+    __syncthreads();
+    float p[kColsF32 / 4], dp[kColsF32 / 4];
+    f32_p_and_dp<K>(ys + off, ds + off, ms, q, view, s0, S, scale, lse_r, gc,
+                    xs + r * kLdC, p, dp);
 #pragma unroll
-        for (int j = 0; j < kColsF32 / 4; ++j) dsum_r += dp[j] * p[j];
-      } else {
-#pragma unroll
-        for (int j = 0; j < kColsF32 / 4; ++j) p[j] = p[j] * (dp[j] - dsum_r) * scale;
-        f32_x_mt<K>(p, ms, q, group, acc);
-      }
-    }
+    for (int j = 0; j < kColsF32 / 4; ++j) p[j] = p[j] * (dp[j] - dsum_r) * scale;
+    f32_x_mt<K>(p, ms, q, group, acc);
   }
   if (valid) {
     float* dy = view ? dy2 : dy1;
@@ -889,6 +1120,14 @@ reduce_splits(const float* __restrict__ scratch, int splits, int64_t n,
   out[i] = s;
 }
 
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -897,8 +1136,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <int K>
 cudaError_t fwd(const void* y1, const void* y2, const void* mem, void* out1, void* out2,
-                float* lse, float* partial, float* loss, int64_t rows, int S, int dtype,
-                float inv_n, cudaStream_t st) {
+                float* lse, float* qsum, float* partial, float* loss, int64_t rows, int S,
+                int dtype, float inv_n, cudaStream_t st) {
   const float scale = 1.f / sqrtf(float(K));
   cudaError_t err;
   int blocks;
@@ -909,7 +1148,7 @@ cudaError_t fwd(const void* y1, const void* y2, const void* mem, void* out1, voi
     mat_fwd_bf16<K><<<blocks, kThreads, smem, st>>>(
         static_cast<const bf16*>(y1), static_cast<const bf16*>(y2),
         static_cast<const bf16*>(mem), static_cast<bf16*>(out1), static_cast<bf16*>(out2),
-        lse, partial, rows, S, scale);
+        lse, qsum, partial, rows, S, scale);
   } else {
     const size_t smem = (2 * f32_tile_floats<K>() + (K + kRowsF32) * kLdC) * 4;
     if ((err = allow_smem(mat_fwd_f32<K>, smem)) != cudaSuccess) return err;
@@ -917,7 +1156,7 @@ cudaError_t fwd(const void* y1, const void* y2, const void* mem, void* out1, voi
     mat_fwd_f32<K><<<blocks, kThreads, smem, st>>>(
         static_cast<const float*>(y1), static_cast<const float*>(y2),
         static_cast<const float*>(mem), static_cast<float*>(out1),
-        static_cast<float*>(out2), lse, partial, rows, S, scale);
+        static_cast<float*>(out2), lse, qsum, partial, rows, S, scale);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   sum_partials<<<1, kThreads, 0, st>>>(partial, blocks, inv_n, loss);
@@ -926,37 +1165,56 @@ cudaError_t fwd(const void* y1, const void* y2, const void* mem, void* out1, voi
 
 template <int K>
 cudaError_t bwd(const void* y1, const void* y2, const void* mem, const void* do1,
-                const void* do2, const float* lse, const float* g, void* dy1, void* dy2,
-                float* dsum, float* scratch, float* dm, int64_t rows, int S, int dtype,
-                int splits, float inv_n2, cudaStream_t st) {
+                const void* do2, const void* out1, const void* out2, const float* lse,
+                const float* qsum, const float* g, void* dy1, void* dy2, float* dsum,
+                float* scratch, float* dm, int64_t rows, int S, int ld, int dtype, int splits,
+                float inv_n2, cudaStream_t st) {
   const float scale = 1.f / sqrtf(float(K));
   cudaError_t err;
-  const int row_tile = dtype == 1 ? kRows : kRowsF32;
-  const int col_tile = dtype == 1 ? kCols : kColsF32;
+  const int row_tile = dtype == 1 ? kHalf : kRowsF32;
+  const int col_tile = dtype == 1 ? kColsC : kColsF32;
   const int n_tiles = int((rows + row_tile - 1) / row_tile);
   const int per_split = (n_tiles + splits - 1) / splits;
   const dim3 col_grid((S + col_tile - 1) / col_tile, splits);
   if (dtype == 1) {
-    const bf16 *a1 = static_cast<const bf16*>(y1), *a2 = static_cast<const bf16*>(y2),
-               *m = static_cast<const bf16*>(mem), *d1 = static_cast<const bf16*>(do1),
-               *d2 = static_cast<const bf16*>(do2);
-    if ((err = allow_smem(mat_bwd_rows_bf16<K>, RowsSmem<K>::bytes)) != cudaSuccess) return err;
-    mat_bwd_rows_bf16<K><<<n_tiles, kThreads, RowsSmem<K>::bytes, st>>>(
-        a1, a2, m, d1, d2, lse, g, static_cast<bf16*>(dy1), static_cast<bf16*>(dy2), dsum,
-        rows, S, scale, inv_n2);
+    const bf16 *d1 = static_cast<const bf16*>(do1), *d2 = static_cast<const bf16*>(do2);
+    using P = BwdPanels<K>;
+    if (rows > int64_t(0x7fffffff) - 64 || ld % 8 != 0 || ld < S) return cudaErrorInvalidValue;
+    if (wg::encode_tiled() == nullptr) return cudaErrorNotSupported;
+    // boxes of 32 rows of one view: both kernels stack the views' rows
+    void* maps_of[6] = {const_cast<void*>(y1), const_cast<void*>(y2), const_cast<void*>(do1),
+                        const_cast<void*>(do2), dy1, dy2};
+    CUtensorMap maps[6], m_map;
+    for (int i = 0; i < 6; ++i)
+      if (!wg::make_map_2d(&maps[i], maps_of[i], rows, K, 2 * K, kHalf, P::kPw, P::kRowBytes))
+        return cudaErrorInvalidValue;
+    if (!wg::make_map_2d(&m_map, mem, K, S, 2 * uint64_t(ld), K, 64, 128))
+      return cudaErrorInvalidValue;
+    const int sms = sm_count();
+    if (sms <= 0) return cudaErrorNoDevice;
+    const int r_tiles = int((rows + kRowsR - 1) / kRowsR);
+    if ((err = allow_smem(mat_bwd_rows_bf16<K>, RowsLayout<K>::bytes)) != cudaSuccess) return err;
+    mat_bwd_rows_bf16<K><<<r_tiles < sms ? r_tiles : sms, kBwdThreads, RowsLayout<K>::bytes,
+                           st>>>(
+        maps[0], maps[1], maps[2], maps[3], m_map, maps[4], maps[5], d1, d2,
+        static_cast<const bf16*>(out1), static_cast<const bf16*>(out2), lse, qsum, g, dsum,
+        rows, r_tiles, S, scale, inv_n2);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = allow_smem(mat_bwd_cols_bf16<K>, ColsSmem<K>::bytes)) != cudaSuccess) return err;
-    mat_bwd_cols_bf16<K><<<col_grid, kThreads, ColsSmem<K>::bytes, st>>>(
-        a1, a2, m, d1, d2, lse, dsum, g, scratch, rows, S, scale, inv_n2, per_split);
+    if ((err = allow_smem(mat_bwd_cols_bf16<K>, ColsLayout<K>::bytes)) != cudaSuccess) return err;
+    mat_bwd_cols_bf16<K><<<col_grid, kBwdThreads, ColsLayout<K>::bytes, st>>>(
+        maps[0], maps[1], maps[2], maps[3], m_map, lse, dsum, g, scratch, rows, S, scale,
+        inv_n2, per_split);
   } else {
+    if (ld != S) return cudaErrorInvalidValue;
     const float *a1 = static_cast<const float*>(y1), *a2 = static_cast<const float*>(y2),
                 *m = static_cast<const float*>(mem), *d1 = static_cast<const float*>(do1),
                 *d2 = static_cast<const float*>(do2);
     const size_t rows_smem = (4 * f32_tile_floats<K>() + (K + kRowsF32) * kLdC) * 4;
     if ((err = allow_smem(mat_bwd_rows_f32<K>, rows_smem)) != cudaSuccess) return err;
     mat_bwd_rows_f32<K><<<n_tiles, kThreads, rows_smem, st>>>(
-        a1, a2, m, d1, d2, lse, g, static_cast<float*>(dy1), static_cast<float*>(dy2), dsum,
-        rows, S, scale, inv_n2);
+        a1, a2, m, d1, d2, static_cast<const float*>(out1), static_cast<const float*>(out2),
+        lse, qsum, g, static_cast<float*>(dy1), static_cast<float*>(dy2), dsum, rows, S,
+        scale, inv_n2);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const size_t cols_smem = (4 * f32_tile_floats<K>() + (K + 5 * kRowsF32) * kLdC) * 4;
     if ((err = allow_smem(mat_bwd_cols_f32<K>, cols_smem)) != cudaSuccess) return err;
@@ -975,47 +1233,52 @@ cudaError_t bwd(const void* y1, const void* y2, const void* mem, const void* do1
 // dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t (0 = launched);
 // cudaErrorInvalidValue for a K that has no instantiation.
 //
-// Forward: out1, out2 (rows, K) in y's type; lse (2, rows) f32; partial
-// (at least ceil(rows / row tile)) f32 scratch; loss one f32, the mean of
+// Forward: out1, out2 (rows, K) in y's type; lse (2, rows) f32; qsum (3,
+// rows) f32, each row's <p1, p1>_S, <p2, p2>_S and <p1, p2>_S; partial (at
+// least ceil(rows / row tile)) f32 scratch; loss one f32, the mean of
 // (p1 - p2)^2 (inv_n = 1 / (rows * S)).
 extern "C" int mem_attention_train_fwd(const void* y1, const void* y2, const void* mem,
-                                       void* out1, void* out2, float* lse, float* partial,
-                                       float* loss, long long rows, int K, int S, int dtype,
-                                       float inv_n, void* stream) {
+                                       void* out1, void* out2, float* lse, float* qsum,
+                                       float* partial, float* loss, long long rows, int K,
+                                       int S, int dtype, float inv_n, void* stream) {
   if (rows <= 0 || S <= 0 || (dtype != 0 && dtype != 1)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 16: return int(fwd<16>(y1, y2, mem, out1, out2, lse, partial, loss, rows, S, dtype, inv_n, st));
-    case 256: return int(fwd<256>(y1, y2, mem, out1, out2, lse, partial, loss, rows, S, dtype, inv_n, st));
+    case 16: return int(fwd<16>(y1, y2, mem, out1, out2, lse, qsum, partial, loss, rows, S, dtype, inv_n, st));
+    case 256: return int(fwd<256>(y1, y2, mem, out1, out2, lse, qsum, partial, loss, rows, S, dtype, inv_n, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
 
-// Backward: g is the loss's cotangent (one f32 on the device, read by the
-// kernels, so the host never waits); inv_n2 = 2 / (rows * S); dy1, dy2 in
-// y's type; dsum (2, rows) f32 and scratch (splits, K, S) f32 are work
-// space; dm (K, S) f32.
+// Backward: out1, out2, lse and qsum are the forward's; g is the loss's
+// cotangent (one f32 on the device, read by the kernels, so the host never
+// waits); inv_n2 = 2 / (rows * S); dy1, dy2 in y's type; dsum (2, rows)
+// f32 and scratch (splits, K, S) f32 are work space; dm (K, S) f32. M's
+// rows are `ld` values apart: S for f32; for bf16 a multiple of 8, at least
+// S (its tensor map).
 extern "C" int mem_attention_train_bwd(const void* y1, const void* y2, const void* mem,
-                                       const void* do1, const void* do2, const float* lse,
+                                       const void* do1, const void* do2, const void* out1,
+                                       const void* out2, const float* lse, const float* qsum,
                                        const float* g, void* dy1, void* dy2, float* dsum,
                                        float* scratch, float* dm, long long rows, int K,
-                                       int S, int dtype, int splits, float inv_n2,
+                                       int S, int ld, int dtype, int splits, float inv_n2,
                                        void* stream) {
   if (rows <= 0 || S <= 0 || splits <= 0 || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 16: return int(bwd<16>(y1, y2, mem, do1, do2, lse, g, dy1, dy2, dsum, scratch, dm, rows, S, dtype, splits, inv_n2, st));
-    case 256: return int(bwd<256>(y1, y2, mem, do1, do2, lse, g, dy1, dy2, dsum, scratch, dm, rows, S, dtype, splits, inv_n2, st));
+    case 16: return int(bwd<16>(y1, y2, mem, do1, do2, out1, out2, lse, qsum, g, dy1, dy2, dsum, scratch, dm, rows, S, ld, dtype, splits, inv_n2, st));
+    case 256: return int(bwd<256>(y1, y2, mem, do1, do2, out1, out2, lse, qsum, g, dy1, dy2, dsum, scratch, dm, rows, S, ld, dtype, splits, inv_n2, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
 
-// The tiles the launches use: which 0 = rows per block (of each view),
-// 1 = prototypes per column block of the backward.
+// The tiles the launches use: which 0 = rows per block of the forward (of
+// each view), 1 = prototypes per column block of the backward, 2 = rows
+// per row tile of the backward's column kernel (of each view).
 extern "C" int mem_attention_train_tile(int dtype, int which) {
-  if (dtype == 1) return which ? kCols : kRows;
-  return which ? kColsF32 : kRowsF32;
+  if (dtype == 1) return which == 0 ? kRows : which == 1 ? kColsC : kHalf;
+  return which == 1 ? kColsF32 : kRowsF32;
 }
 
 extern "C" const char* mem_attention_train_error_string(int err) {

@@ -14,6 +14,14 @@ the plain PyTorch version, whose gradient plain autograd gives. A CUDA
 tensor never takes the plain version: the kernels launch or the call
 raises.
 
+The backward takes each row's D = <dp_i, p_i>_S from what the forward
+saves rather than from a sweep over S (the flash-attention identity):
+<dout_i . M, p_i>_S = <dout_i, p_i . M^T>_K, which is <dout_i, out_i>_K up
+to out's rounding, and the consistency term's share is gc (q_ii - q_12)
+with the forward's row sums q = (<p1, p1>_S, <p2, p2>_S, <p1, p2>_S).
+``saved_reference`` and ``dsum_reference`` are the plain versions of what
+the forward saves (lse, q) and of that rule.
+
 ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches (and nothing
 else), so a run can show that its main path went through the kernels.
 """
@@ -56,17 +64,43 @@ def memory_attention_train_reference(y1: torch.Tensor, y2: torch.Tensor,
     return out1, out2, torch.mean((p1 - p2) ** 2)
 
 
+def saved_reference(y1: torch.Tensor, y2: torch.Tensor, mem: torch.Tensor):
+    """What the forward kernel saves for the backward, in float32: lse
+    (2, rows), each row's logsumexp of y_i . M / sqrt(K), and q (3, rows),
+    each row's <p1, p1>_S, <p2, p2>_S and <p1, p2>_S."""
+    k = y1.shape[-1]
+    mf = mem.float()
+    lse, p = [], []
+    for y in (y1, y2):
+        logits = torch.matmul(y.reshape(-1, k).float(), mf) / math.sqrt(k)
+        lse.append(torch.logsumexp(logits, dim=-1))
+        p.append(torch.softmax(logits, dim=-1))
+    q = torch.stack([(p[0] * p[0]).sum(-1), (p[1] * p[1]).sum(-1), (p[0] * p[1]).sum(-1)])
+    return torch.stack(lse), q
+
+
+def dsum_reference(do1, do2, out1, out2, q, dcon, s: int) -> torch.Tensor:
+    """The backward's D_i = <dp_i, p_i>_S (2, rows) float32, from the
+    forward's outputs and q: <dout_i, out_i>_K + gc (q_ii - q_12), gc = 2 g /
+    (rows * S) the consistency loss's chain factor."""
+    rows = q.shape[1]
+    gc = 2.0 * dcon.float() / (rows * s)
+    dots = [(d.reshape(rows, -1).float() * o.reshape(rows, -1).float()).sum(-1)
+            for d, o in ((do1, out1), (do2, out2))]
+    return torch.stack([dots[0] + gc * (q[0] - q[2]), dots[1] + gc * (q[1] - q[2])])
+
+
 def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("mem_attention_train")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mem_attention_train_fwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, i32, i32, i32,
             ctypes.c_float, ptr]
         lib.mem_attention_train_bwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            ctypes.c_longlong, i32, i32, i32, i32, ctypes.c_float, ptr]
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            ctypes.c_longlong, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
         lib.mem_attention_train_fwd.restype = i32
         lib.mem_attention_train_bwd.restype = i32
         lib.mem_attention_train_tile.argtypes = [i32, i32]
@@ -96,7 +130,8 @@ def _stream(device):
 
 def memory_attention_train_forward(y1, y2, mem):
     """Kernel #2 on validated, aligned CUDA tensors -> (out1, out2,
-    loss_con, lse), lse being each row's logsumexp, (2, B*P) float32."""
+    loss_con, lse, q): lse (2, B*P) and q (3, B*P) float32 as
+    ``saved_reference`` gives them."""
     global FWD_LAUNCHES
     lib = _kernel()
     b, p, k = y1.shape
@@ -105,17 +140,18 @@ def memory_attention_train_forward(y1, y2, mem):
     dev = y1.device
     out1, out2 = torch.empty_like(y1), torch.empty_like(y2)
     lse = torch.empty(2, rows, dtype=torch.float32, device=dev)
+    q = torch.empty(3, rows, dtype=torch.float32, device=dev)
     tile = lib.mem_attention_train_tile(code, 0)
     partial = torch.empty(-(-rows // tile), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.mem_attention_train_fwd(
             y1.data_ptr(), y2.data_ptr(), mem.data_ptr(), out1.data_ptr(),
-            out2.data_ptr(), lse.data_ptr(), partial.data_ptr(), loss.data_ptr(),
-            rows, k, s, code, 1.0 / (rows * s), _stream(dev))
+            out2.data_ptr(), lse.data_ptr(), q.data_ptr(), partial.data_ptr(),
+            loss.data_ptr(), rows, k, s, code, 1.0 / (rows * s), _stream(dev))
     _check(lib, err, "forward")
     FWD_LAUNCHES += 1
-    return out1, out2, loss, lse
+    return out1, out2, loss, lse, q
 
 
 def _splits(rows: int, s: int, dtype: torch.dtype, device) -> int:
@@ -125,13 +161,14 @@ def _splits(rows: int, s: int, dtype: torch.dtype, device) -> int:
     code = _DTYPE_CODE[dtype]
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     slices = -(-s // lib.mem_attention_train_tile(code, 1))
-    row_tiles = -(-rows // lib.mem_attention_train_tile(code, 0))
+    row_tiles = -(-rows // lib.mem_attention_train_tile(code, 2))
     return max(1, min(n_sm // slices, row_tiles))
 
 
-def memory_attention_train_backward(y1, y2, mem, lse, do1, do2, dcon):
-    """Kernel #3 -> (dy1, dy2, dM): dout cast to y's dtype, dM summed in
-    float32 and returned in M's dtype, as the JAX ``bwd_rule`` does."""
+def memory_attention_train_backward(y1, y2, mem, lse, q, out1, out2, do1, do2, dcon):
+    """Kernel #3 -> (dy1, dy2, dM), with lse, q, out1 and out2 from the
+    forward: dout cast to y's dtype, dM summed in float32 and returned in
+    M's dtype, as the JAX ``bwd_rule`` does."""
     global BWD_LAUNCHES
     lib = _kernel()
     b, p, k = y1.shape
@@ -145,12 +182,16 @@ def memory_attention_train_backward(y1, y2, mem, lse, do1, do2, dcon):
     dsum = torch.empty(2, rows, dtype=torch.float32, device=dev)
     scratch = torch.empty(splits, k, s, dtype=torch.float32, device=dev)
     dm = torch.empty(k, s, dtype=torch.float32, device=dev)
+    # the bf16 kernels read M through a tensor map: rows 16-byte aligned
+    if code == 1 and s % 8:
+        mem = torch.nn.functional.pad(mem, (0, 8 - s % 8))
     with torch.cuda.device(dev):
         err = lib.mem_attention_train_bwd(
             y1.data_ptr(), y2.data_ptr(), mem.data_ptr(), do1.data_ptr(),
-            do2.data_ptr(), lse.data_ptr(), g.data_ptr(), dy1.data_ptr(),
+            do2.data_ptr(), out1.data_ptr(), out2.data_ptr(), lse.data_ptr(),
+            q.data_ptr(), g.data_ptr(), dy1.data_ptr(),
             dy2.data_ptr(), dsum.data_ptr(), scratch.data_ptr(), dm.data_ptr(),
-            rows, k, s, code, splits, 2.0 / (rows * s), _stream(dev))
+            rows, k, s, mem.shape[1], code, splits, 2.0 / (rows * s), _stream(dev))
     _check(lib, err, "backward")
     BWD_LAUNCHES += 1
     return dy1, dy2, dm.to(mem.dtype)
@@ -159,15 +200,14 @@ def memory_attention_train_backward(y1, y2, mem, lse, do1, do2, dcon):
 class _MemoryAttentionTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y1, y2, mem):
-        out1, out2, loss, lse = memory_attention_train_forward(y1, y2, mem)
-        ctx.save_for_backward(y1, y2, mem, lse)
+        out1, out2, loss, lse, q = memory_attention_train_forward(y1, y2, mem)
+        ctx.save_for_backward(y1, y2, mem, lse, q, out1, out2)
         return out1, out2, loss
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do1, do2, dcon):
-        y1, y2, mem, lse = ctx.saved_tensors
-        return memory_attention_train_backward(y1, y2, mem, lse, do1, do2, dcon)
+        return memory_attention_train_backward(*ctx.saved_tensors, do1, do2, dcon)
 
 
 def memory_attention_train(y1: torch.Tensor, y2: torch.Tensor, mem: torch.Tensor):

@@ -59,6 +59,13 @@ def main():
     row(f"#3 as ported (18 products) B={b} P={p} x2 views",
         2 * 18.0 * b * p * K * S, "bf16",
         2.0 * (6 * b * p * K + K * S) + 4.0 * K * S)
+    # the redesign (wgmma): D from the forward (<dout, out>_K and the q
+    # sums), so no sweep for D: rows kernel logits, dout . M and dy (3
+    # products a view), cols kernel logits, dout . M and both dM products
+    # (4): 14 products; it also reads out1, out2 and the forward's lse and q
+    row(f"#3 as redesigned (14 products) B={b} P={p} x2 views",
+        2 * 14.0 * b * p * K * S, "bf16",
+        2.0 * (8 * b * p * K + K * S) + 4.0 * K * S + 4.0 * 5 * b * p)
     h, w, n = 768, 1024, 1024  # density map of a 768x1024 image, 1024 points
     row(f"#4 gaussian_density_pallas {h}x{w} N={n}",
         2.0 * h * w * n, "f32", 4.0 * (h * w + 3 * n))

@@ -7,8 +7,9 @@ weights), takes the synthetic two-view batch of chip_smoke.py (16 crops of
 320x320), and profiles train steps under ``torch.profiler``: device time
 by kernel group (convolution, batch norm, memory-attention kernels, the
 einsum path's f32 GEMMs, optimizer, upsample, elementwise / copy, other),
-the top kernels by name,
-and the device's idle share of the wall time. Needs one NVIDIA GPU:
+each memory-attention kernel by name (the training kernels'
+forward, backward rows, columns and reduction apart), the top kernels by
+name, and the device's idle share of the wall time. Needs one NVIDIA GPU:
 
     python3 scripts/profile_torch_train.py [--iters 3] [--einsum]
 
@@ -102,6 +103,12 @@ def main():
           f"{max(0.0, 1 - busy / wall_ms):.3f}")
     for group, ms in groups.most_common():
         print(f"[profile]   {group:<34} {ms:9.3f} ms/step  {100 * ms / busy:5.1f}%")
+    print("[profile] memory-attention kernels by name (launches/step, ms/step, "
+          "ms/launch):")
+    for name, (n, ms) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
+        if group_of(name) == GROUPS[0][0]:
+            print(f"[profile]   {ms:8.4f} ms {n:5.1f}x {ms / max(n, 1e-9):8.4f} ms/launch  "
+                  f"{name[:100]}")
     print("[profile] top kernels (launches/step, ms/step):")
     for name, (n, ms) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"[profile]   {ms:8.3f} ms {n:5.1f}x  {name[:110]}")

@@ -248,6 +248,41 @@ def test_train_kernels_loss_branch_matches_plain(cuda, dtype, tol, b, p, k, s):
         assert _rel_norm(a, r) <= tol, (name, _rel_norm(a, r))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,p,k,s", [(2, 437, 16, 1001), (3, 6437, 256, 1024),
+                                     (16, 6400, 256, 1024)])
+def test_train_forward_saves_lse_and_q(cuda, dtype, b, p, k, s):
+    """What the forward kernel saves for the backward's D rule against its
+    plain version (float32, TF32 off): each row's logsumexp and q = (<p1,
+    p1>, <p2, p2>, <p1, p2>)_S, atol 1e-5 / rtol 1e-4 (sums in another
+    order; the bf16 kernel takes exp on the SFU)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(b + p + k + s)
+    y1, y2 = (torch.randn(b, p, k, generator=g, device=cuda).to(dtype) for _ in range(2))
+    mem = torch.randn(k, s, generator=g, device=cuda).to(dtype)
+    lse, q = mt.memory_attention_train_forward(y1, y2, mem)[3:]
+    want_lse, want_q = mt.saved_reference(y1, y2, mem)
+    assert lse.shape == (2, b * p) and q.shape == (3, b * p)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(q, want_q, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_backward_is_deterministic(cuda, dtype):
+    """dy1, dy2 and dM bit for bit across two calls of the backward (no
+    float atomics: the dM partials are summed in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    y1, y2, do1, do2 = (torch.randn(3, 6437, 256, generator=g, device=cuda).to(dtype)
+                        for _ in range(4))
+    mem = torch.randn(256, 1024, generator=g, device=cuda).to(dtype)
+    out1, out2, _, lse, q = mt.memory_attention_train_forward(y1, y2, mem)
+    dcon = torch.tensor(7.0, device=cuda)
+    first, second = (mt.memory_attention_train_backward(y1, y2, mem, lse, q, out1, out2,
+                                                         do1, do2, dcon) for _ in range(2))
+    for name, a, b in zip(("dy1", "dy2", "dM"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_train_kernels_reject_what_they_cannot_take(cuda):
     y = torch.randn(1, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="K=32"):

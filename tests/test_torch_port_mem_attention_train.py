@@ -110,3 +110,92 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError, match="do not form"):
         mt.memory_attention_train(y1, y2[:, :5], mem)
+
+
+# ---- D = <dp, p>_S from what the forward saves (lse, q) and its outputs
+
+def _jax_p_dp(y1, y2, mem, do1, do2, g):
+    """p_i of the JAX package's reference (its softmax) and dp_i, the
+    cotangent that reaches p_i through the rest of the reference (the cast
+    and back-projection, and the consistency loss), by jax.vjp."""
+    k = y1.shape[-1]
+
+    def probs(y):
+        l = jnp.einsum("bpk,ks->bps", y, mem, preferred_element_type=jnp.float32) / np.sqrt(k)
+        return jax.nn.softmax(l, axis=-1)
+
+    def tail(p1, p2):
+        def out(p, y):
+            return jnp.einsum("bps,sk->bpk", p.astype(mem.dtype), mem.T,
+                              preferred_element_type=jnp.float32).astype(y.dtype)
+        return out(p1, y1), out(p2, y2), jnp.mean((p1 - p2) ** 2)
+
+    p1, p2 = probs(y1), probs(y2)
+    _, vjp = jax.vjp(tail, p1, p2)
+    dp1, dp2 = vjp((do1, do2, jnp.asarray(g, jnp.float32)))
+    return (p1, p2), (dp1, dp2)
+
+
+def _dsum_case(shape, loss_only, seed):
+    b, p, k, s = shape
+    rng = np.random.default_rng(seed)
+    y1, y2 = (rng.normal(size=(b, p, k)).astype(np.float32) for _ in range(2))
+    mem = (rng.normal(size=(k, s)) * 0.5).astype(np.float32)
+    if loss_only:  # the gradients of loss_con alone, scaled by rows x S
+        do1 = do2 = np.zeros((b, p, k), np.float32)
+        g = float(b * p * s)
+    else:
+        do1, do2 = (rng.normal(size=(b, p, k)).astype(np.float32) for _ in range(2))
+        g = 3.0
+    return y1, y2, mem, do1, do2, g
+
+
+DSUM_SHAPES = {"toy": (2, 70, 16, 32), "tail": (1, 6400 + 37, 16, 32)}
+
+
+@pytest.mark.parametrize("shape", sorted(DSUM_SHAPES))
+def test_saved_reference_matches_jax_softmax(shape):
+    """lse and q of the plain version against the JAX reference's p:
+    float32 at 1e-5 relative."""
+    y1, y2, mem, *_ = _dsum_case(DSUM_SHAPES[shape], False, 1)
+    (p1, p2), _ = _jax_p_dp(*(jnp.asarray(a) for a in (y1, y2, mem, y1, y2)), 0.0)
+    lse, q = mt.saved_reference(*(torch.from_numpy(a) for a in (y1, y2, mem)))
+    k = y1.shape[-1]
+    for i, y in enumerate((y1, y2)):
+        l = jnp.einsum("bpk,ks->bps", y, mem) / np.sqrt(k)
+        want = np.asarray(jax.nn.logsumexp(l, axis=-1)).reshape(-1)
+        np.testing.assert_allclose(lse[i].numpy(), want, rtol=1e-5, atol=1e-5)
+    p1, p2 = (np.asarray(a, np.float64).reshape(-1, mem.shape[1]) for a in (p1, p2))
+    for got, want in zip(q, ((p1 * p1).sum(-1), (p2 * p2).sum(-1), (p1 * p2).sum(-1))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+# bf16: out and dout are bf16, and the JAX reference rounds dp to bf16 (the
+# cotangent of its cast of p), each about 2e-3 relative: D against
+# <dp, p>_S to 1e-2 of max |D| (3.7e-3 measured at the toy shape)
+DSUM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("loss_only", [False, True], ids=["mixed", "loss_only"])
+@pytest.mark.parametrize("shape", sorted(DSUM_SHAPES))
+def test_dsum_rule_matches_jax_dp_dot_p(shape, loss_only, dtype):
+    """The backward's D rule (plain version) against D = <dp, p>_S with p
+    and dp from the JAX reference on the same numpy-seeded inputs: under a
+    random cotangent with g = 3, under the consistency loss alone (dout =
+    0), and on a tail of P = 6400 + 37 rows. Relative to max |D|."""
+    y1, y2, mem, do1, do2, g = _dsum_case(DSUM_SHAPES[shape], loss_only, 2)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    (p1, p2), (dp1, dp2) = _jax_p_dp(*(jnp.asarray(a, jdt) for a in (y1, y2, mem, do1, do2)),
+                                     g)
+    want = np.stack([np.sum(np.asarray(dp, np.float64) * np.asarray(p, np.float64), -1)
+                     .reshape(-1) for dp, p in ((dp1, p1), (dp2, p2))])
+    t1, t2, tm, td1, td2 = (torch.from_numpy(a).to(dtype) for a in (y1, y2, mem, do1, do2))
+    out1, out2, _ = mt.memory_attention_train_reference(t1, t2, tm)
+    _, q = mt.saved_reference(t1, t2, tm)
+    got = mt.dsum_reference(td1, td2, out1, out2, q, torch.tensor(g), mem.shape[1])
+    assert got.shape == (2, y1.shape[0] * y1.shape[1]) and got.dtype == torch.float32
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got.double().numpy(), want, rtol=0,
+                               atol=DSUM_TOL[dtype] * scale)

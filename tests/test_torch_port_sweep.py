@@ -134,3 +134,52 @@ def test_a_failed_build_raises_and_keeps_no_library_or_log(monkeypatch, tmp_path
         _build.build_all(["k"])
     assert not _build.library_path("k").exists()
     assert _build.build_log("k") == ""
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# cuobjdump -sass of a library that holds a wgmma kernel fed by TMA and an
+# mma.sync kernel of the same family (abridged: one line per op)
+SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_117mat_bwd_rows_bf16ILi256EEEv14CUtensorMap_stS1_
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0100*/                   UTMALDG.2D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR16], R24 ;
+        /*0300*/                   UTMASTG.2D [UR4], [UR6] ;
+		..........
+
+		Function : _ZN12_GLOBAL__N_112mat_fwd_bf16ILi256EEEvPK13__nv_bfloat16
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+		..........
+
+		Function : _ZN12_GLOBAL__N_117mat_bwd_cols_bf16ILi256EEEv14CUtensorMap_stS1_
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0100*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+        /*0200*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+		..........
+"""
+
+
+def test_sass_counts_are_taken_body_by_body():
+    """chip_smoke.py reads cuobjdump's SASS per function body: the forward's
+    mma.sync (HMMA) in the same library counts against no other kernel."""
+    cs = _chip_smoke()
+    rows = cs.sass_counts(SASS, "mat_bwd_rows_bf16")
+    assert list(rows) == ["_ZN12_GLOBAL__N_117mat_bwd_rows_bf16ILi256EEEv14CUtensorMap_stS1_"]
+    assert next(iter(rows.values())) == {"HGMMA": 2, "UTMALDG": 1, "UTMASTG": 1, "HMMA": 0}
+    assert cs.wgmma_tma_faults(rows, 1) == []
+    both = cs.sass_counts(SASS, "mat_bwd_(rows|cols)_bf16")
+    assert len(both) == 2
+    faults = cs.wgmma_tma_faults(both, 2)
+    assert len(faults) == 1 and "mat_bwd_cols_bf16" in faults[0]
+    assert cs.wgmma_tma_faults(rows, 2) == ["1 function bodies, expected 2"]
+    assert cs.sass_counts(SASS, "mat_fwd_bf16")[
+        "_ZN12_GLOBAL__N_112mat_fwd_bf16ILi256EEEvPK13__nv_bfloat16"]["HMMA"] == 1

@@ -9,9 +9,10 @@ Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel of the port from the checkout's sources
    (nvcc, sm_90a, into build/torch_ext/); the bf16 builds of the serving
-   kernel and of the training backward's rows and cols kernels must hold
-   wgmma fed by TMA (SASS, body by body: HGMMA and UTMALDG, no HMMA) with
-   no serialised wgmma (ptxas C7512) and no spill at K=256;
+   kernel, of the training forward and of the training backward's rows
+   and cols kernels must hold wgmma fed by TMA (SASS, body by body: HGMMA
+   and UTMALDG, no HMMA) with no serialised wgmma (ptxas C7512, C7514)
+   and no spill at K=256;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it: the serving kernel at K=256, S=1024,
    P=192*256 per 768x1024 frame, B=4, and in bf16 at its edges (rows
@@ -20,7 +21,8 @@ Phases, each of which exits non-zero on failure:
    two-view training kernels
    (forward and backward) at B=16, P=80*80 per 320x320 crop, both views,
    under a mixed objective and under the consistency loss alone;
-   each in bf16 and f32, plus an awkward size;
+   each in bf16 and f32, plus an awkward size; the forward also with views
+   that agree to 0.1, 0.01 and 0.001 (loss_con, q, two calls bit for bit);
 3. serve full-width DGModel ``final`` (VGG16-BN, 1024x256 bank, seeded
    random weights, bf16, fused_mem=True) through VideoCounter: 768x1024
    frames by count_frames (B=4) and stream (4 batches of 16), a
@@ -34,7 +36,8 @@ Phases, each of which exits non-zero on failure:
    image, in (-1, 0), and masked pad rows), no points, and 17x23;
 4. time the serving path (frames/s at B=1, 4, 16; stream) and the kernel
    alone against its plain version and one library call (SDPA); the
-   density-map kernel against its plain version and cuBLAS A . B^T;
+   density-map kernel against its plain version and cuBLAS A . B^T in
+   interleaved turns (medians);
 5. train full-width DGModel ``final`` as configs/sta_final.yml says (bf16
    compute, f32 AdamW master weights, the OneCycle lr of epoch 0) on a
    synthetic two-view batch of 16 crops of 320x320: step 1 on the kernel
@@ -43,7 +46,7 @@ Phases, each of which exits non-zero on failure:
    the loss finite and bring it down, and each step must launch the
    forward and the backward kernel once; then ms/step and peak memory of
    both paths, and the training kernels' times against their bounds and
-   their plain version, the backward's also per launch by kernel name;
+   their plain version, and per launch by kernel name;
 6. from files to a trained model: write a dataset in the canonical layout
    (40 JPEGs of 768x1024 with 50 to 600 head points each), make its
    density maps with ``python -m dgvcc_tpu_torch.data.dmap_cli`` (one
@@ -95,6 +98,13 @@ TOL_TRAIN_F32 = 1e-4                # f32 forward (loss_con relative): other ord
 TOL_TRAIN_F32_GRAD = 1e-3           # f32 gradients: longer sums, other order
 TOL_TRAIN_BF16 = 2e-2               # bf16 outputs: one bf16 rounding
 TOL_TRAIN_CON = 1e-3                # loss_con, relative: p is exact f32 in both
+# q = (<p1,p1>, <p2,p2>, <p1,p2>)_S per row against saved_reference,
+# relative: f32 sums in another order; the bf16 kernel's logits are f32
+# sums of the bf16 products in the tensor cores' order and its exp2 is the
+# SFU's (2 ulp), each about 1e-6 relative (4e-6 to 6e-6 measured)
+TOL_TRAIN_Q = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+NEAR_EPS = (0.1, 0.01, 0.001)       # y2 = y1 + eps N(0, 1): the views agree, so
+                                    # loss_con falls to ~1e-9 of q
 TOL_TRAIN_DY = (0.05, 0.02)         # bf16 dy rtol, atol and dM relative norm:
 TOL_TRAIN_DM = 0.02                 # tests/test_mem_attention_train.py:86-94
 TOL_TRAIN_BF16_NORM = 1e-2          # bf16 out and dy, relative norm: the kernel
@@ -118,6 +128,7 @@ STEP_GRADS = ("mem", "dec1.0.conv.weight", "den_dec.0.conv.weight",
 # (FMA), the product and the golden (float64, rounded once) in their own
 TOL_DMAP = dict(atol=1e-5, rtol=1e-4)
 DMAP_SHAPES = ((768, 1024, 1024), (1080, 1920, 4000), (768, 1024, 0), (17, 23, 40))
+DMAP_TURNS = 5                      # kernel #4 and cuBLAS timed in turns
 TOL_CLI_TEST = 1e-3                 # CLI --task test vs in-process test(), relative
 
 
@@ -312,6 +323,41 @@ def check_train_kernels(mt, b, p, dtype, seed):
     return err
 
 
+def check_train_forward_near(mt, dtype, eps, seed):
+    """Kernel #2 at the training shape with views that agree (y2 = y1 + eps
+    N(0, 1)), where the loss term is a small difference of the q sums:
+    loss_con against the plain version, lse and q against saved_reference,
+    two calls bit for bit. Returns loss_con's and q's relative errors."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y1 = torch.randn(TRAIN_B, TRAIN_P, K, generator=g, device="cuda")
+    y2 = (y1 + eps * torch.randn(TRAIN_B, TRAIN_P, K, generator=g, device="cuda")).to(dtype)
+    y1 = y1.to(dtype)
+    mem = torch.randn(K, S, generator=g, device="cuda").to(dtype)
+    got = mt.memory_attention_train_forward(y1, y2, mem)
+    again = mt.memory_attention_train_forward(y1, y2, mem)
+    torch.cuda.synchronize()
+    r1, r2, rcon = mt.memory_attention_train_reference(y1, y2, mem)
+    rlse, rq = mt.saved_reference(y1, y2, mem)
+    con_rel = abs(got[2].item() - rcon.item()) / rcon.item()
+    q_rel = ((got[4] - rq).abs() / rq.abs()).max().item()
+    lse_err = (got[3] - rlse).abs().max().item()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    tol_con = TOL_TRAIN_CON if dtype == torch.bfloat16 else TOL_TRAIN_F32
+    tol_out = TOL_TRAIN_BF16 if dtype == torch.bfloat16 else TOL_TRAIN_F32
+    ok = (same and con_rel <= tol_con and q_rel <= TOL_TRAIN_Q[dtype]
+          and lse_err <= TOL_TRAIN_F32
+          and all(torch.allclose(a.float(), r.float(), atol=tol_out, rtol=tol_out)
+                  for a, r in ((got[0], r1), (got[1], r2))))
+    log(f"train fwd {str(dtype):>14} B={TRAIN_B} P={TRAIN_P} views eps={eps}: loss_con "
+        f"{got[2].item():.4e} rel_err {con_rel:.3e} (tol {tol_con}), q max rel_err "
+        f"{q_rel:.3e} (tol {TOL_TRAIN_Q[dtype]}), lse max_abs_err {lse_err:.3e}, two calls "
+        f"{'bit-identical' if same else 'DIFFER'} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"memory_attention_train_forward disagrees with its plain version or with "
+             f"itself where the views agree ({dtype}, eps={eps})")
+    return con_rel, q_rel
+
+
 def launch_times(fn, iters):
     """Device time of each kernel that ``fn`` launches, by kernel name:
     {name: (launches per call, ms per launch)} under torch.profiler."""
@@ -456,9 +502,19 @@ def train_phase(mt, gpu):
                                                   dcon)
 
     bwd = cuda_ms(backward, 10)
-    for name, (n, ms) in launch_times(backward, 5).items():
-        log(f"train kernel bwd, per launch: {name} {ms:.4f} ms ({n:g} launches a call) "
-            f"[{gpu}]")
+    n = TRAIN_B * TRAIN_P * K * S
+    # the work the TPU kernels do (scripts/kernel_bounds.py): forward two
+    # products a view, backward five; bf16 in and out, dM in f32
+    fwd_bound = bound(2 * 4.0 * n, 2.0 * (4 * TRAIN_B * TRAIN_P * K + K * S) + 4,
+                      PEAK_BF16_FLOPS)
+    bwd_bound = bound(2 * 10.0 * n, 2.0 * (6 * TRAIN_B * TRAIN_P * K + K * S) + 4.0 * K * S,
+                      PEAK_BF16_FLOPS)
+    for what, fn, b_ms in (
+            ("fwd", lambda: mt.memory_attention_train_forward(y1, y2, mem), fwd_bound[0]),
+            ("bwd", backward, bwd_bound[0])):
+        for name, (n_launch, ms) in launch_times(fn, 5).items():
+            log(f"train kernel {what}, per launch: {name} {ms:.4f} ms ({n_launch:g} launches "
+                f"a call; the call's bound {b_ms:.4f} ms) [{gpu}]")
     with torch.no_grad():
         fwd_plain = cuda_ms(lambda: mt.memory_attention_train_reference(y1, y2, mem), 5,
                             warmup=1)
@@ -467,13 +523,6 @@ def train_phase(mt, gpu):
     bwd_plain = cuda_ms(lambda: torch.autograd.grad(outs, leaves, (do1, do2, dcon),
                                                     retain_graph=True), 5, warmup=1)
     del outs, leaves
-    n = TRAIN_B * TRAIN_P * K * S
-    # the work the TPU kernels do (scripts/kernel_bounds.py): forward two
-    # products a view, backward five; bf16 in and out, dM in f32
-    fwd_bound = bound(2 * 4.0 * n, 2.0 * (4 * TRAIN_B * TRAIN_P * K + K * S) + 4,
-                      PEAK_BF16_FLOPS)
-    bwd_bound = bound(2 * 10.0 * n, 2.0 * (6 * TRAIN_B * TRAIN_P * K + K * S) + 4.0 * K * S,
-                      PEAK_BF16_FLOPS)
     step_ms = ms_per_step["kernel path"]
     times = {"fwd": dict(ms=fwd, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
                          bound_by=fwd_bound[1]),
@@ -527,9 +576,10 @@ def check_dmap(dm):
 
 
 def time_dmap(dm, gpu):
-    """Kernel #4 at 768x1024, N=1024 (all in the image, unmasked): its time,
-    the plain version's, cuBLAS A . B^T on the prebuilt f32 A (HxN) and B
-    (WxN), and the bound: the map written once and the points read once
+    """Kernel #4 at 768x1024, N=1024 (all in the image, unmasked): its time
+    and that of cuBLAS A . B^T on the prebuilt f32 A (HxN) and B (WxN), the
+    medians of DMAP_TURNS turns of the two, the plain version's, and the
+    bound: the map written once and the points read once
     over HBM, against the work these points need (each point's (2r+1)^2
     window clipped to the image, one multiply-add a pixel) over the f32
     CUDA-core peak."""
@@ -540,7 +590,6 @@ def time_dmap(dm, gpu):
     mask = torch.ones(n, dtype=torch.bool, device="cuda")
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    kern = cuda_ms(lambda: dm.gaussian_density(pts, mask, h, w), 200, warmup=5)
     plain = cuda_ms(lambda: dm.gaussian_density_reference(pts, mask, h, w), 20)
     r = dm.scipy_radius(4.0, 7.0 / 4.0)
     p = torch.trunc(pts).long()
@@ -550,7 +599,13 @@ def time_dmap(dm, gpu):
         return torch.exp(-0.5 * (d.float() / 4.0) ** 2) * (d.abs() <= r)
 
     a, b = axis(h, p[:, 1]), axis(w, p[:, 0])
-    library = cuda_ms(lambda: torch.matmul(a, b.t()), 50)
+    # the kernel and cuBLAS in turns, medians: one reading each spreads by
+    # tens of percent at these sub-0.1 ms times
+    turns = [(cuda_ms(lambda: dm.gaussian_density(pts, mask, h, w), 200, warmup=5),
+              cuda_ms(lambda: torch.matmul(a, b.t()), 200, warmup=5)) for _ in range(DMAP_TURNS)]
+    kern, library = (float(np.median([t[i] for t in turns])) for i in range(2))
+    log(f"dmap kernel vs cuBLAS A.B^T, {DMAP_TURNS} turns: "
+        f"{', '.join(f'{k:.4f} / {c:.4f}' for k, c in turns)} ms [{gpu}]")
     torch.backends.cuda.matmul.allow_tf32 = tf32
     rows = (p[:, 1] + r).clamp_max(h - 1) - (p[:, 1] - r).clamp_min(0) + 1
     cols = (p[:, 0] + r).clamp_max(w - 1) - (p[:, 0] - r).clamp_min(0) + 1
@@ -558,8 +613,9 @@ def time_dmap(dm, gpu):
     nbytes = 4.0 * h * w + 9.0 * n
     b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
     tpu_ms = bound(2.0 * h * w * n, 4.0 * (h * w + 3 * n), PEAK_F32_FLOPS)[0]
-    log(f"dmap kernel {h}x{w} N={n} f32: gaussian_density {kern:.4f} ms (200 back-to-back "
-        f"calls, device events), plain {plain:.4f} ms, cuBLAS A.B^T {library:.4f} ms, "
+    log(f"dmap kernel {h}x{w} N={n} f32: gaussian_density {kern:.4f} ms (median; 200 "
+        f"back-to-back calls, device events), plain {plain:.4f} ms, cuBLAS A.B^T {library:.4f} "
+        f"ms (median), "
         f"bound {b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.3f} MFLOP; "
         f"the TPU's dense form {tpu_ms:.4f} ms) [{gpu}]")
     return dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by,
@@ -859,11 +915,12 @@ def main():
     log(f"built {sorted(logs) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f}s")
     # the report of the library on disk (kept beside it), built now or not;
-    # a serialised wgmma (C7512) or a spill halves the kernel's speed and
+    # a serialised wgmma (C7512, C7514) or a spill slows the kernel and
     # passes every check of its values, so it fails here
     ptxas = {}
     for lib, kernel, what in (
             ("mem_attention", "mem_attention_bf16_kernelILi256E", "kernel #1"),
+            ("mem_attention_train", "mat_fwd_bf16ILi256E", "kernel #2"),
             ("mem_attention_train", "mat_bwd_rows_bf16ILi256E", "kernel #3 rows"),
             ("mem_attention_train", "mat_bwd_cols_bf16ILi256E", "kernel #3 cols")):
         ptxas[kernel] = _build.ptxas_report(_build.build_log(lib), kernel)
@@ -874,8 +931,10 @@ def main():
     ptxas_k256 = ptxas["mem_attention_bf16_kernelILi256E"]
     sass = check_sass(str(_build.library_path("mem_attention")), "mem_attention_bf16_kernel",
                       5, "kernel #1")
-    sass_bwd = check_sass(str(_build.library_path("mem_attention_train")),
-                          "mat_bwd_(rows|cols)_bf16", 4, "kernel #3")
+    sass_fwd = check_sass(str(_build.library_path("mem_attention_train")), "mat_fwd_bf16", 2,
+                          "kernel #2")
+    check_sass(str(_build.library_path("mem_attention_train")), "mat_bwd_(rows|cols)_bf16", 4,
+               "kernel #3")
 
     # ---- 2. kernels vs plain versions -------------------------------------
     err_bf16 = check_kernel(ma, 4, P, torch.bfloat16, TOL_BF16, 1)
@@ -894,6 +953,9 @@ def main():
     train_f32 = check_train_kernels(mt, TRAIN_B, TRAIN_P, torch.float32, 6)
     check_train_kernels(mt, 3, 6400 + 37, torch.bfloat16, 7)
     check_train_kernels(mt, 3, 6400 + 37, torch.float32, 8)
+    near = {(dtype, eps): check_train_forward_near(mt, dtype, eps, 70 + i)
+            for i, (dtype, eps) in enumerate((d, e) for d in (torch.bfloat16, torch.float32)
+                                             for e in NEAR_EPS)}
     dmap_err = check_dmap(dm)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
@@ -1019,6 +1081,9 @@ def main():
         "max_abs_err": train_bf16["out"], "max_err": train_bf16["out"],
         "max_abs_err_f32": train_f32["out"], "out_rel_norm_err": train_bf16["out_rel"],
         "loss_con_rel_err": train_bf16["con_rel"],
+        "loss_con_rel_err_near": {str(e): near[torch.bfloat16, e][0] for e in NEAR_EPS},
+        "q_rel_err_near": {str(e): near[torch.bfloat16, e][1] for e in NEAR_EPS},
+        "ptxas_k256": ptxas["mat_fwd_bf16ILi256E"], "sass": sass_fwd,
         **train_times["fwd"], "library_ms": None, "shape": train_shape}, {
         "name": "memory_attention_train_bwd", "route": "cuda", "source": source,
         "replaces": "dgvcc_tpu/ops/mem_attention_train.py:177",

@@ -20,16 +20,17 @@
 // written per block and then reduced in a fixed order by a second launch:
 // no float atomics, the results are deterministic.
 //
-// Forward. A block takes 64 rows of BOTH views: 8 warps, warps 0-3 view 1
-// and warps 4-7 view 2, 16 rows each, so a lane of warp w and the same lane
-// of warp w + 4 hold the same (row, s) of the two views. Two sweeps over S:
-// (1) each row's max and sum; (2) exact normalized p in f32, the loss term
-// (p1 - p2)^2 (view 2 hands its p to view 1 through shared memory), and
-// out_i += round_bf16(p_i) . M^T. Saved for the backward: each row's
-// logsumexp (2 x rows f32) and q = <p1, p1>_S, <p2, p2>_S, <p1, p2>_S (3 x
-// rows f32, summed by view 1's warps beside the loss term). sum_partials
-// adds the per-block loss terms in a fixed order (one block) and divides
-// by rows * S.
+// Forward (mat_fwd_*). One sweep over S per tile of rows of both views,
+// an online softmax per view (flash-attention style): out_i = o_i / l_i
+// with o_i += round(e_i) . Mc^T, e_i = exp(logits - running max). So bf16
+// out rounds the unnormalised e, where the JAX kernel and the plain
+// version round p (as kernel #1 does). The loss term sum_S (p1 - p2)^2 and
+// q = <p1, p1>_S, <p2, p2>_S, <p1, p2>_S of each row (3 x rows f32, saved
+// for the backward with each row's logsumexp, 2 x rows f32) come from
+// running sums carried from one normaliser to the next without
+// cancellation (loss_sums says how). Each 32 rows of a view write one
+// loss term to `partial`; sum_partials adds them in a fixed order (one
+// block) and divides by rows * S.
 //
 // Backward (g = the loss's cotangent, gc = 2 g / (rows * S), D = <dp, p>_S):
 //     dp_i = dout_i . M  +/-  gc (p1 - p2)
@@ -47,7 +48,8 @@
 //       blocks fill the card); it recomputes p and dl on its slice and
 //       writes its partial dM to a (splits, K, S) f32 scratch.
 //   (c) reduce_splits sums the scratch over splits in order.
-// bf16: (a) and (b) on wgmma fed by TMA (the section below says how).
+// bf16: the forward, (a) and (b) on wgmma fed by TMA (the section below
+// says how).
 // dl is rounded to bf16 (after the 1/sqrt(K) scale, a power of two at
 // K = 16, 64, 256) for the tensor-core products dl . M^T and y^T . dl.
 //
@@ -55,127 +57,35 @@
 // S = 1024, bf16; scripts/kernel_bounds.py, the work the TPU kernels do):
 // forward 214.7 GFLOP / 210.2 MB -> 0.2171 ms; backward 536.9 GFLOP /
 // 316.1 MB -> 0.5428 ms, both bound by the tensor cores. This design does
-// more products than that count: the forward computes the logits twice
-// (6 products of rows x K x S per view pair instead of 4: 322.1 GFLOP,
-// 1.5x), the backward recomputes the logits and dout . M in both (a) and
-// (b) (14 products instead of 10: 751.6 GFLOP, 1.4x, 0.7600 ms at the
-// peak). In exchange nothing of size rows x S ever reaches device memory:
+// the forward's 4 products of rows x K x S per view pair; the backward
+// does more: it recomputes the logits and dout . M in both (a) and (b)
+// (14 products instead of 10: 751.6 GFLOP, 1.4x, 0.7600 ms at the peak).
+// In exchange nothing of size rows x S ever reaches device memory:
 // 16 x 6400 x 1024 f32 is 419 MB per tensor.
 //
-// f32 kernels: the same structure in plain f32 FMA on the CUDA cores (no
-// TF32), 32 rows a block, 4 threads a row, for holding the kernels against
-// the plain version at 1e-4.
+// f32 kernels: plain f32 FMA on the CUDA cores (no TF32), 32 rows a block,
+// 4 threads a row, for holding the kernels against the plain version at
+// 1e-4; the forward takes two sweeps (row max and sum, then exact p).
 //
 // Any number of rows (masked tail) and any S (masked tail); K in {16, 256}.
-// The bf16 backward reads M through a tensor map: its rows `ld` values
-// apart, a multiple of 8 (the wrapper pads M's columns).
+// The bf16 kernels read M through a tensor map: its rows `ld` values apart,
+// a multiple of 8 (the wrapper pads M's columns).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
 
-using namespace mma_sm90;
 namespace wg = wgmma_sm90;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // every kernel: 8 warps
-constexpr int kRows = 64;      // bf16: rows of each view per block, 16 a warp
-constexpr int kChunkF = 64;    // bf16 forward: prototypes per S-chunk
+constexpr int kThreads = 256;  // f32 kernels and reductions: 8 warps
 constexpr int kRowsF32 = 32;   // f32: rows of each view per block
 constexpr int kColsF32 = 32;   // f32: prototypes per S-chunk / S-slice
-
-template <int K>
-__host__ __device__ constexpr int ld_rows() { return K + 8; }  // bf16 pitch of a row tile
-
-// 64 rows of a (rows, K) bf16 array -> shared (pitch K + 8), rows past the
-// end zero-filled (cp.async)
-template <int K>
-__device__ void load_rows(const bf16* __restrict__ src, int64_t rows, int64_t row0,
-                          bf16* dst) {
-  constexpr int kVec = K / 8;
-  for (int i = threadIdx.x; i < kRows * kVec; i += kThreads) {
-    const int r = i / kVec, v = i % kVec;
-    const bool in = row0 + r < rows;
-    cp_async16(dst + r * ld_rows<K>() + v * 8, in ? src + (row0 + r) * K + v * 8 : src,
-               in ? 16 : 0);
-  }
-}
-
-// acc[kN/8][4] = A(16 rows x K, shared, pitch K + 8) . Mc(K x kN, shared,
-// pitch kN + 8); `a` is the warp's first row
-template <int K, int kN>
-__device__ __forceinline__ void rows_x_m(const bf16* a, const bf16* mc, int lane,
-                                         float (&acc)[kN / 8][4]) {
-  constexpr int kLdM = kN + 8;
-  const int mi = lane >> 3, mr = lane & 7;
-  const bf16* pa = a + ((mi & 1) * 8 + mr) * ld_rows<K>() + (mi >> 1) * 8;
-#pragma unroll
-  for (int n = 0; n < kN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t fa[4];
-    ldmatrix_x4(fa, pa + kk * 16);
-#pragma unroll
-    for (int np = 0; np < kN / 16; ++np) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, mc + (kk * 16 + (mi & 1) * 8 + mr) * kLdM + np * 16 + (mi >> 1) * 8);
-      mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
-      mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// o[K/8][4] += round_bf16(x)(16 x kN) . Mc^T, x in the accumulator layout
-template <int K, int kN>
-__device__ __forceinline__ void p_x_mt(const float (&x)[kN / 8][4], const bf16* mc,
-                                       int lane, float (&o)[K / 8][4]) {
-  constexpr int kLdM = kN + 8;
-  const int mi = lane >> 3, mr = lane & 7;
-#pragma unroll
-  for (int j = 0; j < kN / 16; ++j) {
-    uint32_t fa[4];
-    fa[0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-    fa[1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-    fa[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-    fa[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
-#pragma unroll
-    for (int np = 0; np < K / 16; ++np) {
-      uint32_t fb[4];
-      ldmatrix_x4(fb, mc + (np * 16 + (mi >> 1) * 8 + mr) * kLdM + j * 16 + (mi & 1) * 8);
-      mma_bf16(o[2 * np], fa, fb[0], fb[1]);
-      mma_bf16(o[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// the warp's 16 x K accumulator -> bf16 rows of `out`, staged through the
-// warp's own 16 rows of a shared row tile
-template <int K>
-__device__ void store_rows(const float (&o)[K / 8][4], bf16* stage,
-                           bf16* __restrict__ out, int64_t rows, int64_t row0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  constexpr int kLd = ld_rows<K>();
-#pragma unroll
-  for (int n = 0; n < K / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(stage + g * kLd + n * 8 + 2 * t) =
-        pack_bf16(o[n][0], o[n][1]);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kLd + n * 8 + 2 * t) =
-        pack_bf16(o[n][2], o[n][3]);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * (K / 8); i += 32) {
-    const int r = i / (K / 8), v = i % (K / 8);
-    if (row0 + r < rows)
-      *reinterpret_cast<uint4*>(out + (row0 + r) * K + v * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * kLd + v * 8);
-  }
-}
 
 // the sum over the 4 consecutive lanes that share a row
 __device__ __forceinline__ float quad_sum(float v) {
@@ -229,170 +139,33 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-// ============================================================ bf16 forward
-template <int K>
-struct FwdSmem {
-  static constexpr size_t tile = size_t(kRows) * ld_rows<K>() * 2;
-  static constexpr size_t stage = size_t(K) * (kChunkF + 8) * 2;
-  static constexpr size_t y = 0;                    // 2 row tiles (views)
-  static constexpr size_t m = 2 * tile;             // 2 M stages
-  static constexpr size_t x = m + 2 * stage;        // p exchange, f32
-  static constexpr size_t bytes = x + size_t(4) * (kChunkF / 2) * 32 * 4;
-};
-
-template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
-mat_fwd_bf16(const bf16* __restrict__ y1, const bf16* __restrict__ y2,
-             const bf16* __restrict__ mem, bf16* __restrict__ out1,
-             bf16* __restrict__ out2, float* __restrict__ lse, float* __restrict__ qsum,
-             float* __restrict__ partial, int64_t rows, int S, float scale) {
-  using L = FwdSmem<K>;
-  constexpr int kN = kChunkF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem + L::y);
-  bf16* ms = reinterpret_cast<bf16*>(smem + L::m);
-  float* xch = reinterpret_cast<float*>(smem + L::x);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int view = warp >> 2, wr = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t row0 = int64_t(blockIdx.x) * kRows;
-  const int n_chunks = (S + kN - 1) / kN;
-  constexpr int kStage = K * (kN + 8);
-
-  load_rows<K>(y1, rows, row0, ys);
-  load_rows<K>(y2, rows, row0, ys + kRows * ld_rows<K>());
-  load_m_chunk<K, kN, kThreads>(mem, S, 0, ms);
-  cp_async_commit();
-
-  const bf16* ya = ys + (view * kRows + wr * 16) * ld_rows<K>();
-  float* xw = xch + wr * (kN / 2) * 32;
-  float o[K / 8][4];
-#pragma unroll
-  for (int n = 0; n < K / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, inv_l[2];
-  float loss = 0.f;
-  float q11[2] = {0.f, 0.f}, q22[2] = {0.f, 0.f}, q12[2] = {0.f, 0.f};  // view 0's warps
-  const bool valid[2] = {row0 + wr * 16 + g < rows, row0 + wr * 16 + g + 8 < rows};
-
-  // sweep 1 (it < n_chunks): row max and sum; sweep 2: p, loss, out
-  for (int it = 0; it < 2 * n_chunks; ++it) {
-    const int c = it % n_chunks, s0 = c * kN;
-    const bf16* mc = ms + (it & 1) * kStage;
-    if (it + 1 < 2 * n_chunks) {
-      load_m_chunk<K, kN, kThreads>(mem, S, ((it + 1) % n_chunks) * kN,
-                                    ms + ((it + 1) & 1) * kStage);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float sc[kN / 8][4];
-    rows_x_m<K, kN>(ya, mc, lane, sc);
-#pragma unroll
-    for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[n][e] = s0 + n * 8 + 2 * t + (e & 1) < S ? sc[n][e] * scale : -INFINITY;
-
-    if (it < n_chunks) {
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m_run[h], mx[h]);
-        l_run[h] *= __expf(m_run[h] - m_new);
-        m_run[h] = m_new;
-      }
-#pragma unroll
-      for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) l_run[e >> 1] += __expf(sc[n][e] - m_run[e >> 1]);
-    } else {
-      if (it == n_chunks) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-          l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
-          inv_l[h] = 1.f / l_run[h];
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[n][e] = __expf(sc[n][e] - m_run[e >> 1]) * inv_l[e >> 1];
-      if (view == 1) {
-#pragma unroll
-        for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) xw[(n * 4 + e) * 32 + lane] = sc[n][e];
-      }
-      __syncthreads();
-      if (view == 0) {
-#pragma unroll
-        for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p2 = xw[(n * 4 + e) * 32 + lane], d = sc[n][e] - p2;
-            loss += valid[e >> 1] ? d * d : 0.f;
-            q11[e >> 1] += sc[n][e] * sc[n][e];
-            q22[e >> 1] += p2 * p2;
-            q12[e >> 1] += sc[n][e] * p2;
-          }
-      }
-      p_x_mt<K, kN>(sc, mc, lane, o);
-    }
-    __syncthreads();  // stage and exchange are free for the next chunk
-  }
-
-  store_rows<K>(o, const_cast<bf16*>(ya), view ? out2 : out1, rows,
-                row0 + wr * 16, lane);
-  if (t == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (valid[h])
-        lse[view * rows + row0 + wr * 16 + g + 8 * h] = m_run[h] + logf(l_run[h]);
-  }
-  if (view == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float q[3] = {quad_sum(q11[h]), quad_sum(q22[h]), quad_sum(q12[h])};
-      if (t == 0 && valid[h])
-        for (int i = 0; i < 3; ++i) qsum[i * rows + row0 + wr * 16 + g + 8 * h] = q[i];
-    }
-  }
-  const float s = block_sum(loss, xch);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
-}
-
-// ======================================== bf16 backward: wgmma fed by TMA
-// Both kernels are warp-specialised like kernel #1 (csrc/mem_attention.cu):
-// one producer warpgroup, in which one thread issues every TMA load, and
-// two consumer warpgroups; setmaxnreg moves registers from the producer to
-// the consumers. Tiles arrive through TMA with the swizzle of their row
-// width, and each is read by wgmma through descriptors of that swizzle, in
-// whichever of its two majors a product needs. Their times on the card
-// beside the bound: PERF.md, section 6.
-constexpr int kBwdThreads = 384;
+// ================================================= bf16: wgmma fed by TMA
+// The three kernels are warp-specialised like kernel #1
+// (csrc/mem_attention.cu): one producer warpgroup, in which one thread
+// issues every TMA load, and two consumer warpgroups; setmaxnreg moves
+// registers from the producer to the consumers. Tiles arrive through TMA
+// with the swizzle of their row width, and each is read by wgmma through
+// descriptors of that swizzle, in whichever of its two majors a product
+// needs. Their times on the card beside the bound: PERF.md, section 6.
+constexpr int kWgThreads = 384;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * (24 + 2 * 240) <= 65536
 constexpr int kSmemMax = 232448;
-constexpr int kChunkR = 64;   // rows kernel: prototypes per M chunk (one 128-byte panel)
+constexpr int kChunkR = 64;   // forward and rows kernel: prototypes per M chunk (one
+                              // 128-byte panel)
+constexpr int kStagesF = 2;   // forward: M chunks in flight
+constexpr int kYBufsF = 2;    // forward: row tiles in flight
+constexpr int kLazyF = 8;     // forward: how far (log2 units) a row's max may rise before
+                              // its running max moves (online_step)
 constexpr int kStagesR = 2;   // rows kernel: M chunks in flight
 constexpr int kHalf = 32;     // rows of each view in a warpgroup's 64 (view 1 above
                               // view 2); the cols kernel's row tile
-constexpr int kRowsR = 2 * kHalf;  // rows kernel: rows of each view per tile
+constexpr int kRowsR = 2 * kHalf;  // forward, rows kernel: rows of each view per tile
 constexpr int kColsC = 128;   // cols kernel: the block's S-slice, 64 per warpgroup
 constexpr int kBufsC = 2;     // cols kernel: row tiles in flight
 constexpr int kWgBar = 1;     // named barriers: 1 + wg a consumer warpgroup's own
 
 template <int K>
-struct BwdPanels {
+struct Panels {
   static constexpr int kPw = K < 64 ? K : 64;   // values per tile row of a panel
   static constexpr int kRowBytes = 2 * kPw;     // = the tiles' swizzle
   static constexpr int kPanels = K / kPw;
@@ -402,8 +175,22 @@ struct BwdPanels {
 };
 
 template <int K>
-struct RowsLayout : BwdPanels<K> {
-  using B = BwdPanels<K>;
+struct FwdLayout : Panels<K> {
+  using B = Panels<K>;
+  static constexpr int kXchFloats = 20;  // a thread's: 16 e of the other view's half, beta
+                                         // and 1 / l of its two rows
+  static constexpr uint32_t kXch = 128 * kXchFloats * 4;      // per warpgroup
+  static constexpr uint32_t y = 0;  // per buffer: warpgroup 0's stacked tile, warpgroup 1's
+  static constexpr uint32_t m = y + kYBufsF * 2 * B::kTile;   // the ring of M chunks
+  static constexpr uint32_t xch = m + kStagesF * B::kMPanel;
+  static constexpr uint32_t bars = xch + 2 * kXch;
+  static constexpr uint32_t bytes = bars + 16 * (kYBufsF + kStagesF) + 1024;  // + alignment
+  static_assert(bytes <= kSmemMax, "shared memory");
+};
+
+template <int K>
+struct RowsLayout : Panels<K> {
+  using B = Panels<K>;
   static constexpr uint32_t y = 0;                        // y, y, dout, dout (warpgroups 0, 1)
   static constexpr uint32_t m = y + 4 * B::kTile;         // the ring of M chunks
   static constexpr uint32_t xch = m + kStagesR * B::kMPanel;  // p of each warpgroup, f32
@@ -413,8 +200,8 @@ struct RowsLayout : BwdPanels<K> {
 };
 
 template <int K>
-struct ColsLayout : BwdPanels<K> {
-  using B = BwdPanels<K>;
+struct ColsLayout : Panels<K> {
+  using B = Panels<K>;
   static constexpr uint32_t kBuf = 2 * B::kTile;          // stacked y, then stacked dout
   static constexpr uint32_t kPTile = 64 * 128;            // 64 rows x 64 prototypes bf16
   static constexpr uint32_t m = 0;                        // the S-slice, 2 panels
@@ -430,7 +217,7 @@ struct ColsLayout : BwdPanels<K> {
 // (MN-major, 128 B)
 template <int K>
 __device__ __forceinline__ void issue_tile_x_m(float (&s)[32], uint32_t a, uint32_t mb) {
-  using B = BwdPanels<K>;
+  using B = Panels<K>;
   constexpr int kSlices = B::kPw / 16;  // k16 slices per panel
   const uint64_t da = wg::make_desc(a, 16, 8 * B::kRowBytes, B::kRowBytes);
   const uint64_t db = wg::make_desc(mb, B::kMPanel, 1024, 128);
@@ -451,6 +238,315 @@ __device__ __forceinline__ void probs(float (&s)[32], const float (&lse2)[2], in
                                        : 0.f;
 }
 
+// online softmax step on a 64-prototype chunk from s0 (logits in the
+// accumulator layout) -> e = 2^(l scale_log2 - m), 0 for prototypes past S,
+// with the rows' running max m (log2 units) and sum l (the whole row's: the
+// quad's lanes hold the same); alpha = 2^(m_old - m) rescales what came
+// before, and beta = alpha l_old / l and 1 / l carry the loss sums from
+// the old normaliser to the new one. With kLazyF, m moves only when the
+// chunk's max passes it by more than kLazyF (e stays below 2^kLazyF), so
+// that alpha is 1 and o keeps its scale in most chunks.
+__device__ __forceinline__ void online_step(float (&s)[32], float (&m_run)[2], float (&l_run)[2],
+                                            float (&alpha)[2], float (&beta)[2],
+                                            float (&inv)[2], int s0, int S, int q,
+                                            float scale_log2) {
+  if (s0 + kChunkR > S) {
+    const int lim = S - s0 - 2 * q;  // column 8 (i / 4) + (i & 1) of the thread is >= S
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (8 * (i / 4) + (i & 1) >= lim) s[i] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    // finite: every chunk has a column < S
+    const float m_new = mx[h] * scale_log2 > m_run[h] + kLazyF ? mx[h] * scale_log2 : m_run[h];
+    alpha[h] = wg::fast_exp2(m_run[h] - m_new);
+    m_run[h] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = wg::fast_exp2(fmaf(s[i], scale_log2, -m_run[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l = alpha[h] * l_run[h] + quad_sum(sum[h]);
+    inv[h] = 1.f / l;
+    beta[h] = alpha[h] * l_run[h] * inv[h];
+    l_run[h] = l;
+  }
+}
+
+// The loss sums of one chunk, in the roles of the calling warp: u_m =
+// e_m / l_m of its own view (values kOff .. kOff + 15 of its 32), u_o of
+// the other view's (from its partner's exchange `xo`, with its beta and 1 /
+// l), d = u_m - u_o. acc (per row) holds D = <d, d>, C = <d, u_o>, <u_m,
+// u_m>, <u_o, u_o>, <u_m, u_o> over the chunks before, which are first
+// carried to the new normalisers (online_forward_reference in
+// ops/mem_attention_train.py; D and C without forming q11 + q22 - 2 q12,
+// which cancels once the views agree). The chunk's terms are summed in e
+// units, t = e_m - (l_m / l_o) e_o = d l_m, and scaled once.
+template <int kOff>
+__device__ __forceinline__ void loss_sums(const float (&s)[32], const float* xo,
+                                          const float (&beta)[2], const float (&inv)[2],
+                                          const float (&l_run)[2], float (&acc)[5][2]) {
+  float part[5][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+  float r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) r[h] = l_run[h] * xo[(17 + 2 * h) * 128];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int h = (j >> 1) & 1;
+    const float em = s[kOff + j], eo = xo[j * 128], t = fmaf(-r[h], eo, em);
+    part[0][h] = fmaf(t, t, part[0][h]);
+    part[1][h] = fmaf(t, eo, part[1][h]);
+    part[2][h] = fmaf(em, em, part[2][h]);
+    part[3][h] = fmaf(eo, eo, part[3][h]);
+    part[4][h] = fmaf(em, eo, part[4][h]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float bm = beta[h], bo = xo[(16 + 2 * h) * 128], d = bm - bo;
+    const float im = inv[h], io = xo[(17 + 2 * h) * 128];
+    acc[0][h] = fmaf(im * im, part[0][h],
+                     bm * bm * acc[0][h] + 2.f * bm * d * acc[1][h] + d * d * acc[3][h]);
+    acc[1][h] = fmaf(im * io, part[1][h], bm * bo * acc[1][h] + bo * d * acc[3][h]);
+    acc[2][h] = fmaf(im * im, part[2][h], bm * bm * acc[2][h]);
+    acc[3][h] = fmaf(io * io, part[3][h], bo * bo * acc[3][h]);
+    acc[4][h] = fmaf(im * io, part[4][h], bm * bo * acc[4][h]);
+  }
+}
+
+// forward. Per tile of 64 rows of both views; consumer warpgroup w takes
+// rows 32 w .. 32 w + 31 of both views stacked into its 64 (view 1 above
+// view 2), as the rows kernel does. One sweep over S in 64-prototype
+// chunks: logits = y . Mc (SS, Mc MN-major), an online softmax per view,
+// o = alpha o + round(e) . Mc^T (RS: e in registers as bf16, Mc K-major),
+// and beside that product the loss sums. The views trade half of e and
+// each row's beta and 1 / l through shared memory, so that warps w and w +
+// 2 each sum half of the chunk's columns (loss_sums). At the end D is the
+// row's sum of (p1 - p2)^2 and the q sums are <p1, p1>, <p2, p2>, <p1,
+// p2>. Epilogue: out = o / l in bf16 through a TMA store, lse, q, and the
+// warpgroup's loss term in partial[2 tile + w]. Persistent.
+template <int K>
+__global__ void __launch_bounds__(kWgThreads, 1)
+mat_fwd_bf16(const __grid_constant__ CUtensorMap y1_map,
+             const __grid_constant__ CUtensorMap y2_map,
+             const __grid_constant__ CUtensorMap m_map,
+             const __grid_constant__ CUtensorMap out1_map,
+             const __grid_constant__ CUtensorMap out2_map, float* __restrict__ lse,
+             float* __restrict__ qsum, float* __restrict__ partial, int64_t rows, int n_tiles,
+             int S, float scale_log2) {
+  using L = FwdLayout<K>;
+  constexpr uint32_t kV2 = kHalf * L::kRowBytes;  // view 2's rows in a stacked panel
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* y_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* y_empty = y_full + kYBufsF;
+  uint64_t* m_full = y_empty + kYBufsF;
+  uint64_t* m_empty = m_full + kStagesF;
+  const int n_chunks = (S + kChunkR - 1) / kChunkR;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kYBufsF; ++i) {
+      wg::mbar_init(y_full + i, 1);
+      wg::mbar_init(y_empty + i, 2);
+    }
+    for (int i = 0; i < kStagesF; ++i) {
+      wg::mbar_init(m_full + i, 1);
+      wg::mbar_init(m_empty + i, 2);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    wg::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      uint32_t it = 0, t = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++t) {
+        const uint32_t yb = t % kYBufsF;
+        wg::mbar_wait(y_empty + yb, ((t / kYBufsF) & 1) ^ 1);
+        wg::mbar_arrive_expect_tx(y_full + yb, 2 * L::kTile);
+        for (int w = 0; w < 2; ++w)
+          for (int p = 0; p < L::kPanels; ++p) {
+            unsigned char* dst = smem + L::y + (2 * yb + w) * L::kTile + p * L::kPanel;
+            const int r = tile * kRowsR + w * kHalf;
+            wg::tma_load_2d(dst, y1_map, p * L::kPw, r, y_full + yb);
+            wg::tma_load_2d(dst + kV2, y2_map, p * L::kPw, r, y_full + yb);
+          }
+        for (int c = 0; c < n_chunks; ++c, ++it) {
+          const uint32_t st = it % kStagesF;
+          wg::mbar_wait(m_empty + st, ((it / kStagesF) & 1) ^ 1);
+          wg::mbar_arrive_expect_tx(m_full + st, L::kMPanel);
+          wg::tma_load_2d(smem + L::m + st * L::kMPanel, m_map, c * kChunkR, 0, m_full + st);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    wg::setmaxnreg_inc<kConsumerRegs>();
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32, q = lane % 4;
+    const int view = warp / 2;  // warps 0, 1: view 1's rows; 2, 3: view 2's
+    const int partner = lt ^ 64;  // its lane of the other view's warp: the same (row, s)
+    float* xw = reinterpret_cast<float*>(smem + L::xch + w * L::kXch);
+    uint32_t it = 0, t = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++t) {
+      const uint32_t yb = t % kYBufsF;
+      unsigned char* stage = smem + L::y + (2 * yb + w) * L::kTile;
+      const uint32_t ya = wg::smem_u32(stage);
+      const int64_t row0 = int64_t(tile) * kRowsR + w * kHalf;  // of each view
+      float o[K / 2];
+#pragma unroll
+      for (int i = 0; i < K / 2; ++i) o[i] = 0.f;
+      float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+      // this thread's share of each row's loss sums (loss_sums)
+      float acc[5][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+      wg::mbar_wait(y_full + yb, (t / kYBufsF) & 1);
+
+      float s[32], alpha[2], beta[2], inv[2];
+      for (int c = 0; c < n_chunks; ++c, ++it) {
+        const uint32_t st = it % kStagesF;
+        const uint32_t mb = wg::smem_u32(smem + L::m + st * L::kMPanel);
+        wg::mbar_wait(m_full + st, (it / kStagesF) & 1);
+        wg::wgmma_fence();
+        issue_tile_x_m<K>(s, ya, mb);
+        wg::wgmma_commit();
+        wg::wgmma_wait<0>();
+        wg::fence_regs(s);
+        online_step(s, m_run, l_run, alpha, beta, inv, c * kChunkR, S, q, scale_log2);
+        // o = alpha o + round(e) . Mc^T, issued; the loss sums run beside it
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+          for (int i = 0; i < K / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        }
+        uint32_t pa[kChunkR / 16][4];
+#pragma unroll
+        for (int j = 0; j < kChunkR / 16; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pa[j][i] = wg::pack_bf16(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]);
+        wg::fence_regs(o);
+#pragma unroll
+        for (int j = 0; j < kChunkR / 16; ++j) wg::fence_regs(pa[j]);
+        wg::wgmma_fence();
+        const uint64_t db = wg::make_desc(mb, 16, 1024, 128);
+#pragma unroll
+        for (int j = 0; j < kChunkR / 16; ++j)
+          wg::wgmma_rs<K, 0>(o, pa[j], db + ((j * 32) >> 4), 1);
+        wg::wgmma_commit();
+
+        // view 1's warps sum values 0-15 of the thread's 32, view 2's
+        // 16-31; each hands the other the half it does not sum, and its
+        // rows' beta and 1 / l. The reads of the last chunk's are done.
+        wg::named_barrier_sync(kWgBar + w, 128);
+        if (view) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) xw[j * 128 + lt] = s[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) xw[j * 128 + lt] = s[16 + j];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          xw[(16 + 2 * h) * 128 + lt] = beta[h];
+          xw[(17 + 2 * h) * 128 + lt] = inv[h];
+        }
+        wg::named_barrier_sync(kWgBar + w, 128);
+        if (view)
+          loss_sums<16>(s, xw + partner, beta, inv, l_run, acc);
+        else
+          loss_sums<0>(s, xw + partner, beta, inv, l_run, acc);
+        wg::wgmma_wait<0>();
+        wg::fence_regs(o);
+#pragma unroll
+        for (int j = 0; j < kChunkR / 16; ++j) wg::fence_regs(pa[j]);  // live until read
+        if (lt == 0) wg::mbar_arrive(m_empty + st);
+      }
+      if (view) {  // this warp's q11 share is view 2's
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float x = acc[2][h];
+          acc[2][h] = acc[3][h];
+          acc[3][h] = x;
+        }
+      }
+
+      // epilogue: out = o / l in bf16, staged in this warpgroup's y tile
+      // (its reads are done), TMA store of each view's 32 rows (clipped at
+      // `rows`)
+      const uint32_t ln = wg::opaque(lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float il = 1.f / l_run[h];
+        const uint32_t row = warp * 16 + ln / 4 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < K / 8; ++j) {
+          const uint32_t col = 8 * j + 2 * (ln % 4);
+          wg::st_shared_u32(ya + (col / L::kPw) * L::kPanel +
+                                wg::swizzle(row * L::kRowBytes + (col % L::kPw) * 2, L::kRowBytes),
+                            wg::pack_bf16(o[4 * j + 2 * h] * il, o[4 * j + 2 * h + 1] * il));
+        }
+      }
+      wg::fence_proxy_async();
+      // also: every read of the last chunk's exchange is done
+      wg::named_barrier_sync(kWgBar + w, 128);
+      if (lt == 0) {
+        for (int p = 0; p < L::kPanels; ++p) {
+          wg::tma_store_2d(out1_map, stage + p * L::kPanel, p * L::kPw, int(row0));
+          wg::tma_store_2d(out2_map, stage + p * L::kPanel + kV2, p * L::kPw, int(row0));
+        }
+        wg::tma_store_commit();
+      }
+      // lse; the row sums, view 2's warps' shares handed to view 1's
+      bool valid[2];
+      int64_t row[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        row[h] = row0 + (warp % 2) * 16 + lane / 4 + 8 * h;
+        valid[h] = row[h] < rows;
+        if (q == 0 && valid[h])
+          lse[view * rows + row[h]] = (m_run[h] + log2f(l_run[h])) * 0.6931471805599453f;
+#pragma unroll
+        for (int v = 0; v < 5; ++v) {
+          acc[v][h] = quad_sum(acc[v][h]);
+          if (view) xw[(2 * v + h) * 128 + lt] = acc[v][h];
+        }
+      }
+      wg::named_barrier_sync(kWgBar + w, 128);
+      float loss = 0.f;
+      if (view == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int v = 0; v < 5; ++v) acc[v][h] += xw[(2 * v + h) * 128 + partner];
+          if (q == 0 && valid[h]) {
+#pragma unroll
+            for (int i = 0; i < 3; ++i) qsum[i * rows + row[h]] = acc[2 + i][h];
+            loss += acc[0][h];
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) loss += __shfl_xor_sync(0xffffffffu, loss, off);
+        if (warp == 1 && lane == 0) xw[10 * 128] = loss;
+      }
+      wg::named_barrier_sync(kWgBar + w, 128);
+      if (lt == 0) {
+        if (row0 < rows) partial[2 * tile + w] = loss + xw[10 * 128];
+        wg::tma_store_wait_read<0>();
+        wg::mbar_arrive(y_empty + yb);
+      }
+    }
+    if (lt == 0) wg::tma_store_wait<0>();
+  }
+}
+
 // rows kernel. Per tile of 64 rows of both views; consumer warpgroup w
 // takes rows 32 w .. 32 w + 31 of both views stacked into its 64 (view 1
 // above view 2), so its warps w and w + 2 hold the same (row, s) of the two
@@ -461,7 +557,7 @@ __device__ __forceinline__ void probs(float (&s)[32], const float (&lse2)[2], in
 // dy += dl . Mc^T (RS: dl in registers, Mc K-major). D comes from the
 // forward (row_dsum) and is written for the cols kernel. Persistent.
 template <int K>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
 mat_bwd_rows_bf16(const __grid_constant__ CUtensorMap y1_map,
                   const __grid_constant__ CUtensorMap y2_map,
                   const __grid_constant__ CUtensorMap d1_map,
@@ -647,7 +743,7 @@ __device__ __forceinline__ float2 bf16x2_at(const unsigned char* p) {
 // (SS, both operands MN-major, the 64 rows the reduction axis), kept in
 // registers across the row tiles and written to this split's partial.
 template <int K>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
 mat_bwd_cols_bf16(const __grid_constant__ CUtensorMap y1_map,
                   const __grid_constant__ CUtensorMap y2_map,
                   const __grid_constant__ CUtensorMap d1_map,
@@ -1137,29 +1233,41 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int K>
 cudaError_t fwd(const void* y1, const void* y2, const void* mem, void* out1, void* out2,
                 float* lse, float* qsum, float* partial, float* loss, int64_t rows, int S,
-                int dtype, float inv_n, cudaStream_t st) {
+                int ld, int dtype, float inv_n, cudaStream_t st) {
+  static_assert(kRowsF32 == kHalf, "one loss partial per 32 rows in both kernels");
   const float scale = 1.f / sqrtf(float(K));
   cudaError_t err;
-  int blocks;
+  const int n_partials = int((rows + kHalf - 1) / kHalf);
   if (dtype == 1) {
-    const size_t smem = FwdSmem<K>::bytes;
-    if ((err = allow_smem(mat_fwd_bf16<K>, smem)) != cudaSuccess) return err;
-    blocks = int((rows + kRows - 1) / kRows);
-    mat_fwd_bf16<K><<<blocks, kThreads, smem, st>>>(
-        static_cast<const bf16*>(y1), static_cast<const bf16*>(y2),
-        static_cast<const bf16*>(mem), static_cast<bf16*>(out1), static_cast<bf16*>(out2),
-        lse, qsum, partial, rows, S, scale);
+    using P = Panels<K>;
+    if (rows > int64_t(0x7fffffff) - 64 || ld % 8 != 0 || ld < S) return cudaErrorInvalidValue;
+    if (wg::encode_tiled() == nullptr) return cudaErrorNotSupported;
+    // boxes of 32 rows of one view: the kernel stacks the views' rows
+    void* maps_of[4] = {const_cast<void*>(y1), const_cast<void*>(y2), out1, out2};
+    CUtensorMap maps[4], m_map;
+    for (int i = 0; i < 4; ++i)
+      if (!wg::make_map_2d(&maps[i], maps_of[i], rows, K, 2 * K, kHalf, P::kPw, P::kRowBytes))
+        return cudaErrorInvalidValue;
+    if (!wg::make_map_2d(&m_map, mem, K, S, 2 * uint64_t(ld), K, 64, 128))
+      return cudaErrorInvalidValue;
+    const int sms = sm_count();
+    if (sms <= 0) return cudaErrorNoDevice;
+    const int n_tiles = int((rows + kRowsR - 1) / kRowsR);
+    if ((err = allow_smem(mat_fwd_bf16<K>, FwdLayout<K>::bytes)) != cudaSuccess) return err;
+    mat_fwd_bf16<K><<<n_tiles < sms ? n_tiles : sms, kWgThreads, FwdLayout<K>::bytes, st>>>(
+        maps[0], maps[1], m_map, maps[2], maps[3], lse, qsum, partial, rows, n_tiles, S,
+        scale * 1.4426950408889634f);
   } else {
+    if (ld != S) return cudaErrorInvalidValue;
     const size_t smem = (2 * f32_tile_floats<K>() + (K + kRowsF32) * kLdC) * 4;
     if ((err = allow_smem(mat_fwd_f32<K>, smem)) != cudaSuccess) return err;
-    blocks = int((rows + kRowsF32 - 1) / kRowsF32);
-    mat_fwd_f32<K><<<blocks, kThreads, smem, st>>>(
+    mat_fwd_f32<K><<<n_partials, kThreads, smem, st>>>(
         static_cast<const float*>(y1), static_cast<const float*>(y2),
         static_cast<const float*>(mem), static_cast<float*>(out1),
         static_cast<float*>(out2), lse, qsum, partial, rows, S, scale);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  sum_partials<<<1, kThreads, 0, st>>>(partial, blocks, inv_n, loss);
+  sum_partials<<<1, kThreads, 0, st>>>(partial, n_partials, inv_n, loss);
   return cudaGetLastError();
 }
 
@@ -1178,7 +1286,7 @@ cudaError_t bwd(const void* y1, const void* y2, const void* mem, const void* do1
   const dim3 col_grid((S + col_tile - 1) / col_tile, splits);
   if (dtype == 1) {
     const bf16 *d1 = static_cast<const bf16*>(do1), *d2 = static_cast<const bf16*>(do2);
-    using P = BwdPanels<K>;
+    using P = Panels<K>;
     if (rows > int64_t(0x7fffffff) - 64 || ld % 8 != 0 || ld < S) return cudaErrorInvalidValue;
     if (wg::encode_tiled() == nullptr) return cudaErrorNotSupported;
     // boxes of 32 rows of one view: both kernels stack the views' rows
@@ -1194,14 +1302,14 @@ cudaError_t bwd(const void* y1, const void* y2, const void* mem, const void* do1
     if (sms <= 0) return cudaErrorNoDevice;
     const int r_tiles = int((rows + kRowsR - 1) / kRowsR);
     if ((err = allow_smem(mat_bwd_rows_bf16<K>, RowsLayout<K>::bytes)) != cudaSuccess) return err;
-    mat_bwd_rows_bf16<K><<<r_tiles < sms ? r_tiles : sms, kBwdThreads, RowsLayout<K>::bytes,
+    mat_bwd_rows_bf16<K><<<r_tiles < sms ? r_tiles : sms, kWgThreads, RowsLayout<K>::bytes,
                            st>>>(
         maps[0], maps[1], maps[2], maps[3], m_map, maps[4], maps[5], d1, d2,
         static_cast<const bf16*>(out1), static_cast<const bf16*>(out2), lse, qsum, g, dsum,
         rows, r_tiles, S, scale, inv_n2);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if ((err = allow_smem(mat_bwd_cols_bf16<K>, ColsLayout<K>::bytes)) != cudaSuccess) return err;
-    mat_bwd_cols_bf16<K><<<col_grid, kBwdThreads, ColsLayout<K>::bytes, st>>>(
+    mat_bwd_cols_bf16<K><<<col_grid, kWgThreads, ColsLayout<K>::bytes, st>>>(
         maps[0], maps[1], maps[2], maps[3], m_map, lse, dsum, g, scratch, rows, S, scale,
         inv_n2, per_split);
   } else {
@@ -1235,17 +1343,18 @@ cudaError_t bwd(const void* y1, const void* y2, const void* mem, const void* do1
 //
 // Forward: out1, out2 (rows, K) in y's type; lse (2, rows) f32; qsum (3,
 // rows) f32, each row's <p1, p1>_S, <p2, p2>_S and <p1, p2>_S; partial (at
-// least ceil(rows / row tile)) f32 scratch; loss one f32, the mean of
-// (p1 - p2)^2 (inv_n = 1 / (rows * S)).
+// least ceil(rows / mem_attention_train_tile(dtype, 0))) f32 scratch; loss
+// one f32, the mean of (p1 - p2)^2 (inv_n = 1 / (rows * S)). M's rows are
+// `ld` values apart, as for the backward.
 extern "C" int mem_attention_train_fwd(const void* y1, const void* y2, const void* mem,
                                        void* out1, void* out2, float* lse, float* qsum,
                                        float* partial, float* loss, long long rows, int K,
-                                       int S, int dtype, float inv_n, void* stream) {
+                                       int S, int ld, int dtype, float inv_n, void* stream) {
   if (rows <= 0 || S <= 0 || (dtype != 0 && dtype != 1)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 16: return int(fwd<16>(y1, y2, mem, out1, out2, lse, qsum, partial, loss, rows, S, dtype, inv_n, st));
-    case 256: return int(fwd<256>(y1, y2, mem, out1, out2, lse, qsum, partial, loss, rows, S, dtype, inv_n, st));
+    case 16: return int(fwd<16>(y1, y2, mem, out1, out2, lse, qsum, partial, loss, rows, S, ld, dtype, inv_n, st));
+    case 256: return int(fwd<256>(y1, y2, mem, out1, out2, lse, qsum, partial, loss, rows, S, ld, dtype, inv_n, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -1273,11 +1382,11 @@ extern "C" int mem_attention_train_bwd(const void* y1, const void* y2, const voi
   }
 }
 
-// The tiles the launches use: which 0 = rows per block of the forward (of
-// each view), 1 = prototypes per column block of the backward, 2 = rows
-// per row tile of the backward's column kernel (of each view).
+// The tiles the launches use: which 0 = rows (of each view) per loss
+// partial of the forward, 1 = prototypes per column block of the backward,
+// 2 = rows per row tile of the backward's column kernel (of each view).
 extern "C" int mem_attention_train_tile(int dtype, int which) {
-  if (dtype == 1) return which == 0 ? kRows : which == 1 ? kColsC : kHalf;
+  if (dtype == 1) return which == 1 ? kColsC : kHalf;
   return which == 1 ? kColsF32 : kRowsF32;
 }
 

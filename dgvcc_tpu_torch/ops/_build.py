@@ -104,7 +104,7 @@ def build_all(names=None) -> Dict[str, str]:
 def ptxas_report(log: str, kernel: str) -> List[str]:
     """The lines of nvcc's ``-Xptxas -v`` log about the entry functions whose
     mangled name contains ``kernel``: spills, registers, and ptxas's
-    warning that it serialised their wgmma instructions (C7512), which
+    warnings that it serialised their wgmma instructions (C7512, C7514), which
     ptxas prints before the function's own lines."""
     lines, current = [], ""
     for ln in log.splitlines():
@@ -119,11 +119,12 @@ def ptxas_report(log: str, kernel: str) -> List[str]:
 
 def ptxas_faults(report: List[str]) -> List[str]:
     """What in a ``ptxas_report`` makes a kernel slow though it stays right:
-    serialised wgmma instructions (C7512) and spilled registers. An empty
-    report is a fault too: the kernel's lines were not found."""
+    serialised wgmma instructions (ptxas's "Potential Performance Loss"
+    warnings, C7512 and C7514) and spilled registers. An empty report is a
+    fault too: the kernel's lines were not found."""
     if not report:
         return ["no ptxas lines for the kernel"]
-    faults = [ln for ln in report if "C7512" in ln]
+    faults = [ln for ln in report if "Performance Loss" in ln]
     for ln in report:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and (int(m.group(1)) or int(m.group(2))):

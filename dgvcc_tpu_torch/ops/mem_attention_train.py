@@ -39,6 +39,7 @@ from dgvcc_tpu_torch.ops import _build
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 KERNEL_WIDTHS = (16, 256)  # the K values csrc/mem_attention_train.cu instantiates
+LAZY_LOG2 = 8.0  # its bf16 forward's kLazyF
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -79,6 +80,69 @@ def saved_reference(y1: torch.Tensor, y2: torch.Tensor, mem: torch.Tensor):
     return torch.stack(lse), q
 
 
+def online_forward_reference(y1: torch.Tensor, y2: torch.Tensor, mem: torch.Tensor,
+                             chunk: int = 64):
+    """The bf16 forward kernel's algorithm in plain PyTorch, for tests:
+    (out1, out2, loss_con, lse, q) as ``memory_attention_train_forward``
+    returns them, from one sweep over S in chunks of ``chunk`` prototypes.
+
+    Per view, an online softmax: running max m, sum l and out accumulator
+    o, rescaled by alpha = exp(m_old - m) when m moves, which it does only
+    when a chunk's max passes it by more than ``LAZY_LOG2`` log2 units (so
+    e < 2^LAZY_LOG2);
+    o += round(e) . Mc^T with e = exp(logits - m) rounded to M's dtype (not
+    the normalised p that the plain version rounds), out = o / l. The loss term and q
+    without cancellation: with u_i = e_i / l_i in units of the running
+    normaliser, the sums D = <u1 - u2, u1 - u2> and C = <u1 - u2, u2> over
+    the chunks so far are carried to a new normaliser (u_i -> beta_i u_i,
+    beta_i = alpha_i l_i / l_i') with U = <u2, u2> exactly:
+
+        D' = beta1^2 D + 2 beta1 (beta1 - beta2) C + (beta1 - beta2)^2 U
+        C' = beta1 beta2 C + beta2 (beta1 - beta2) U
+
+    and at the end D is the row's sum of (p1 - p2)^2. q = (<u1, u1>, <u2,
+    u2>, <u1, u2>) is summed directly beside them, each rescaled by its
+    betas. Forming the loss term as q11 + q22 - 2 q12 instead cancels to
+    f32 rounding once the views agree (see the tests)."""
+    k = y1.shape[-1]
+    acc = torch.promote_types(mem.dtype, torch.float32)
+    mf = mem.to(acc)
+    rows, s = y1.numel() // k, mem.shape[1]
+    logits = [torch.matmul(y.reshape(rows, k).to(acc), mf) / math.sqrt(k) for y in (y1, y2)]
+    m = [torch.full((rows, 1), -math.inf, dtype=acc) for _ in range(2)]
+    l = [torch.zeros(rows, 1, dtype=acc) for _ in range(2)]
+    o = [torch.zeros(rows, k, dtype=acc) for _ in range(2)]
+    dd, dc, q11, q22, q12 = (torch.zeros(rows, 1, dtype=acc) for _ in range(5))
+    for s0 in range(0, s, chunk):
+        mc = mf[:, s0:s0 + chunk]
+        e, beta, inv = [], [], []
+        for i in range(2):
+            lc = logits[i][:, s0:s0 + chunk]
+            cmax = lc.amax(-1, keepdim=True)
+            m_new = torch.where(cmax > m[i] + LAZY_LOG2 * math.log(2.0), cmax, m[i])
+            alpha = torch.exp(m[i] - m_new)
+            e.append(torch.exp(lc - m_new))
+            l_new = alpha * l[i] + e[i].sum(-1, keepdim=True)
+            o[i] = alpha * o[i] + torch.matmul(e[i].to(mem.dtype).to(acc), mc.t())
+            beta.append(alpha * l[i] / l_new)
+            inv.append(1.0 / l_new)
+            m[i], l[i] = m_new, l_new
+        b1, b2 = beta
+        db = b1 - b2
+        dd = b1 * b1 * dd + 2 * b1 * db * dc + db * db * q22
+        dc = b1 * b2 * dc + b2 * db * q22
+        q11, q22, q12 = b1 * b1 * q11, b2 * b2 * q22, b1 * b2 * q12
+        u1, u2 = e[0] * inv[0], e[1] * inv[1]
+        d = u1 - u2
+        for acc_, x in ((dd, d * d), (dc, d * u2), (q11, u1 * u1), (q22, u2 * u2),
+                        (q12, u1 * u2)):
+            acc_ += x.sum(-1, keepdim=True)
+    out1, out2 = ((o[i] / l[i]).to(y.dtype).reshape(y.shape) for i, y in enumerate((y1, y2)))
+    lse = torch.cat([m[i] + torch.log(l[i]) for i in range(2)], 1).t().float()
+    q = torch.cat([q11, q22, q12], 1).t().float()
+    return out1, out2, (dd.sum() / (rows * s)).float(), lse, q
+
+
 def dsum_reference(do1, do2, out1, out2, q, dcon, s: int) -> torch.Tensor:
     """The backward's D_i = <dp_i, p_i>_S (2, rows) float32, from the
     forward's outputs and q: <dout_i, out_i>_K + gc (q_ii - q_12), gc = 2 g /
@@ -90,24 +154,28 @@ def dsum_reference(do1, do2, out1, out2, q, dcon, s: int) -> torch.Tensor:
     return torch.stack([dots[0] + gc * (q[0] - q[2]), dots[1] + gc * (q[1] - q[2])])
 
 
+def _bind(lib):
+    """The C entry points' argument types on a loaded library."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mem_attention_train_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, i32, i32, i32, i32,
+        ctypes.c_float, ptr]
+    lib.mem_attention_train_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ctypes.c_longlong, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+    lib.mem_attention_train_fwd.restype = i32
+    lib.mem_attention_train_bwd.restype = i32
+    lib.mem_attention_train_tile.argtypes = [i32, i32]
+    lib.mem_attention_train_tile.restype = i32
+    lib.mem_attention_train_error_string.argtypes = [i32]
+    lib.mem_attention_train_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _kernel():
     global _lib
     if _lib is None:
-        lib = _build.load("mem_attention_train")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mem_attention_train_fwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, i32, i32, i32,
-            ctypes.c_float, ptr]
-        lib.mem_attention_train_bwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            ctypes.c_longlong, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
-        lib.mem_attention_train_fwd.restype = i32
-        lib.mem_attention_train_bwd.restype = i32
-        lib.mem_attention_train_tile.argtypes = [i32, i32]
-        lib.mem_attention_train_tile.restype = i32
-        lib.mem_attention_train_error_string.argtypes = [i32]
-        lib.mem_attention_train_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind(_build.load("mem_attention_train"))
     return _lib
 
 
@@ -128,6 +196,14 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _pitched(mem: torch.Tensor, code: int) -> torch.Tensor:
+    """M as the kernels read it: the bf16 kernels through a tensor map,
+    whose rows must be 16-byte aligned, so its columns padded to a multiple
+    of 8."""
+    s = mem.shape[1]
+    return torch.nn.functional.pad(mem, (0, 8 - s % 8)) if code == 1 and s % 8 else mem
+
+
 def memory_attention_train_forward(y1, y2, mem):
     """Kernel #2 on validated, aligned CUDA tensors -> (out1, out2,
     loss_con, lse, q): lse (2, B*P) and q (3, B*P) float32 as
@@ -144,11 +220,12 @@ def memory_attention_train_forward(y1, y2, mem):
     tile = lib.mem_attention_train_tile(code, 0)
     partial = torch.empty(-(-rows // tile), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
+    mem = _pitched(mem, code)
     with torch.cuda.device(dev):
         err = lib.mem_attention_train_fwd(
             y1.data_ptr(), y2.data_ptr(), mem.data_ptr(), out1.data_ptr(),
             out2.data_ptr(), lse.data_ptr(), q.data_ptr(), partial.data_ptr(),
-            loss.data_ptr(), rows, k, s, code, 1.0 / (rows * s), _stream(dev))
+            loss.data_ptr(), rows, k, s, mem.shape[1], code, 1.0 / (rows * s), _stream(dev))
     _check(lib, err, "forward")
     FWD_LAUNCHES += 1
     return out1, out2, loss, lse, q
@@ -182,9 +259,7 @@ def memory_attention_train_backward(y1, y2, mem, lse, q, out1, out2, do1, do2, d
     dsum = torch.empty(2, rows, dtype=torch.float32, device=dev)
     scratch = torch.empty(splits, k, s, dtype=torch.float32, device=dev)
     dm = torch.empty(k, s, dtype=torch.float32, device=dev)
-    # the bf16 kernels read M through a tensor map: rows 16-byte aligned
-    if code == 1 and s % 8:
-        mem = torch.nn.functional.pad(mem, (0, 8 - s % 8))
+    mem = _pitched(mem, code)
     with torch.cuda.device(dev):
         err = lib.mem_attention_train_bwd(
             y1.data_ptr(), y2.data_ptr(), mem.data_ptr(), do1.data_ptr(),

@@ -51,11 +51,23 @@ def main():
         2 * 10.0 * b * p * K * S, "bf16",
         2.0 * (6 * b * p * K + K * S) + 4.0 * K * S)
     # the work the port's kernels (csrc/mem_attention_train.cu) do for the
-    # same function: the forward computes the logits twice (6 products),
-    # the backward recomputes logits and dout . M in both its row and its
-    # column kernel and sweeps S once more for D (18 products)
-    row(f"#2 as ported (6 products) B={b} P={p} x2 views",
-        2 * 6.0 * b * p * K * S, "bf16", 2.0 * (4 * b * p * K + K * S) + 4)
+    # same function. The first forward, on mma.sync, computed the logits twice
+    # for a two-sweep softmax (6 products) in blocks of 64 rows of both
+    # views; the backward recomputes logits and dout . M in both its row and
+    # its column kernel and sweeps S once more for D (18 products). The last
+    # column: the bank bytes every block streams from L2 per row tile
+    m_bytes = 2.0 * K * S
+    row(f"#2 first port (mma.sync, 6 products) B={b} P={p} x2 views",
+        2 * 6.0 * b * p * K * S, "bf16", 2.0 * (4 * b * p * K + K * S) + 4,
+        -(-b * p // 64) * 2 * m_bytes)
+    # the redesign (wgmma, TMA): one sweep with an online softmax (4
+    # products, the TPU kernel's count); it also writes lse and q (5 f32 a
+    # row) and one loss term per 32 rows; each persistent block streams all
+    # of M once per 64-row tile of both views
+    row(f"#2 as redesigned (4 products) B={b} P={p} x2 views",
+        2 * 4.0 * b * p * K * S, "bf16",
+        2.0 * (4 * b * p * K + K * S) + 4.0 * 5 * b * p + 4.0 * -(-b * p // 32) + 4,
+        -(-b * p // 64) * m_bytes)
     row(f"#3 as ported (18 products) B={b} P={p} x2 views",
         2 * 18.0 * b * p * K * S, "bf16",
         2.0 * (6 * b * p * K + K * S) + 4.0 * K * S)

@@ -10,7 +10,8 @@ Tolerances (TF32 off for the plain versions): f32 atol/rtol 1e-4 (the
 f32 kernels sum in another order), 1e-3 for the training gradients (longer
 sums, in another order); bf16 outputs against the plain version on the
 same inputs 2e-2 (one bf16 rounding of the output, 2^-8 relative), the
-training loss 1e-3 relative (p is exact f32 in both; f32 1e-4), its
+training loss 1e-3 relative (p is exact f32 in both; f32 1e-4), also
+where the views agree to 0.001, its
 gradients 0.05 / 0.02 and dM to 0.02 in relative norm
 (tests/test_mem_attention_train.py), and bf16 outputs and dy also to 1e-2
 in relative norm (the kernel rounds dl to bf16, the plain version does
@@ -265,6 +266,35 @@ def test_train_forward_saves_lse_and_q(cuda, dtype, b, p, k, s):
     assert lse.shape == (2, b * p) and q.shape == (3, b * p)
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(q, want_q, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("eps", [0.1, 0.01, 0.001])
+@pytest.mark.parametrize("b,p,k,s", [(2, 437, 16, 1001), (3, 6437, 256, 1024)])
+def test_train_forward_holds_views_that_agree(cuda, dtype, eps, b, p, k, s):
+    """y2 = y1 + eps N(0, 1): loss_con falls to ~1e-9 of the q sums, and the
+    bf16 forward's one sweep must not form it as their difference. loss_con
+    to 1e-3 relative (f32 1e-4), q relative 1e-4 (f32 1e-5), two calls bit
+    for bit, one launch each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(b * p + k + s + int(1 / eps))
+    y1 = torch.randn(b, p, k, generator=g, device=cuda)
+    y2 = (y1 + eps * torch.randn(b, p, k, generator=g, device=cuda)).to(dtype)
+    y1 = y1.to(dtype)
+    mem = torch.randn(k, s, generator=g, device=cuda).to(dtype)
+    before = mt.FWD_LAUNCHES
+    got = mt.memory_attention_train_forward(y1, y2, mem)
+    again = mt.memory_attention_train_forward(y1, y2, mem)
+    torch.cuda.synchronize()
+    assert mt.FWD_LAUNCHES == before + 2
+    for name, a, r in zip(("out1", "out2", "loss_con", "lse", "q"), got, again):
+        assert torch.equal(a, r), name
+    rcon = mt.memory_attention_train_reference(y1, y2, mem)[2]
+    lse, q = mt.saved_reference(y1, y2, mem)
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(got[2], rcon, atol=0, rtol=1e-3 if bf16 else 1e-4)
+    torch.testing.assert_close(got[3], lse, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[4], q, atol=0, rtol=1e-4 if bf16 else 1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -199,3 +199,105 @@ def test_dsum_rule_matches_jax_dp_dot_p(shape, loss_only, dtype):
     assert scale > 0
     np.testing.assert_allclose(got.double().numpy(), want, rtol=0,
                                atol=DSUM_TOL[dtype] * scale)
+
+
+# ---- the bf16 forward kernel's one-sweep algorithm (online_forward_reference)
+
+ONLINE_SHAPES = {"k16_s32": (2, 70, 16, 32), "k16_s1001": (2, 70, 16, 1001),
+                 "k256_s32": (2, 70, 256, 32), "k256_s1001": (2, 70, 256, 1001)}
+ONLINE_EPS = (1.0, 0.1, 0.01, 0.001)
+
+
+def _near_views(shape, eps, seed=4):
+    """y2 = y1 + eps N(0, 1): as eps falls the views agree and loss_con
+    falls below q by up to 1e-9 (eps = 0.001), where summing it from q
+    cancels."""
+    b, p, k, s = shape
+    rng = np.random.default_rng(seed)
+    y1 = rng.normal(size=(b, p, k)).astype(np.float32)
+    y2 = (y1 + eps * rng.normal(size=y1.shape)).astype(np.float32)
+    mem = (rng.normal(size=(k, s)) * 0.5).astype(np.float32)
+    return y1, y2, mem
+
+
+@pytest.mark.parametrize("eps", ONLINE_EPS)
+@pytest.mark.parametrize("shape", sorted(ONLINE_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("golden", sorted(GOLDENS))
+def test_online_forward_matches_jax(golden, dtype, shape, eps):
+    """The kernel's one sweep against the JAX op on the same numpy inputs
+    (P = 70: a row tail of the Pallas tile 32; S = 1001: a chunk tail):
+    loss_con to 1e-3 relative down to eps = 0.001; out to 1e-5 in f32 and to
+    1e-2 in relative norm in bf16 (the sweep rounds the unnormalised e to
+    bf16, the JAX op the normalised p)."""
+    arrays = _near_views(ONLINE_SHAPES[shape], eps)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = GOLDENS[golden](*(jnp.asarray(a, jdt) for a in arrays))
+    got = mt.online_forward_reference(*(torch.from_numpy(a).to(dtype) for a in arrays))
+    w_con = float(want[2])
+    assert w_con > 0 and abs(got[2].item() - w_con) <= 1e-3 * w_con
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == dtype and g.shape == arrays[0].shape
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+        else:
+            assert np.linalg.norm(g - w) / np.linalg.norm(w) <= 1e-2
+
+
+@pytest.mark.parametrize("eps", ONLINE_EPS)
+@pytest.mark.parametrize("shape", sorted(ONLINE_SHAPES))
+def test_online_lse_and_q_match_jax_softmax(shape, eps):
+    """lse and q of the one sweep against the JAX reference's logits and p
+    (float64 sums of its float32 p): float32 at 1e-5 relative, also where
+    the views agree."""
+    y1, y2, mem = _near_views(ONLINE_SHAPES[shape], eps)
+    _, _, _, lse, q = mt.online_forward_reference(*(torch.from_numpy(a) for a in (y1, y2, mem)))
+    (p1, p2), _ = _jax_p_dp(*(jnp.asarray(a) for a in (y1, y2, mem, y1, y2)), 0.0)
+    k = y1.shape[-1]
+    for i, y in enumerate((y1, y2)):
+        l = jnp.einsum("bpk,ks->bps", y, mem) / np.sqrt(k)
+        want = np.asarray(jax.nn.logsumexp(l, axis=-1)).reshape(-1)
+        np.testing.assert_allclose(lse[i].numpy(), want, rtol=1e-5, atol=1e-5)
+    p1, p2 = (np.asarray(a, np.float64).reshape(-1, mem.shape[1]) for a in (p1, p2))
+    for got, want in zip(q, ((p1 * p1).sum(-1), (p2 * p2).sum(-1), (p1 * p2).sum(-1))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+def _loss_from_q_sums(y1, y2, mem, chunk=64):
+    """The one sweep with the loss term formed from f32 running sums as
+    q11 + q22 - 2 q12 (each rescaled by the running maxima), as a kernel
+    without the cancellation-free recurrence would form it."""
+    k, s = y1.shape[-1], mem.shape[1]
+    logits = [torch.matmul(y.reshape(-1, k), mem) / np.sqrt(k) for y in (y1, y2)]
+    rows = logits[0].shape[0]
+    m = [torch.full((rows, 1), -np.inf) for _ in range(2)]
+    l = [torch.zeros(rows, 1) for _ in range(2)]
+    q11, q22, q12 = (torch.zeros(rows, 1) for _ in range(3))
+    for s0 in range(0, s, chunk):
+        e, a = [], []
+        for i in range(2):
+            lc = logits[i][:, s0:s0 + chunk]
+            m_new = torch.maximum(m[i], lc.amax(-1, keepdim=True))
+            a.append(torch.exp(m[i] - m_new))
+            e.append(torch.exp(lc - m_new))
+            l[i], m[i] = a[i] * l[i] + e[i].sum(-1, keepdim=True), m_new
+        q11 = q11 * a[0] * a[0] + (e[0] * e[0]).sum(-1, keepdim=True)
+        q22 = q22 * a[1] * a[1] + (e[1] * e[1]).sum(-1, keepdim=True)
+        q12 = q12 * a[0] * a[1] + (e[0] * e[1]).sum(-1, keepdim=True)
+    terms = q11 / l[0] ** 2 + q22 / l[1] ** 2 - 2 * q12 / (l[0] * l[1])
+    return (terms.sum() / (rows * s)).item()
+
+
+def test_loss_from_f32_q_sums_cancels_where_views_agree():
+    """Why the kernel carries D = <u1 - u2, u1 - u2> by its recurrence: at
+    eps = 0.001 the loss term is about 1e-9 of q, and q11 + q22 - 2 q12 from
+    f32 sums misses loss_con by more than its 1e-3 tolerance, where the
+    recurrence holds it."""
+    arrays = _near_views(ONLINE_SHAPES["k256_s1001"], 0.001)
+    t = [torch.from_numpy(a) for a in arrays]
+    truth = mt.memory_attention_train_reference(*(a.double() for a in t))[2].item()
+    from_q = _loss_from_q_sums(*t)
+    recurrence = mt.online_forward_reference(*t)[2].item()
+    assert abs(from_q - truth) > 1e-3 * truth
+    assert abs(recurrence - truth) <= 1e-5 * truth

@@ -14,16 +14,16 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _sweep():
+def _sweep(name="sweep_mem_attention"):
     spec = importlib.util.spec_from_file_location(
-        "sweep_mem_attention", os.path.join(REPO, "scripts", "sweep_mem_attention.py"))
+        name, os.path.join(REPO, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-def _source():
-    with open(os.path.join(REPO, "dgvcc_tpu_torch", "csrc", "mem_attention.cu")) as f:
+def _source(name="mem_attention.cu"):
+    with open(os.path.join(REPO, "dgvcc_tpu_torch", "csrc", name)) as f:
         return f.read()
 
 
@@ -72,6 +72,18 @@ def test_ptxas_report_keeps_the_kernel_lines_and_its_serialisation_warning():
         "Used 96 registers, used 1 barriers"]
 
 
+@pytest.mark.parametrize("name", sorted(_sweep("sweep_mem_attention_train").VARIANTS))
+def test_every_training_forward_variant_sets_every_constant(name):
+    """scripts/sweep_mem_attention_train.py: the same rule for kernel #2's
+    constants in csrc/mem_attention_train.cu."""
+    sweep = _sweep("sweep_mem_attention_train")
+    params = sweep.VARIANTS[name]
+    text = sweep.variant_source(_source("mem_attention_train.cu"), params)
+    for const, value in zip(sweep.CONSTANTS, params):
+        found = re.findall(rf"constexpr int {const} = \d+;", text)
+        assert found == [f"constexpr int {const} = {value};"], const
+
+
 CLEAN = ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
          "Used 168 registers, used 16 barriers"]
 
@@ -80,10 +92,12 @@ CLEAN = ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     (CLEAN, 0),
     (["(C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized"]
      + CLEAN, 1),
+    (["(C7514) Potential Performance Loss: wgmma.mma_async instructions are serialized due "
+      "to non wgmma instructions reading accumulator registers"] + CLEAN, 1),
     (["224 bytes stack frame, 264 bytes spill stores, 256 bytes spill loads", CLEAN[1]], 1),
     (["0 bytes stack frame, 0 bytes spill stores, 8 bytes spill loads", CLEAN[1]], 1),
     ([], 1),
-], ids=["clean", "c7512", "spill", "spill_loads_only", "empty"])
+], ids=["clean", "c7512", "c7514", "spill", "spill_loads_only", "empty"])
 def test_ptxas_faults_flags_serialised_wgmma_spills_and_a_missing_report(report, n_faults):
     from dgvcc_tpu_torch.ops import _build
 

@@ -31,13 +31,18 @@ Phases, each of which exits non-zero on failure:
    the einsum path (fused_mem=False). Then the command line,
    ``python -m dgvcc_tpu_torch --task serve`` with configs/sta_final.yml,
    counts four JPEG frames;
-   The density-map kernel (#4) against its plain version at 768x1024 with
-   1024 points, 1080x1920 with 4000 (points on every border, outside the
-   image, in (-1, 0), and masked pad rows), no points, and 17x23;
+   The density-map kernel (#4) against its plain version, and a second
+   call bit for bit, at DMAP_CHECKS: 768x1024 with 1024 points uniform and
+   with points on every border, outside the image, in (-1, 0) and masked
+   pad rows, 1080x1920 with 4000, no points, 17x23, 2048x3072 with 25,000
+   clustered points, 4,096 points in one 32x32 tile (more than a splat
+   block's buffer) and radius 63; against the numpy golden at four;
 4. time the serving path (frames/s at B=1, 4, 16; stream) and the kernel
    alone against its plain version and one library call (SDPA); the
-   density-map kernel against its plain version and cuBLAS A . B^T in
-   interleaved turns (medians);
+   density-map kernel at 768x1024 (N=1024) and 2048x3072 (N=25,000): its
+   device time per call (torch.profiler), the back-to-back time, the host
+   time per call, its plain version's time and cuBLAS A . B^T's device
+   time;
 5. train full-width DGModel ``final`` as configs/sta_final.yml says (bf16
    compute, f32 AdamW master weights, the OneCycle lr of epoch 0) on a
    synthetic two-view batch of 16 crops of 320x320: step 1 on the kernel
@@ -127,8 +132,28 @@ STEP_GRADS = ("mem", "dec1.0.conv.weight", "den_dec.0.conv.weight",
 # golden: f32; the kernel sums each pixel's covering points in point order
 # (FMA), the product and the golden (float64, rounded once) in their own
 TOL_DMAP = dict(atol=1e-5, rtol=1e-4)
-DMAP_SHAPES = ((768, 1024, 1024), (1080, 1920, 4000), (768, 1024, 0), (17, 23, 40))
-DMAP_TURNS = 5                      # kernel #4 and cuBLAS timed in turns
+# kernel #4's cases: (H, W, N, points, sigma, truncate). Points: "uniform"
+# in the image, unmasked; "clustered": 50 Gaussian blobs of sigma 40-120 px
+# plus 10% uniform, clipped to the image; "border": dmap_points (every
+# border, outside, in (-1, 0), the last quarter masked); "one_tile": all
+# inside the 32x32 output tile at (320, 320)
+DMAP_CASES = {
+    "S1": (768, 1024, 1024, "uniform", 4.0, 7 / 4),       # a ShanghaiTech B frame
+    "S2": (2048, 3072, 25000, "clustered", 4.0, 7 / 4),   # JHU-Crowd++'s densest image
+                                                          # (25,791 heads) at a 2048 px
+                                                          # short side (preprocess.py)
+    "S3": (2048, 3072, 1000, "uniform", 4.0, 7 / 4),      # a sparse large image
+    "border": (768, 1024, 1024, "border", 4.0, 7 / 4),
+    "hd": (1080, 1920, 4000, "border", 4.0, 7 / 4),
+    "empty": (768, 1024, 0, "border", 4.0, 7 / 4),
+    "small": (17, 23, 40, "border", 4.0, 7 / 4),
+    "overflow": (768, 1024, 4096, "one_tile", 4.0, 7 / 4),  # more than a block's buffer
+    "r63": (768, 1024, 1024, "border", 16.0, 3.95),       # radius 63: 2 tiles each side
+}
+DMAP_CHECKS = ("S1", "border", "hd", "empty", "small", "S2", "overflow", "r63")
+DMAP_GOLDEN = ("S1", "border", "hd", "S2")      # sigma 4: the golden's radius 7
+DMAP_TIMED = {"S1": 50, "S2": 20}   # cuBLAS calls timed (one takes about 6 ms at S2)
+DMAP_CALLS = 50                     # kernel #4 calls a device-time median is over
 TOL_CLI_TEST = 1e-3                 # CLI --task test vs in-process test(), relative
 
 
@@ -538,7 +563,7 @@ def train_phase(mt, gpu):
 def dmap_points(h, w, n, seed):
     """n points over the image and a 10-pixel margin around it; with n >= 12
     also points on every border, in (-1, 0) and outside; the last quarter
-    masked off as pad rows."""
+    masked off as pad rows. On the CPU."""
     g = torch.Generator().manual_seed(seed)
     pts = torch.rand(n, 2, generator=g) * torch.tensor([w + 20.0, h + 20.0]) - 10.0
     if n >= 12:
@@ -547,79 +572,215 @@ def dmap_points(h, w, n, seed):
                                 [w + 0.5, 2.0], [-1.5, 4.0]])
     mask = torch.ones(n, dtype=torch.bool)
     mask[3 * n // 4:] = False
+    return pts, mask
+
+
+def dmap_case(name, seed):
+    """The points and mask of DMAP_CASES[name], made on the CPU from
+    ``seed`` and moved to the card."""
+    h, w, n, kind = DMAP_CASES[name][:4]
+    g = torch.Generator().manual_seed(seed)
+    size = torch.tensor([w - 1.0, h - 1.0])
+    mask = torch.ones(n, dtype=torch.bool)
+    if kind == "uniform":
+        pts = torch.rand(n, 2, generator=g) * size
+    elif kind == "clustered":
+        k = n - n // 10
+        centres = torch.rand(50, 2, generator=g) * size
+        spread = 40.0 + 80.0 * torch.rand(50, 1, generator=g)
+        blob = torch.randint(50, (k,), generator=g)
+        pts = torch.cat([centres[blob] + spread[blob] * torch.randn(k, 2, generator=g),
+                         torch.rand(n - k, 2, generator=g) * size])
+        pts = torch.minimum(pts.clamp_min(0.0), size)[torch.randperm(n, generator=g)]
+    elif kind == "one_tile":
+        pts = 320.0 + 31.99 * torch.rand(n, 2, generator=g)
+    else:
+        pts, mask = dmap_points(h, w, n, seed)
     return pts.cuda(), mask.cuda()
 
 
 def check_dmap(dm):
-    """Kernel #4 against its plain version at DMAP_SHAPES, and against the
-    numpy golden at the first two. Returns the largest max_abs_err."""
+    """Kernel #4 against its plain version at DMAP_CHECKS, against the numpy
+    golden at DMAP_GOLDEN, and a second call bit for bit. Returns the
+    largest max_abs_err."""
     worst = 0.0
-    for i, (h, w, n) in enumerate(DMAP_SHAPES):
-        pts, mask = dmap_points(h, w, n, seed=40 + i)
-        out = dm.gaussian_density(pts, mask, h, w)
+    for i, name in enumerate(DMAP_CHECKS):
+        h, w, n, _, sigma, truncate = DMAP_CASES[name]
+        pts, mask = dmap_case(name, seed=40 + i)
+        out = dm.gaussian_density(pts, mask, h, w, sigma, truncate)
+        again = dm.gaussian_density(pts, mask, h, w, sigma, truncate)
         torch.cuda.synchronize()
-        ref = dm.gaussian_density_reference(pts, mask, h, w)
+        ref = dm.gaussian_density_reference(pts, mask, h, w, sigma, truncate)
         err = (out - ref).abs().max().item()
-        ok = bool(torch.allclose(out, ref, **TOL_DMAP)) and out.shape == (h, w)
-        if i < 2:
+        same = bool(torch.equal(out, again))
+        ok = bool(torch.allclose(out, ref, **TOL_DMAP)) and out.shape == (h, w) and same
+        golden_err = "-"
+        if name in DMAP_GOLDEN:
             golden = torch.from_numpy(dm.gaussian_density_fixed_np(
-                (h, w), pts[mask].cpu().numpy())).cuda()
+                (h, w), pts[mask].cpu().numpy(), sigma)).cuda()
             ok = ok and bool(torch.allclose(out, golden, **TOL_DMAP))
+            golden_err = f"{(out - golden).abs().max().item():.3e}"
         worst = max(worst, err)
-        log(f"dmap kernel {h}x{w} N={n} ({int(mask.sum())} unmasked): max_abs_err "
-            f"{err:.3e} vs plain, sum {out.sum().item():.4f} (tol {TOL_DMAP}) "
-            f"{'ok' if ok else 'MISMATCH'}")
+        log(f"dmap kernel {name} {h}x{w} N={n} ({int(mask.sum())} unmasked), radius "
+            f"{dm.scipy_radius(sigma, truncate)}: max_abs_err {err:.3e} vs plain, "
+            f"{golden_err} vs golden, sum {out.sum().item():.4f} (tol {TOL_DMAP}), two "
+            f"calls {'bit-identical' if same else 'DIFFER'} {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"gaussian_density disagrees with its plain version or the golden "
-                 f"({h}x{w}, N={n})")
+            fail(f"gaussian_density disagrees with its plain version, the golden or itself "
+                 f"({name}: {h}x{w}, N={n})")
     return worst
 
 
-def time_dmap(dm, gpu):
-    """Kernel #4 at 768x1024, N=1024 (all in the image, unmasked): its time
-    and that of cuBLAS A . B^T on the prebuilt f32 A (HxN) and B (WxN), the
-    medians of DMAP_TURNS turns of the two, the plain version's, and the
-    bound: the map written once and the points read once
-    over HBM, against the work these points need (each point's (2r+1)^2
-    window clipped to the image, one multiply-add a pixel) over the f32
-    CUDA-core peak."""
-    h, w, n = 768, 1024, 1024
-    g = torch.Generator(device="cuda").manual_seed(50)
-    pts = torch.rand(n, 2, generator=g, device="cuda") * torch.tensor(
-        [w - 1.0, h - 1.0], device="cuda")
-    mask = torch.ones(n, dtype=torch.bool, device="cuda")
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    plain = cuda_ms(lambda: dm.gaussian_density_reference(pts, mask, h, w), 20)
-    r = dm.scipy_radius(4.0, 7.0 / 4.0)
+def device_ms_per_call(fn, calls):
+    """Device time of one call of ``fn``: the durations of the device
+    activities it runs (kernels, memsets) summed per call, from
+    torch.profiler (CUPTI), median over ``calls`` calls. Returns (ms,
+    activities a call, {activity: its median ms}, method). Where the trace
+    lost some activities, the sum of each activity's median; where it shows
+    none, the median of per-call CUDA event pairs with a synchronise between
+    calls (that pair also holds the host's launch time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    per_op = {}
+    for e in evs:
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0].strip() or e.name
+        per_op.setdefault(name, []).append(e.time_range.elapsed_us() / 1e3)
+    medians = {name: float(np.median(t)) for name, t in per_op.items()}
+    if evs and len(evs) % calls == 0:
+        k = len(evs) // calls
+        per_call = [sum(e.time_range.elapsed_us() for e in evs[i * k:(i + 1) * k]) / 1e3
+                    for i in range(calls)]
+        return float(np.median(per_call)), k, medians, "profiler"
+    if evs:  # the trace lost some activities: add up each one's median
+        return sum(medians.values()), len(medians), medians, (
+            f"profiler, sum of per-activity medians ({len(evs)} activities over {calls} calls)")
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), None, {}, (
+        f"event pairs (profiler: {len(evs)} device activities over {calls} calls)")
+
+
+def host_ms_per_call(fn, calls):
+    """Host time of one call of ``fn`` (the clock around the call, no
+    synchronise), median over ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return 1e3 * float(np.median(times))
+
+
+def dmap_dense_operands(pts, mask, h, w, sigma, r):
+    """The TPU kernel's dense form on the card: A (H x N) and B (W x N) f32
+    with the unnormalised taps of the valid points, cuBLAS's A . B^T
+    inputs."""
     p = torch.trunc(pts).long()
 
     def axis(size, c):
         d = torch.arange(size, device="cuda")[:, None] - c[None, :]
-        return torch.exp(-0.5 * (d.float() / 4.0) ** 2) * (d.abs() <= r)
+        return torch.exp(-0.5 * (d.float() / sigma) ** 2) * (d.abs() <= r)
 
-    a, b = axis(h, p[:, 1]), axis(w, p[:, 0])
-    # the kernel and cuBLAS in turns, medians: one reading each spreads by
-    # tens of percent at these sub-0.1 ms times
-    turns = [(cuda_ms(lambda: dm.gaussian_density(pts, mask, h, w), 200, warmup=5),
-              cuda_ms(lambda: torch.matmul(a, b.t()), 200, warmup=5)) for _ in range(DMAP_TURNS)]
-    kern, library = (float(np.median([t[i] for t in turns])) for i in range(2))
-    log(f"dmap kernel vs cuBLAS A.B^T, {DMAP_TURNS} turns: "
-        f"{', '.join(f'{k:.4f} / {c:.4f}' for k, c in turns)} ms [{gpu}]")
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return axis(h, p[:, 1]) * mask[None, :], axis(w, p[:, 0])
+
+
+def dmap_bound(pts, mask, h, w, r):
+    """Least time for the map of these points: the map written once and the
+    points (x, y f32 and the mask byte) read once over HBM, against the
+    work they need (each valid point's (2r+1)^2 window clipped to the image,
+    one multiply-add a pixel) over the f32 CUDA-core peak. Returns (ms,
+    bound_by, MB, MFLOP)."""
+    p = torch.trunc(pts).long()
+    valid = mask & (p[:, 0] >= 0) & (p[:, 0] < w) & (p[:, 1] >= 0) & (p[:, 1] < h)
+    p = p[valid]
     rows = (p[:, 1] + r).clamp_max(h - 1) - (p[:, 1] - r).clamp_min(0) + 1
     cols = (p[:, 0] + r).clamp_max(w - 1) - (p[:, 0] - r).clamp_min(0) + 1
     flops = 2.0 * float((rows * cols).sum())
-    nbytes = 4.0 * h * w + 9.0 * n
-    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    tpu_ms = bound(2.0 * h * w * n, 4.0 * (h * w + 3 * n), PEAK_F32_FLOPS)[0]
-    log(f"dmap kernel {h}x{w} N={n} f32: gaussian_density {kern:.4f} ms (median; 200 "
-        f"back-to-back calls, device events), plain {plain:.4f} ms, cuBLAS A.B^T {library:.4f} "
-        f"ms (median), "
-        f"bound {b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.3f} MFLOP; "
-        f"the TPU's dense form {tpu_ms:.4f} ms) [{gpu}]")
-    return dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by,
-                bound_ms_dense_form=tpu_ms)
+    nbytes = 4.0 * h * w + 9.0 * len(pts)
+    ms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    return ms, by, nbytes / 1e6, flops / 1e6
+
+
+def dmap_timing(dm, name, lib_calls, plain_calls=5, seed=50):
+    """Kernel #4 at DMAP_CASES[name]: device time per call (profiler), the
+    back-to-back time (CUDA events over 200 calls, the earlier method),
+    the host time per call, cuBLAS A . B^T's device time on the prebuilt
+    f32 operands (TF32 off; ``lib_calls`` calls), the plain version's time
+    (``plain_calls`` calls; 0: not timed) and the bound."""
+    h, w, n, _, sigma, truncate = DMAP_CASES[name]
+    r = dm.scipy_radius(sigma, truncate)
+    pts, mask = dmap_case(name, seed)
+
+    def call():
+        return dm.gaussian_density(pts, mask, h, w, sigma, truncate)
+
+    device, k, names, method = device_ms_per_call(call, DMAP_CALLS)
+    b2b = cuda_ms(call, 200, warmup=5)
+    host = host_ms_per_call(call, 100)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        a, b = dmap_dense_operands(pts, mask, h, w, sigma, r)
+        library = device_ms_per_call(lambda: torch.matmul(a, b.t()), lib_calls)[0]
+        del a, b
+        plain = (cuda_ms(lambda: dm.gaussian_density_reference(pts, mask, h, w, sigma,
+                                                               truncate), plain_calls, warmup=1)
+                 if plain_calls else None)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    b_ms, b_by, mb, mflop = dmap_bound(pts, mask, h, w, r)
+    dense = bound(2.0 * h * w * n, 4.0 * (h * w + 3 * n), PEAK_F32_FLOPS)[0]
+    return dict(H=h, W=w, N=n, device_ms=device, kernels_per_call=k, device_ops=names,
+                device_method=method, b2b_ms=b2b, host_ms=host, library_ms=library,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, bound_mb=mb, bound_mflop=mflop,
+                bound_ms_dense_form=dense)
+
+
+def ops(t):
+    """dmap_timing's device activities as text: name and median ms each."""
+    return ", ".join(f"{name} {ms:.5f}" for name, ms in t["device_ops"].items())
+
+
+def time_dmap(dm, gpu):
+    """Kernel #4 timed at DMAP_TIMED (dmap_timing), logged; returns the
+    kernel line's fields: the top-level ones at S1, every shape's under
+    ``shapes``."""
+    shapes = {}
+    for name, lib_calls in DMAP_TIMED.items():
+        t = shapes[name] = dmap_timing(dm, name, lib_calls)
+        log(f"dmap kernel {name} {t['H']}x{t['W']} N={t['N']} f32: device {t['device_ms']:.4f} "
+            f"ms a call ({t['device_method']}; {t['kernels_per_call']} device activities "
+            f"a call: {ops(t)}), back-to-back {t['b2b_ms']:.4f} ms, host "
+            f"{t['host_ms']:.4f} ms a call, cuBLAS A.B^T device {t['library_ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}: "
+            f"{t['bound_mb']:.2f} MB, {t['bound_mflop']:.3f} MFLOP; the TPU's dense form "
+            f"{t['bound_ms_dense_form']:.4f} ms) [{gpu}]")
+    s1 = shapes["S1"]
+    return dict(ms=s1["device_ms"], plain_ms=s1["plain_ms"], library_ms=s1["library_ms"],
+                bound_ms=s1["bound_ms"], bound_by=s1["bound_by"],
+                bound_ms_dense_form=s1["bound_ms_dense_form"],
+                kernels_per_call=s1["kernels_per_call"],
+                shapes={name: {k: v for k, v in t.items() if k != "device_ops"}
+                        for name, t in shapes.items()})
 
 
 def write_dataset(root, seed=0):

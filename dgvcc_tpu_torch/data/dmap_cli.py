@@ -100,7 +100,9 @@ def generate(img_fns, sigma: float = 4.0, backend: str = "cuda", device: str = "
         h, w = _image_size(img_fn)
         pts = torch.from_numpy(_points(img_fn))
         mask = torch.ones(len(pts), dtype=torch.bool)
-        dmap = gaussian_density(pts.to(dev), mask.to(dev), h, w, sigma=float(sigma))
+        # radius 7 whatever sigma, as the reference and the golden (truncate 7 / sigma)
+        dmap = gaussian_density(pts.to(dev), mask.to(dev), h, w, sigma=float(sigma),
+                                truncate=7.0 / float(sigma))
         np.save(out, dmap.cpu().numpy())
         done += 1
     return done

@@ -17,8 +17,8 @@ HBM = 3.35e12                           # H100 SXM bytes/s
 def row(name, flops, kind, nbytes, l2_bytes=None):
     t_ops, t_bytes = 1e3 * flops / PEAK[kind], 1e3 * nbytes / HBM
     by = "operations" if t_ops >= t_bytes else "bytes"
-    l2 = "" if l2_bytes is None else f" | L2->SM bank {l2_bytes / 1e9:.2f} GB"
-    print(f"{name:<58} {flops / 1e9:9.1f} GFLOP ({kind}) {t_ops:8.4f} ms | "
+    l2 = "" if l2_bytes is None else f" | L2->SM {l2_bytes / 1e9:.4g} GB"
+    print(f"{name:<58} {flops / 1e9:9.4g} GFLOP ({kind}) {t_ops:8.4f} ms | "
           f"{nbytes / 1e6:8.1f} MB {t_bytes:8.4f} ms | bound {max(t_ops, t_bytes):.4f} ms "
           f"({by}){l2}")
 
@@ -78,18 +78,32 @@ def main():
     row(f"#3 as redesigned (14 products) B={b} P={p} x2 views",
         2 * 14.0 * b * p * K * S, "bf16",
         2.0 * (8 * b * p * K + K * S) + 4.0 * K * S + 4.0 * 5 * b * p)
-    h, w, n = 768, 1024, 1024  # density map of a 768x1024 image, 1024 points
-    row(f"#4 gaussian_density_pallas {h}x{w} N={n}",
-        2.0 * h * w * n, "f32", 4.0 * (h * w + 3 * n))
-    # the port's kernel (csrc/dmap.cu) does the sparse work instead: one
-    # multiply-add per pixel of each point's (2r+1)^2 window (r = 7), the
-    # map written once, the points (x, y f32 and a mask byte) read once;
-    # each of the (h/32)*(w/32) blocks also tests every point for its tile
-    # (from L2, not counted as HBM bytes)
-    r = 7
-    row(f"#4 as ported (sparse) {h}x{w} N={n}, {h // 32 * (w // 32)} tiles",
-        2.0 * (2 * r + 1) ** 2 * n, "f32", 4.0 * h * w + 9.0 * n)
-
+    # #4 at the shapes chip_smoke.py and scripts/sweep_dmap.py time it: S1 a
+    # ShanghaiTech B frame, S2 JHU-Crowd++'s densest image (25,791 heads) at
+    # preprocess.py's 2048 px short side, S3 a sparse image of that size; r = 7
+    r, tile = 7, 32
+    for name, h, w, n in (("S1", 768, 1024, 1024), ("S2", 2048, 3072, 25000),
+                          ("S3", 2048, 3072, 1000)):
+        tiles = -(-h // tile) * -(-w // tile)
+        row(f"#4 gaussian_density_pallas {name} {h}x{w} N={n} (dense)",
+            2.0 * h * w * n, "f32", 4.0 * (h * w + 3 * n))
+        # the function: the map written once, the points (x, y f32 and a mask
+        # byte) read once, one multiply-add per pixel of each point's
+        # (2r+1)^2 window (unclipped here; chip_smoke.py clips it to the image
+        # for its points); the bytes bound it
+        flops, nbytes = 2.0 * (2 * r + 1) ** 2 * n, 4.0 * h * w + 9.0 * n
+        row(f"#4 {name} sparse: the function", flops, "f32", nbytes)
+        # the first port's design: the same HBM bytes; each of the tiles'
+        # blocks reads all n points (from L2)
+        row(f"#4 {name} first port, {tiles} blocks x N", flops, "f32", nbytes,
+            tiles * 9.0 * n)
+        # the binned design (csrc/dmap.cu): the points read twice (count,
+        # scatter), the binned list (index, packed x y: 8 bytes a point)
+        # written once and read once, each tile's count and end written and
+        # read, the map written once; each splat block reads the segments of
+        # the 9 tiles around it (from L2)
+        row(f"#4 {name} as redesigned (binned)", flops, "f32",
+            4.0 * h * w + 2 * 9.0 * n + 2 * 8.0 * n + 4 * 4.0 * tiles, 9 * 8.0 * n)
 
 if __name__ == "__main__":
     main()

@@ -224,6 +224,82 @@ def test_dmap_kernel_rejects_what_it_cannot_take(cuda):
         dmap.gaussian_density(pts.to(cuda), mask.to(cuda), 10, 10, sigma=40.0)
 
 
+def _dmap_binned_case(kind, h, w, n, seed):
+    """Points of kernel #4's timed and edge shapes (chip_smoke.py's
+    DMAP_CASES): uniform in the image; 50 Gaussian blobs of sigma 40-120 px
+    plus 10% uniform; all inside the tile at (320, 320); or _dmap_points."""
+    if kind == "border":
+        return _dmap_points(h, w, n, seed)
+    g = torch.Generator().manual_seed(seed)
+    size = torch.tensor([w - 1.0, h - 1.0])
+    if kind == "uniform":
+        pts = torch.rand(n, 2, generator=g) * size
+    elif kind == "clustered":
+        k = n - n // 10
+        centres = torch.rand(50, 2, generator=g) * size
+        spread = 40.0 + 80.0 * torch.rand(50, 1, generator=g)
+        blob = torch.randint(50, (k,), generator=g)
+        pts = torch.cat([centres[blob] + spread[blob] * torch.randn(k, 2, generator=g),
+                         torch.rand(n - k, 2, generator=g) * size])
+        pts = torch.minimum(pts.clamp_min(0.0), size)
+    else:
+        pts = 320.0 + 31.99 * torch.rand(n, 2, generator=g)
+    return pts, torch.ones(n, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("case", [
+    ("S1", 768, 1024, 1024, "uniform", 4.0, 7 / 4),
+    ("S2", 2048, 3072, 25000, "clustered", 4.0, 7 / 4),
+    ("overflow_tile", 768, 1024, 4096, "one_tile", 4.0, 7 / 4),
+    ("radius_63", 768, 1024, 1024, "border", 16.0, 3.95)], ids=lambda c: c[0])
+def test_dmap_kernel_binned_cases_match_plain_bit_for_bit(cuda, case):
+    """Kernel #4 at the 768x1024 frame, at 2048x3072 with 25,000 clustered
+    points, with 4,096 points in one tile (more than a splat block's
+    buffer: rounds) and at radius 63 (windows two tiles each way): against
+    its plain version (atol 1e-5, rtol 1e-4), and a second call bit for bit
+    (no float atomics)."""
+    from dgvcc_tpu_torch.ops import dmap
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, h, w, n, kind, sigma, truncate = case
+    pts, mask = _dmap_binned_case(kind, h, w, n, seed=n + h)
+    pts, mask = pts.to(cuda), mask.to(cuda)
+    before = dmap.LAUNCHES
+    out = dmap.gaussian_density(pts, mask, h, w, sigma, truncate)
+    again = dmap.gaussian_density(pts, mask, h, w, sigma, truncate)
+    torch.cuda.synchronize()
+    assert dmap.LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    ref = dmap.gaussian_density_reference(pts, mask, h, w, sigma, truncate)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("sigma", [8.0, 2.0])
+def test_dmap_cli_cuda_backend_writes_radius_7_at_any_sigma(cuda, tmp_path, sigma, capsys):
+    """dmap_cli's default backend (kernel #4) writes the numpy golden's maps,
+    radius 7 whatever --sigma (truncate 7 / sigma)."""
+    import numpy as np
+    from PIL import Image
+
+    from dgvcc_tpu_torch.data import dmap_cli
+    from dgvcc_tpu_torch.ops import dmap
+
+    (tmp_path / "train").mkdir()
+    rng = np.random.default_rng(3)
+    shapes = {"a": (48, 64), "b": (70, 33)}
+    for name, (h, w) in shapes.items():
+        Image.fromarray(np.zeros((h, w, 3), np.uint8)).save(tmp_path / "train" / f"{name}.jpg")
+        pts = rng.uniform(-3, [w + 3, h + 3], (25, 2)).astype(np.float32)
+        np.save(tmp_path / "train" / f"{name}.npy", pts)
+    dmap_cli.main(["--path", str(tmp_path), "--phases", "train", "--sigma", str(sigma)])
+    assert "2 of 2 images done" in capsys.readouterr().out
+    for name, (h, w) in shapes.items():
+        got = np.load(tmp_path / "train" / f"{name}_dmap.npy")
+        want = dmap.gaussian_density_fixed_np(
+            (h, w), np.load(tmp_path / "train" / f"{name}.npy"), sigma)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,p,k,s", [(2, 437, 16, 32), (2, 437, 16, 1001),
                                      (3, 437, 256, 1001), (16, 6400, 256, 1024)])

@@ -7,7 +7,11 @@ Tolerances: the plain version and the CPU wrapper against
 splat). The port's own copies of the numpy goldens equal the JAX
 package's exactly (the same numpy code), and so do the maps its
 ``dmap_cli --backend numpy`` writes; ``--backend cpu`` writes the plain
-version's maps, held to the JAX CLI's at the tolerance above.
+version's maps, held to the JAX CLI's at the tolerance above, also at
+--sigma 8 and 2 (radius 7, truncate 7 / sigma). The CPU model of the
+kernel's binning (``gaussian_density_binned_reference``: tile reach,
+rounds, point order) is held to ``gaussian_density_jax`` and the numpy
+splat at the same tolerance.
 """
 
 import os
@@ -64,6 +68,74 @@ def test_plain_version_and_cpu_wrapper_match_jax(case):
     np.testing.assert_allclose(got.numpy(), golden, **TOL)
 
 
+def _tile_border_points(h, w):
+    """Points on the 32-pixel tile borders (either side, and just short of
+    the next), a few in (-1, 0), and a few just outside the image."""
+    xs = [0.0, 31.0, 31.99, 32.0, 63.5, 64.0, w - 1.0, w - 0.01]
+    ys = [0.0, 31.0, 32.0, 63.99, h - 1.0]
+    grid = [[x, y] for x in xs for y in ys]
+    edge = [[-0.4, 31.5], [32.0, -0.7], [w + 0.2, 5.0], [5.0, float(h)], [-1.2, 3.0]]
+    pts = np.array(grid + edge, np.float32)
+    return pts, np.ones(len(pts), bool)
+
+
+def _one_tile_points(n, seed):
+    """n points whose centres all lie in the tile of columns and rows 32..63."""
+    pts = 32.0 + 31.99 * np.random.default_rng(seed).random((n, 2))
+    return pts.astype(np.float32), np.ones(n, bool)
+
+
+# (h, w, points and mask, sigma, truncate, capacity)
+BINNED_CASES = {
+    "tile_borders": lambda: (70, 100, _tile_border_points(70, 100), 4.0, 7 / 4, dmap.CAPACITY),
+    "border_outside_negative": lambda: (61, 83, _points(61, 83, 60, seed=1), 4.0, 7 / 4,
+                                        dmap.CAPACITY),
+    "masked_pad_rows": lambda: (40, 52, _points(40, 52, 48, seed=2, masked=16), 4.0, 7 / 4,
+                                dmap.CAPACITY),
+    "no_points": lambda: (17, 23, _points(17, 23, 0, seed=3), 4.0, 7 / 4, dmap.CAPACITY),
+    "one_row_image": lambda: (1, 30, _points(1, 30, 12, seed=4), 4.0, 7 / 4, dmap.CAPACITY),
+    "radius_63": lambda: (150, 170, _points(150, 170, 80, seed=5), 16.0, 3.95, dmap.CAPACITY),
+    "overflow_tile": lambda: (70, 100, _one_tile_points(dmap.CAPACITY + 52, seed=6), 4.0,
+                              7 / 4, dmap.CAPACITY),
+    "overflow_small_buffer": lambda: (61, 83, _points(61, 83, 60, seed=7), 4.0, 7 / 4, 5),
+}
+
+
+@pytest.mark.parametrize("case", list(BINNED_CASES))
+def test_binned_model_matches_jax_and_golden(case):
+    """The CPU model of the kernel's binning (tile reach, rounds, point
+    order) against gaussian_density_jax and the numpy splat, at TOL."""
+    h, w, (pts, mask), sigma, truncate, capacity = BINNED_CASES[case]()
+    stats = {}
+    got = dmap.gaussian_density_binned_reference(
+        torch.from_numpy(pts), torch.from_numpy(mask), h, w, sigma, truncate,
+        capacity=capacity, stats=stats)
+    want_jax = np.asarray(jdmap.gaussian_density_jax(pts, mask, h, w, sigma, truncate))
+    kept = pts[mask].astype(np.int64)
+    golden = jdmap._splat_np((h, w), kept, [sigma] * len(kept), [truncate] * len(kept))
+    assert got.shape == (h, w) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want_jax, **TOL)
+    np.testing.assert_allclose(got.numpy(), golden, **TOL)
+    assert stats["kept"] <= capacity
+    if case == "radius_63":
+        assert dmap.scipy_radius(sigma, truncate) == dmap.MAX_RADIUS == 63
+        assert stats["reach"] == 2  # a window spans two tiles on each side
+    if case.startswith("overflow"):
+        assert stats["rounds"] >= 2  # more candidates than the buffer: rounds
+    if case == "no_points":
+        assert not got.any()
+
+
+def test_binned_model_sums_in_point_order_whatever_the_bin_order():
+    """The scatter leaves each tile's segment in any order; sorting by point
+    index makes the map the same bit for bit."""
+    pts, mask = _points(64, 96, 300, seed=8, masked=20)
+    maps = [dmap.gaussian_density_binned_reference(torch.from_numpy(pts),
+                                                   torch.from_numpy(mask), 64, 96, seed=s)
+            for s in (0, 1, 2)]
+    assert torch.equal(maps[0], maps[1]) and torch.equal(maps[0], maps[2])
+
+
 def test_masked_rows_and_outside_points_contribute_nothing():
     pts = np.array([[10.0, 10.0], [50.0, 50.0], [70.0, 3.0], [-1.2, 9.0]], np.float32)
     mask = np.array([True, False, True, True])
@@ -113,13 +185,13 @@ def canonical_root(tmp_path):
     return tmp_path
 
 
-def _jax_cli_maps(root):
+def _jax_cli_maps(root, sigma=4.0):
     """The JAX CLI's numpy backend (its worker function), into a dict."""
     maps = {}
     for fn in sorted(glob(os.path.join(root, "*", "*.jpg"))):
         if "aug" in os.path.basename(fn):
             continue
-        jax_cli._process_numpy(fn, 4.0, overwrite=True)
+        jax_cli._process_numpy(fn, sigma, overwrite=True)
         maps[fn] = np.load(jax_cli._out_path(fn))
         os.remove(jax_cli._out_path(fn))
     return maps
@@ -145,6 +217,18 @@ def test_cli_backends_write_the_jax_clis_maps(canonical_root, backend, capsys):
     # existing maps are kept unless --overwrite
     dmap_cli.main(argv)
     assert "0 of 4 images done" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("sigma", [8.0, 2.0])
+def test_cli_cpu_backend_writes_radius_7_at_any_sigma(canonical_root, sigma, capsys):
+    """The JAX CLI's numpy worker spreads each head over radius 7 whatever
+    --sigma (truncate 7 / sigma, reference dmap_gen.py:79); so does every
+    backend of the port's CLI."""
+    want = _jax_cli_maps(str(canonical_root), sigma)
+    dmap_cli.main(["--path", str(canonical_root), "--backend", "cpu", "--sigma", str(sigma)])
+    assert "4 of 4 images done" in capsys.readouterr().out
+    for fn, w in want.items():
+        np.testing.assert_allclose(np.load(dmap_cli._out_path(fn)), w, **TOL)
 
 
 def test_cli_cuda_backend_needs_the_card_and_native_is_not_ported(canonical_root):

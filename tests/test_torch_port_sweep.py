@@ -197,3 +197,27 @@ def test_sass_counts_are_taken_body_by_body():
     assert cs.wgmma_tma_faults(rows, 2) == ["1 function bodies, expected 2"]
     assert cs.sass_counts(SASS, "mat_fwd_bf16")[
         "_ZN12_GLOBAL__N_112mat_fwd_bf16ILi256EEEvPK13__nv_bfloat16"]["HMMA"] == 1
+
+
+def test_sweep_dmap_imports_each_trees_own_kernel_module(tmp_path):
+    """scripts/sweep_dmap.py compares the density-map kernel of two trees in
+    one process: each load must give that tree's module (and so its own
+    csrc/dmap.cu and build directory), and leave sys.modules as it was."""
+    import shutil
+    import sys
+
+    shutil.copytree(os.path.join(REPO, "dgvcc_tpu_torch"), tmp_path / "dgvcc_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    sweep = _sweep("sweep_dmap")
+    before = {k: v for k, v in sys.modules.items() if k.startswith("dgvcc_tpu_torch")}
+    try:
+        other = sweep.load_tree(str(tmp_path))
+        here = sweep.load_tree(REPO)
+    finally:
+        for k in [k for k in sys.modules if k.startswith("dgvcc_tpu_torch")]:
+            del sys.modules[k]
+        sys.modules.update(before)
+    assert other.__file__.startswith(str(tmp_path))
+    assert here.__file__.startswith(REPO) and not here.__file__.startswith(str(tmp_path))
+    assert other is not here and other._build is not here._build
+    assert other._build.BUILD_DIR == tmp_path / "build" / "torch_ext"

@@ -23,6 +23,10 @@ Phases, each of which exits non-zero on failure:
    under a mixed objective and under the consistency loss alone;
    each in bf16 and f32, plus an awkward size; the forward also with views
    that agree to 0.1, 0.01 and 0.001 (loss_con, q, two calls bit for bit);
+   then data/device_pipeline.py (device_aug, no kernel of its own): a B=16
+   batch of 384x384 pre-crops with injected draws against the same draws
+   on the CPU (1e-5), each gate's share over 4096 samples within 4 sigma
+   of its probability, and the device time of one call;
 3. serve full-width DGModel ``final`` (VGG16-BN, 1024x256 bank, seeded
    random weights, bf16, fused_mem=True) through VideoCounter: 768x1024
    frames by count_frames (B=4) and stream (4 batches of 16), a
@@ -55,13 +59,21 @@ Phases, each of which exits non-zero on failure:
 6. from files to a trained model: write a dataset in the canonical layout
    (40 JPEGs of 768x1024 with 50 to 600 head points each), make its
    density maps with ``python -m dgvcc_tpu_torch.data.dmap_cli`` (one
-   kernel #4 launch per image; three maps against the numpy golden), then
-   ``DGTrainer.train_and_test`` with configs/sta_final.yml pointed there
-   for 2 epochs: kernels #2/#3 once per train step, kernel #1 in every
-   validation and test forward and no einsum-path bank forward, finite
-   losses and MAE, the JAX trainer's log.txt lines, ``last`` / ``best_*``
-   checkpoints that VideoCounter strict-loads, and ``--task test`` from the
-   best checkpoint on the command line printing the in-process MAE / MSE.
+   kernel #4 launch per image; three maps against the numpy golden), time
+   each part of a sample's host work (median ms, and how 8 threads
+   scale it), then ``DGTrainer.train_and_test`` with configs/sta_final.yml
+   pointed there for 2 epochs, three ways (FILE_RUNS: A threads and host
+   augmentation; B device_aug, ema 0.999, async_save; C process workers):
+   kernels #2/#3 once per train step, kernel #1 in every validation and
+   test forward and no einsum-path bank forward, finite losses and MAE,
+   the JAX trainer's log.txt lines, ``last`` / ``best_*`` checkpoints; in
+   B the counter serves the sidecar's EMA shadow; in A VideoCounter
+   strict-loads both and ``--task test`` from the best checkpoint on the
+   command line prints the in-process MAE / MSE;
+7. configs/tpu/sta_final_bigcrop.yml at full width (B=8 two-view 512^2
+   crops, remat, accum_steps 4) on a repeated synthetic batch: parameters
+   unchanged after micro steps 1-3 and 5-7, moved after 4 and 8, #2 and #3
+   once per micro step; ms per micro step and per update, peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -404,15 +416,15 @@ def bound(flops, nbytes, peak_flops):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def synthetic_batch(seed):
-    """Two views of 16 crops (the second a perturbed copy, as augmented
-    views are), a density map of about 20 heads a crop (box-blurred points)
-    and its foreground map at stride 16, NCHW on the card."""
+def synthetic_batch(seed, b=TRAIN_B, crop=TRAIN_CROP):
+    """Two views of b crops (the second a perturbed copy, as augmented
+    views are), a density map of about 20 heads a 320^2 crop (box-blurred
+    points) and its foreground map at stride 16, NCHW on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (TRAIN_B, 3, TRAIN_CROP, TRAIN_CROP)
+    shape = (b, 3, crop, crop)
     img1 = torch.randn(shape, generator=g, device="cuda")
     img2 = img1 + 0.25 * torch.randn(shape, generator=g, device="cuda")
-    heads = (torch.rand(TRAIN_B, 1, TRAIN_CROP, TRAIN_CROP, generator=g, device="cuda")
+    heads = (torch.rand(b, 1, crop, crop, generator=g, device="cuda")
              < 2e-4).float()
     dmap = torch.nn.functional.avg_pool2d(heads, 9, stride=1, padding=4)
     bmap = (torch.nn.functional.avg_pool2d(dmap, 16) > 0).float()
@@ -783,6 +795,136 @@ def time_dmap(dm, gpu):
                         for name, t in shapes.items()})
 
 
+AUG_B, AUG_PRE = 16, TRAIN_CROP + 64  # device_aug: B=16 pre-crops of 384 -> 320
+AUG_STAT_N = 4096                   # samples whose gates are counted
+TOL_AUG = 1e-5                      # the card's batch vs the CPU's, same draws
+
+
+def device_aug_phase(gpu):
+    """data/device_pipeline.py on the card: the batch with injected draws
+    against the same function on the CPU, the gates' shares over
+    AUG_STAT_N samples of one seeded generator, and the device time of one
+    B=16 call (logged)."""
+    from dgvcc_tpu_torch.data import device_pipeline as dp
+
+    g = torch.Generator(device="cuda").manual_seed(40)
+    frames = torch.randint(0, 256, (AUG_B, AUG_PRE, AUG_PRE, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    dmaps = torch.rand((AUG_B, AUG_PRE, AUG_PRE, 1), generator=g, device="cuda") * (
+        torch.rand((AUG_B, AUG_PRE, AUG_PRE, 1), generator=g, device="cuda") < 1e-3)
+    worst = 0.0
+    for seed in range(4):
+        draws = dp.draw_augmentation(AUG_B, AUG_PRE, AUG_PRE, TRAIN_CROP,
+                                     torch.Generator(device="cuda").manual_seed(seed))
+        got = dp.apply_augmentation(frames, dmaps, draws, TRAIN_CROP)
+        want = dp.apply_augmentation(frames.cpu(), dmaps.cpu(),
+                                     {k: v.cpu() for k, v in draws.items()}, TRAIN_CROP)
+        for k, w in want.items():
+            if got[k].shape != w.shape or got[k].dtype != w.dtype:
+                fail(f"device_aug {k}: {tuple(got[k].shape)} {got[k].dtype} on the card, "
+                     f"{tuple(w.shape)} {w.dtype} on the CPU")
+            worst = max(worst, (got[k].cpu() - w).abs().max().item())
+    log(f"device_aug B={AUG_B} {AUG_PRE}^2 -> {TRAIN_CROP}^2, 4 sets of draws: card vs CPU "
+        f"max_abs_err {worst:.3e} (tol {TOL_AUG})")
+    if not worst <= TOL_AUG:
+        fail("device_aug on the card disagrees with the same draws on the CPU")
+    draws = dp.draw_augmentation(AUG_STAT_N, AUG_PRE, AUG_PRE, TRAIN_CROP,
+                                 torch.Generator(device="cuda").manual_seed(41))
+    for name, p in dp.GATES.items():
+        share = draws[name].float().mean().item()
+        sigma = math.sqrt(p * (1 - p) / AUG_STAT_N)
+        log(f"device_aug gate {name}: share {share:.4f} over {AUG_STAT_N} (p {p}, 4 sigma "
+            f"{4 * sigma:.4f})")
+        if abs(share - p) > 4 * sigma:
+            fail(f"device_aug gate {name}: share {share} is not within 4 sigma of {p}")
+    for name, (lo, hi) in dp.JITTER_RANGES.items():
+        v = draws[name]
+        if not (lo <= v.min().item() and v.max().item() <= hi):
+            fail(f"device_aug factor {name} leaves [{lo}, {hi}]")
+    for k in ("i", "j"):
+        if draws[k].min().item() != 0 or draws[k].max().item() != AUG_PRE - TRAIN_CROP:
+            fail(f"device_aug crop offset {k} does not span 0..{AUG_PRE - TRAIN_CROP}")
+
+    gen = torch.Generator(device="cuda").manual_seed(42)
+
+    def call():
+        return dp.augment_two_view_batch(frames, dmaps, gen, TRAIN_CROP)
+
+    dev_ms, n_ops, _, method = device_ms_per_call(call, 20)
+    event_ms = cuda_ms(call, 20)
+    log(f"device_aug B={AUG_B} {AUG_PRE}^2 -> two views of {TRAIN_CROP}^2 on the card: device "
+        f"{dev_ms:.4f} ms a call ({method}; {n_ops} device activities a call), "
+        f"{event_ms:.4f} ms a call back to back [{gpu}]")
+
+
+BIG_MICRO = 8                       # bigcrop: micro steps checked, then timed
+
+
+def bigcrop_phase(mt, gpu):
+    """configs/tpu/sta_final_bigcrop.yml at full width: B=8 two-view 512^2
+    crops, remat, accum_steps 4, on a repeated synthetic batch. The
+    parameters hold still inside each window and move at its end; #2 and
+    #3 run on every micro step. Returns the training kernels' launches."""
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.config import load_config
+    from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+    from dgvcc_tpu_torch.train.state import create_train_state
+    from dgvcc_tpu_torch.train.steps import build_train_step
+
+    cfg = load_config(os.path.join(ROOT, "configs", "tpu", "sta_final_bigcrop.yml"))
+    accum = int(cfg.extra["accum_steps"])
+    b = cfg.train_loader["batch_size"]
+    crop = cfg.train_dataset["params"]["crop_size"]
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    model = MODELS.build(cfg.model["name"], dtype=dtype, **cfg.model.get("params", {}))
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    state = create_train_state(model, cfg.optimizer, cfg.scheduler, accum_steps=accum)
+    step = build_train_step(model, LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {})),
+                            cfg.mode, cfg.log_para)
+    batch = synthetic_batch(2, b, crop)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    params = list(model.parameters())
+    log(f"bigcrop: sta_final_bigcrop.yml, {cfg.model['name']} remat="
+        f"{cfg.model['params'].get('remat')}, {dtype}, B={b} x2 views of {crop}^2, "
+        f"accum_steps {accum}")
+
+    # ---- the main path: counts set to 0 just before
+    mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    for k in range(1, BIG_MICRO + 1):
+        before = [p.detach().clone() for p in params]
+        _, metrics = step(state, batch, gen, 0)
+        changed = sum(not torch.equal(a, p) for a, p in zip(before, params))
+        loss = metrics["loss_total"].item()
+        log(f"bigcrop micro step {k}: loss_total {loss:.4f}, {changed} of {len(params)} "
+            f"parameters changed, state.step {state.step}, window {state.mini_step}/{accum}")
+        if not math.isfinite(loss):
+            fail(f"bigcrop micro step {k}: loss not finite")
+        if (k % accum == 0) != (changed > 0):
+            fail(f"bigcrop micro step {k}: parameters {'moved' if changed else 'held'} "
+                 f"where accum_steps {accum} says otherwise")
+    launches = (mt.FWD_LAUNCHES, mt.BWD_LAUNCHES)
+    log(f"bigcrop: {BIG_MICRO} micro steps launched #2 {launches[0]}x, #3 {launches[1]}x")
+    if launches != (BIG_MICRO, BIG_MICRO):
+        fail(f"bigcrop: {BIG_MICRO} micro steps launched the training kernels {launches} "
+             "times")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(BIG_MICRO):
+        step(state, batch, gen, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"bigcrop (B={b}x2 {crop}^2 {dtype}, remat, accum_steps {accum}): "
+        f"{1e3 * dt / BIG_MICRO:.3f} ms per micro step, {1e3 * dt * accum / BIG_MICRO:.3f} "
+        f"ms per update, peak memory {peak / 2**30:.3f} GiB [{gpu}]")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def write_dataset(root, seed=0):
     """The canonical layout: train 32, val 4, test 4 JPEGs of 768x1024 (a
     smooth random scene with noise) with 50 to 600 head points each."""
@@ -811,7 +953,9 @@ LOG_LINES = [re.compile(p) for p in (
     r"Start testing at .+", r"Testing results: mae: \d+\.\d{4} mse: \d+\.\d{4} ",
     r"Saving test model\.\.\.", r"Testing results saved to .+", r"End testing at .+",
     r"Best epoch: \d+, best criterion: \d+\.\d+", r"Training results saved to .+",
-    r"End training and testing at .+", r"Loading checkpoint from .+")]
+    r"End training and testing at .+", r"Loading checkpoint from .+",
+    r"EMA enabled: decay 0\.999 per optimizer update \(validation, test and vis use the "
+    r"averaged weights\)")]
 
 
 class TimedLoader:
@@ -826,6 +970,9 @@ class TimedLoader:
     def set_epoch(self, epoch):
         self.loader.set_epoch(epoch)
 
+    def close(self):
+        self.loader.close()
+
     def __iter__(self):
         it = iter(self.loader)
         while True:
@@ -838,20 +985,103 @@ class TimedLoader:
             yield item
 
 
-def files_phase(ma, mt, dm, gpu, step_ms_repeated):
-    """Phase 6: from files to a trained model. Returns kernel #4's launches
-    on its path (the dmap_cli run)."""
+# phase 6's runs on the same files: (label, config keys set over sta_final.yml)
+FILE_RUNS = (
+    ("A threads, host augmentation", {}),
+    ("B threads, device_aug, ema 0.999, async_save",
+     {"device_aug": True, "ema": 0.999, "async_save": True}),
+    ("C process workers, host augmentation",
+     {"train_loader": {"worker_mode": "process"}, "val_loader": {"worker_mode": "process"}}),
+)
+HOST_PART_SAMPLES = 40
+HOST_PART_THREADS = 8
+
+
+def host_parts(root):
+    """Where a sample's host time goes, for the den_cls train sample and
+    for RawCropDataset's: the median ms of each part over 40 samples, and
+    how far 8 threads running the part at once speed it up (about 1x: the
+    part holds the GIL)."""
     import glob
+    import random as pyrandom
+    from concurrent.futures import ThreadPoolExecutor
+
+    import dgvcc_tpu_torch.data  # noqa: F401
+    from dgvcc_tpu_torch.core.registry import DATASETS
+    from dgvcc_tpu_torch.data import transforms as T
+    from dgvcc_tpu_torch.data.datasets import RawCropDataset
+
+    ds = DATASETS.build("den_cls", method="train", root=root, crop_size=TRAIN_CROP,
+                        downsample=1, is_grey=False, unit_size=16, pre_resize=1)
+    ds.img_fns = sorted(glob.glob(os.path.join(root, "*", "*.jpg")))  # all 40
+    raw = RawCropDataset(ds, TRAIN_CROP + 64)
+    fns = ds.img_fns[:HOST_PART_SAMPLES]
+    loaded = []
+    for k, fn in enumerate(fns):
+        img, ext = ds._load_img(fn)
+        gt_fn, base = ds._gt_path(fn, ext)
+        loaded.append((fn, img, ds._load_gt(gt_fn), gt_fn, base,
+                       ds._load_dmap(gt_fn, base).astype(np.float32)))
+    crops = [ds._train_with_dmap(img, gt, d, pyrandom.Random(k), resize_enabled=False)
+             for k, (_, img, gt, _, _, d) in enumerate(loaded)]
+    samples = [ds.__getitem__(k, rng=pyrandom.Random(k)) for k in range(len(fns))]
+    raws = [raw.__getitem__(k, rng=pyrandom.Random(k)) for k in range(len(fns))]
+    batches = [samples[i:i + TRAIN_B] for i in range(0, len(samples) - TRAIN_B + 1, 8)]
+    raw_batches = [raws[i:i + TRAIN_B] for i in range(0, len(raws) - TRAIN_B + 1, 8)]
+
+    def pre_crop(k):
+        _, img, _, _, _, d = loaded[k]
+        pc = raw.pre_crop
+        rng = pyrandom.Random(k)
+        i, j = rng.randint(0, img.size[1] - pc), rng.randint(0, img.size[0] - pc)
+        return np.asarray(img.crop((j, i, j + pc, i + pc)), np.uint8), d[i:i + pc, j:j + pc]
+
+    parts = {
+        "den_cls": {
+            "JPEG decode": lambda k: ds._load_img(loaded[k][0]),
+            "dmap np.load": lambda k: ds._load_dmap(loaded[k][3], loaded[k][4]),
+            "crop, flip, normalise": lambda k: ds._train_with_dmap(
+                loaded[k][1], loaded[k][2], loaded[k][5], pyrandom.Random(k),
+                resize_enabled=False),
+            "photometric view": lambda k: T.to_tensor_normalize(
+                ds.photo(crops[k][1], pyrandom.Random(k))),
+            "whole sample": lambda k: ds.__getitem__(k, rng=pyrandom.Random(k)),
+            "collate of 16, per sample": lambda k: ds.collate(batches[k % len(batches)]),
+        },
+        "RawCropDataset": {
+            "JPEG decode": lambda k: ds._load_img(loaded[k][0]),
+            "dmap np.load": lambda k: ds._load_dmap(loaded[k][3], loaded[k][4]),
+            f"uint8 pre-crop {raw.pre_crop}": pre_crop,
+            "whole sample": lambda k: raw.__getitem__(k, rng=pyrandom.Random(k)),
+            "collate of 16, per sample": lambda k: raw.collate(raw_batches[k % len(raw_batches)]),
+        }}
+    out = {}
+    n = len(fns)
+    with ThreadPoolExecutor(HOST_PART_THREADS) as pool:
+        for dataset, fns_ in parts.items():
+            for part, fn in fns_.items():
+                per = TRAIN_B if part.startswith("collate") else 1
+                times = []
+                for k in range(n):
+                    t = time.perf_counter()
+                    fn(k)
+                    times.append(time.perf_counter() - t)
+                seq = sum(times)
+                t = time.perf_counter()
+                list(pool.map(fn, range(n)))
+                par = time.perf_counter() - t
+                out[dataset, part] = (1e3 * float(np.median(times)) / per, seq / par)
+    return out
+
+
+def files_phase(ma, mt, dm, gpu, step_ms_repeated):
+    """Phase 6: from files to a trained model, three ways (FILE_RUNS).
+    Returns kernel #4's launches on its path (the dmap_cli run) and the
+    training and eval kernels' launches in each run."""
     import shutil
     import tempfile
 
-    import yaml
-
-    from dgvcc_tpu_torch.core.config import Config
     from dgvcc_tpu_torch.data import dmap_cli
-    from dgvcc_tpu_torch.models.dg import MemoryBank
-    from dgvcc_tpu_torch.serve import VideoCounter
-    from dgvcc_tpu_torch.train.trainer import DGTrainer
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -895,112 +1125,164 @@ def files_phase(ma, mt, dm, gpu, step_ms_repeated):
             f"{FRAME[0]}x{FRAME[1]} (read points, upload, kernel, download, np.save) "
             f"[{gpu}]")
 
+        # ---- where a sample's host time goes
+        for (dataset, part), (ms, speedup) in host_parts(root).items():
+            log(f"host part, {dataset} {TRAIN_CROP}^2 from {FRAME[0]}x{FRAME[1]}: {part} "
+                f"{ms:.3f} ms (median of {HOST_PART_SAMPLES}); {HOST_PART_THREADS} threads "
+                f"at once {speedup:.2f}x one [{gpu}]")
+
         # ---- train_and_test with configs/sta_final.yml pointed at the files
         with open(os.path.join(ROOT, "configs", "sta_final.yml")) as f:
-            raw = yaml.safe_load(f)
+            import yaml
+
+            base = yaml.safe_load(f)
         for split in ("train", "val", "test"):
-            raw[f"{split}_dataset"] = dict(raw[f"{split}_dataset"], params=dict(
-                raw[f"{split}_dataset"]["params"], root=root))
-        raw.update(num_epochs=2, log_dir=os.path.join(tmp, "logs"))
-        cfg_path = os.path.join(tmp, "sta_final.yml")
-        with open(cfg_path, "w") as f:
-            yaml.safe_dump(raw, f)
-        trainer = DGTrainer(Config.from_dict(raw))
-        trainer.build()
-        n_val, n_test = len(trainer.loaders["val"]), len(trainer.loaders["test"])
-        steps = len(trainer.loaders["train"])
-        train_ld, val_ld = (TimedLoader(trainer.loaders[k]) for k in ("train", "val"))
-        trainer.loaders.update(train=train_ld, val=val_ld)
-        marks = {"epoch": [], "val": []}
-        run_epoch, run_val = trainer.train_epoch, trainer.validate
-
-        def timed_epoch(*a):
-            t, w = time.perf_counter(), train_ld.wait
-            r = run_epoch(*a)
-            marks["epoch"].append((t, time.perf_counter(), train_ld.wait - w))
-            return r
-
-        def timed_val(*a):
-            t, w = time.perf_counter(), val_ld.wait
-            r = run_val(*a)
-            marks["val"].append((t, time.perf_counter(), val_ld.wait - w))
-            return r
-
-        trainer.train_epoch, trainer.validate = timed_epoch, timed_val
-        einsum = [0]
-        bank_forward = MemoryBank.forward
-
-        def counting(self, y, mem):
-            einsum[0] += not self.fused
-            return bank_forward(self, y, mem)
-
-        MemoryBank.forward = counting
-        try:
-            # ---- the main path of this phase: counts set to 0 just before
-            ma.LAUNCHES = mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
-            trainer.train_and_test()
-            launches = {"memory_attention_fused": ma.LAUNCHES,
-                        "memory_attention_train_fwd": mt.FWD_LAUNCHES,
-                        "memory_attention_train_bwd": mt.BWD_LAUNCHES}
-        finally:
-            MemoryBank.forward = bank_forward
-        text = open(os.path.join(trainer.log_dir, "log.txt")).read()
-        n_tests = text.count("Testing results:")
-        log(f"train_and_test (sta_final.yml, 2 epochs x {steps} steps of B=16, val "
-            f"{n_val}, test {n_test} x {n_tests}): launches {launches}, einsum-path bank "
-            f"forwards {einsum[0]}")
-        if launches["memory_attention_train_fwd"] != 2 * steps or \
-                launches["memory_attention_train_bwd"] != 2 * steps:
-            fail(f"train: {2 * steps} steps launched the training kernels "
-                 f"{launches['memory_attention_train_fwd']} / "
-                 f"{launches['memory_attention_train_bwd']} times")
-        if launches["memory_attention_fused"] < 2 * n_val + n_tests * n_test or einsum[0]:
-            fail("eval: a validation or test forward did not go through kernel #1")
-        for line in text.splitlines():
-            if not any(p.fullmatch(line) for p in LOG_LINES):
-                fail(f"log.txt line not of the JAX trainer's shapes: {line!r}")
-        losses = [float(x) for x in re.findall(r"Training loss: (\S+)", text)]
-        maes = [float(x) for x in re.findall(r"Val criterion: (\S+)", text)]
-        log(f"train losses {losses}, val MAE {maes}")
-        if len(losses) != 2 or len(maes) != 2 or not all(map(math.isfinite, losses + maes)):
-            fail("train_and_test: a loss or val MAE is missing or not finite")
-
-        # ---- times, from the wrappers' marks
-        for e, ((t0, t1, tw), (v0, v1, vw)) in enumerate(zip(marks["epoch"], marks["val"])):
-            log(f"epoch {e}: {t1 - t0:.3f} s; train loop with the loader "
-                f"{1e3 * (v0 - t0) / steps:.3f} ms/step, of which waiting for the loader "
-                f"{1e3 * tw / steps:.3f} ({steps} steps; phase 5, repeated batch: "
-                f"{step_ms_repeated:.3f} ms/step); val {1e3 * (v1 - v0) / n_val:.3f} "
-                f"ms/image, of which waiting for the loader {1e3 * vw / n_val:.3f} ({n_val} "
-                f"of {FRAME[0]}x{FRAME[1]}); checkpoints and the rest "
-                f"{t1 - v1:.3f} s [{gpu}]")
-
-        # ---- checkpoints: strict loads, and --task test from best_* on the CLI
-        best = glob.glob(os.path.join(trainer.log_dir, "best_*.pth"))
-        last = os.path.join(trainer.log_dir, "last.pth")
-        if len(best) != 1 or not os.path.exists(last):
-            fail(f"checkpoints missing: last {os.path.exists(last)}, best {best}")
-        params = raw["model"]["params"]
-        for path in (last, best[0]):
-            VideoCounter.from_checkpoint("final", path, dtype=torch.bfloat16, **params)
-        log(f"VideoCounter.from_checkpoint strict-loaded {os.path.basename(last)} and "
-            f"{os.path.basename(best[0])}")
-        want = trainer.test(checkpoint=best[0])
-        out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", "--config", cfg_path,
-                              "--task", "test", "--ckpt", best[0]], capture_output=True,
-                             text=True, timeout=300, cwd=ROOT)
-        if out.returncode:
-            fail(f"CLI test exited {out.returncode}:\n{out.stderr[-3000:]}")
-        line = [ln for ln in out.stdout.splitlines() if ln.startswith("Testing results:")]
-        got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
-        log(f"CLI --task test {os.path.basename(best[0])}: {line[-1] if line else None}; "
-            f"in process: mae {want['mae']:.4f} mse {want['mse']:.4f}")
-        for k in ("mae", "mse"):
-            if k not in got or abs(float(got[k]) - want[k]) > TOL_CLI_TEST * max(want[k], 1.0):
-                fail(f"CLI --task test {k} {got.get(k)} != in-process {want[k]}")
-        return dmap_launches
+            base[f"{split}_dataset"] = dict(base[f"{split}_dataset"], params=dict(
+                base[f"{split}_dataset"]["params"], root=root))
+        base.update(num_epochs=2)
+        runs = {}
+        for i, (label, keys) in enumerate(FILE_RUNS):
+            raw = dict(base, log_dir=os.path.join(tmp, f"logs{i}"))
+            for k, v in keys.items():
+                raw[k] = dict(raw[k], **v) if isinstance(v, dict) else v
+            runs[label] = file_run(label, raw, tmp, ma, mt, gpu, step_ms_repeated, check=i == 0)
+        return dmap_launches, runs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def file_run(label, raw, tmp, ma, mt, gpu, step_ms_repeated, check):
+    """One 2-epoch DGTrainer.train_and_test on the files; with ``check``
+    also the checkpoints' strict loads and ``--task test`` on the command
+    line. Returns the kernels' launches of the run."""
+    import glob
+
+    import yaml
+
+    from dgvcc_tpu_torch.core.config import Config
+    from dgvcc_tpu_torch.models.dg import MemoryBank
+    from dgvcc_tpu_torch.serve import VideoCounter
+    from dgvcc_tpu_torch.train.checkpoint import sidecar_path
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    cfg_path = os.path.join(tmp, f"sta_final_{label[0]}.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    trainer = DGTrainer(Config.from_dict(raw))
+    t0 = time.perf_counter()
+    trainer.build()
+    log(f"[{label}] build (model, loaders and their workers, train state): "
+        f"{time.perf_counter() - t0:.3f} s [{gpu}]")
+    n_val, n_test = len(trainer.loaders["val"]), len(trainer.loaders["test"])
+    steps = len(trainer.loaders["train"])
+    train_ld, val_ld = (TimedLoader(trainer.loaders[k]) for k in ("train", "val"))
+    trainer.loaders.update(train=train_ld, val=val_ld)
+    marks = {"epoch": [], "val": []}
+    run_epoch, run_val = trainer.train_epoch, trainer.validate
+
+    def timed_epoch(*a):
+        t, w = time.perf_counter(), train_ld.wait
+        r = run_epoch(*a)
+        marks["epoch"].append((t, time.perf_counter(), train_ld.wait - w))
+        return r
+
+    def timed_val(*a):
+        t, w = time.perf_counter(), val_ld.wait
+        r = run_val(*a)
+        marks["val"].append((t, time.perf_counter(), val_ld.wait - w))
+        return r
+
+    trainer.train_epoch, trainer.validate = timed_epoch, timed_val
+    einsum = [0]
+    bank_forward = MemoryBank.forward
+
+    def counting(self, y, mem):
+        einsum[0] += not self.fused
+        return bank_forward(self, y, mem)
+
+    MemoryBank.forward = counting
+    try:
+        # ---- the main path of this run: counts set to 0 just before
+        ma.LAUNCHES = mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+        trainer.train_and_test()
+        launches = {"memory_attention_fused": ma.LAUNCHES,
+                    "memory_attention_train_fwd": mt.FWD_LAUNCHES,
+                    "memory_attention_train_bwd": mt.BWD_LAUNCHES}
+    finally:
+        MemoryBank.forward = bank_forward
+    text = open(os.path.join(trainer.log_dir, "log.txt")).read()
+    n_tests = text.count("Testing results:")
+    log(f"[{label}] train_and_test (sta_final.yml, 2 epochs x {steps} steps of B=16, val "
+        f"{n_val}, test {n_test} x {n_tests}): launches {launches}, einsum-path bank "
+        f"forwards {einsum[0]}")
+    if launches["memory_attention_train_fwd"] != 2 * steps or \
+            launches["memory_attention_train_bwd"] != 2 * steps:
+        fail(f"[{label}] {2 * steps} steps launched the training kernels "
+             f"{launches['memory_attention_train_fwd']} / "
+             f"{launches['memory_attention_train_bwd']} times")
+    if launches["memory_attention_fused"] < 2 * n_val + n_tests * n_test or einsum[0]:
+        fail(f"[{label}] a validation or test forward did not go through kernel #1")
+    for line in text.splitlines():
+        if not any(p.fullmatch(line) for p in LOG_LINES):
+            fail(f"[{label}] log.txt line not of the JAX trainer's shapes: {line!r}")
+    losses = [float(x) for x in re.findall(r"Training loss: (\S+)", text)]
+    maes = [float(x) for x in re.findall(r"Val criterion: (\S+)", text)]
+    log(f"[{label}] train losses {losses}, val MAE {maes}")
+    if len(losses) != 2 or len(maes) != 2 or not all(map(math.isfinite, losses + maes)):
+        fail(f"[{label}] a loss or val MAE is missing or not finite")
+
+    # ---- times, from the wrappers' marks
+    for e, ((t0, t1, tw), (v0, v1, vw)) in enumerate(zip(marks["epoch"], marks["val"])):
+        log(f"[{label}] epoch {e}: {t1 - t0:.3f} s; train loop with the loader "
+            f"{1e3 * (v0 - t0) / steps:.3f} ms/step, of which waiting for the loader "
+            f"{1e3 * tw / steps:.3f} ({steps} steps; phase 5, repeated batch: "
+            f"{step_ms_repeated:.3f} ms/step); val {1e3 * (v1 - v0) / n_val:.3f} "
+            f"ms/image, of which waiting for the loader {1e3 * vw / n_val:.3f} ({n_val} "
+            f"of {FRAME[0]}x{FRAME[1]}); checkpoints and the rest "
+            f"{t1 - v1:.3f} s [{gpu}]")
+
+    last = os.path.join(trainer.log_dir, "last.pth")
+    best = glob.glob(os.path.join(trainer.log_dir, "best_*.pth"))
+    if len(best) != 1 or not os.path.exists(last):
+        fail(f"[{label}] checkpoints missing: last {os.path.exists(last)}, best {best}")
+    params = raw["model"]["params"]
+    if raw.get("ema"):
+        # the EMA shadow of the sidecar is what a counter serves
+        shadow = torch.load(sidecar_path(last), map_location="cpu", weights_only=True)["ema"]
+        weights = torch.load(last, map_location="cpu", weights_only=True)
+        served = VideoCounter.from_checkpoint("final", last, dtype=torch.bfloat16,
+                                              **params).model.state_dict()
+        as_shadow = all(torch.equal(served[k].cpu(), v.to(served[k].dtype))
+                        for k, v in shadow.items())
+        moved = sum(not torch.equal(shadow[k], weights[k]) for k in shadow)
+        log(f"[{label}] VideoCounter.from_checkpoint({os.path.basename(last)}) serves the "
+            f"sidecar's EMA shadow: {as_shadow}; {moved} of {len(shadow)} parameters differ "
+            f"from the raw weights")
+        if not as_shadow or not moved:
+            fail(f"[{label}] the counter did not serve the EMA shadow, or the shadow "
+                 "equals the raw weights")
+    if not check:
+        return launches
+
+    # ---- checkpoints: strict loads, and --task test from best_* on the CLI
+    for path in (last, best[0]):
+        VideoCounter.from_checkpoint("final", path, dtype=torch.bfloat16, **params)
+    log(f"VideoCounter.from_checkpoint strict-loaded {os.path.basename(last)} and "
+        f"{os.path.basename(best[0])}")
+    want = trainer.test(checkpoint=best[0])
+    out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", "--config", cfg_path,
+                          "--task", "test", "--ckpt", best[0]], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    if out.returncode:
+        fail(f"CLI test exited {out.returncode}:\n{out.stderr[-3000:]}")
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("Testing results:")]
+    got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
+    log(f"CLI --task test {os.path.basename(best[0])}: {line[-1] if line else None}; "
+        f"in process: mae {want['mae']:.4f} mse {want['mse']:.4f}")
+    for k in ("mae", "mse"):
+        if k not in got or abs(float(got[k]) - want[k]) > TOL_CLI_TEST * max(want[k], 1.0):
+            fail(f"CLI --task test {k} {got.get(k)} != in-process {want[k]}")
+    return launches
 
 
 def check_counts(name, got, want, want_label="einsum path"):
@@ -1119,6 +1401,7 @@ def main():
                                              for e in NEAR_EPS)}
     dmap_err = check_dmap(dm)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    device_aug_phase(gpu)
 
     # ---- 3. serve the main path -------------------------------------------
     torch.backends.cudnn.benchmark = True
@@ -1216,10 +1499,27 @@ def main():
     train_launches, train_times, step_ms = train_phase(mt, gpu)
 
     # ---- 6. from files to a trained model ----------------------------------
-    dmap_launches = files_phase(ma, mt, dm, gpu, step_ms)
+    dmap_launches, file_launches = files_phase(ma, mt, dm, gpu, step_ms)
+
+    # ---- 7. sta_final_bigcrop.yml: accum_steps 4 at 512^2 ------------------
+    big_launches = bigcrop_phase(mt, gpu)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
-    # ---- 7. result --------------------------------------------------------
+    # ---- 8. result --------------------------------------------------------
+    # each path's launches, from its own run (counts set to 0 just before)
+    by_path = {"serving": {"memory_attention_fused": launches},
+               "train step (phase 5)": {"memory_attention_train_fwd": train_launches[0],
+                                        "memory_attention_train_bwd": train_launches[1]},
+               **{f"files {label}": n for label, n in file_launches.items()},
+               "bigcrop accum_steps 4": {"memory_attention_train_fwd": big_launches[0],
+                                         "memory_attention_train_bwd": big_launches[1]}}
+
+    def total(name):
+        return sum(n.get(name, 0) for n in by_path.values())
+
+    def paths(name):
+        return {path: n[name] for path, n in by_path.items() if name in n}
+
     t4 = times[4]
     train_shape = {"B": TRAIN_B, "P": TRAIN_P, "K": K, "S": S, "views": 2,
                    "dtype": "bfloat16"}
@@ -1228,7 +1528,8 @@ def main():
         "name": "memory_attention_fused", "route": "cuda",
         "source": "dgvcc_tpu_torch/csrc/mem_attention.cu",
         "replaces": "dgvcc_tpu/ops/mem_attention.py:59",
-        "launches": launches, "ok": True,
+        "launches": total("memory_attention_fused"),
+        "launches_by_path": paths("memory_attention_fused"), "ok": True,
         "max_abs_err": err_bf16, "max_err": err_bf16, "max_abs_err_f32": err_f32,
         "max_abs_err_edges": err_edges, "ptxas_k256": ptxas_k256, "sass": sass,
         "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
@@ -1238,7 +1539,8 @@ def main():
         "shape": {"B": 4, "P": P, "K": K, "S": S, "dtype": "bfloat16"}}, {
         "name": "memory_attention_train_fwd", "route": "cuda", "source": source,
         "replaces": "dgvcc_tpu/ops/mem_attention_train.py:134",
-        "launches": train_launches[0], "ok": True,
+        "launches": total("memory_attention_train_fwd"),
+        "launches_by_path": paths("memory_attention_train_fwd"), "ok": True,
         "max_abs_err": train_bf16["out"], "max_err": train_bf16["out"],
         "max_abs_err_f32": train_f32["out"], "out_rel_norm_err": train_bf16["out_rel"],
         "loss_con_rel_err": train_bf16["con_rel"],
@@ -1248,7 +1550,8 @@ def main():
         **train_times["fwd"], "library_ms": None, "shape": train_shape}, {
         "name": "memory_attention_train_bwd", "route": "cuda", "source": source,
         "replaces": "dgvcc_tpu/ops/mem_attention_train.py:177",
-        "launches": train_launches[1], "ok": True,
+        "launches": total("memory_attention_train_bwd"),
+        "launches_by_path": paths("memory_attention_train_bwd"), "ok": True,
         "max_abs_err": train_bf16["dy"], "max_err": train_bf16["dy"],
         "max_abs_err_f32": train_f32["dy"], "dy_rel_norm_err": train_bf16["dy_rel"],
         "dm_rel_norm_err": train_bf16["dm_rel"],
@@ -1257,7 +1560,8 @@ def main():
         "name": "gaussian_density", "route": "cuda",
         "source": "dgvcc_tpu_torch/csrc/dmap.cu",
         "replaces": "dgvcc_tpu/ops/dmap.py:247",
-        "launches": dmap_launches, "ok": True,
+        "launches": dmap_launches, "launches_by_path": {"dmap_cli": dmap_launches},
+        "ok": True,
         "max_abs_err": dmap_err, "max_err": dmap_err, **dmap_times,
         "shape": {"H": FRAME[0], "W": FRAME[1], "N": 1024, "sigma": 4.0, "radius": 7,
                   "dtype": "float32"}}]}))

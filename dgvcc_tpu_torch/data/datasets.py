@@ -8,9 +8,10 @@ package's order, so one seed gives the same samples bit for bit.
 
 Registered: ``den`` (``DensityMapDataset``) and ``den_cls``
 (``DenClsDataset``), plus ``jhu_domain`` / ``jhu_domain_cls`` in
-``data/jhu.py``. The Bayesian-loss datasets (``bay``, ``jhu_domain_bay``)
-and the device-augmentation ``RawCropDataset`` are not ported: a config
-naming one raises with a pointer to ROADMAP.md.
+``data/jhu.py``. ``RawCropDataset`` wraps a ``den`` / ``den_cls`` train
+split for the trainer's ``device_aug``. The Bayesian-loss datasets
+(``bay``, ``jhu_domain_bay``) are not ported: a config naming one raises
+with a pointer to ROADMAP.md.
 
 Kept from the JAX package, on purpose: ``den`` loads ``{name}_dmap.npy``
 (what ``data/dmap_cli.py`` writes) with a ``_dmap2`` fallback.
@@ -313,11 +314,55 @@ class DenClsDataset(DensityMapDataset):
         return out
 
 
+class RawCropDataset:
+    """The host's share of the ``device_aug`` path: JPEG decode, the density
+    map's load and one uint8 pre-crop of ``pre_crop`` (padded to it, as
+    the den datasets pad, when the image is smaller), nothing else. The
+    final crop, flip, greyscale, second view and foreground map run
+    batched on the card (``data/device_pipeline.py``). A pre-crop larger
+    than the crop leaves the card room for its own random crop.
+
+    Samples draw from the loader's ``random.Random``, in the JAX
+    ``RawCropDataset``'s order, so one seed gives its batches bit for bit.
+    """
+
+    def __init__(self, base: DensityMapDataset, pre_crop: int):
+        self.base = base
+        self.pre_crop = pre_crop
+        self.img_fns = base.img_fns
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, index, rng: Optional[random.Random] = None):
+        rng = rng or random
+        b = self.base
+        img_fn = b.img_fns[index]
+        img, img_ext = b._load_img(img_fn)
+        gt_fn, basename = b._gt_path(img_fn, img_ext)
+        dmap = b._load_dmap(gt_fn, basename).astype(np.float32)
+        w, h = img.size
+        pc = self.pre_crop
+        if w < pc or h < pc:
+            padding, h, w = get_padding(h, w, pc, pc)
+            img = T.pil_pad(img, padding)
+            dmap = T.np_pad_hw(dmap, padding)
+        i, j = random_crop(h, w, pc, pc, rng)
+        img = img.crop((j, i, j + pc, i + pc))
+        dmap = dmap[i : i + pc, j : j + pc]
+        return {"frames_u8": np.asarray(img, np.uint8), "dmaps": dmap[..., None]}
+
+    @staticmethod
+    def collate(samples):
+        return {"frames_u8": np.stack([s["frames_u8"] for s in samples]),
+                "dmaps": np.stack([s["dmaps"] for s in samples])}
+
+
 def _not_ported(name):
     def build(**_):
         raise NotImplementedError(
             f"dataset {name!r} is not ported to dgvcc_tpu_torch yet: it feeds the "
-            "Bayesian loss, ROADMAP.md Queue 1 item 6")
+            "Bayesian loss, ROADMAP.md Queue 1 item 4")
     DATASETS.register(name, build)
 
 

@@ -7,25 +7,59 @@ epoch's order is ``np.random.RandomState((seed * 1_000_003 + epoch) %
 as the JAX package's loader, bit for bit, whatever the worker count.
 
 Batches are numpy dicts (NHWC images); the trainer moves them to the
-card. ``drop_last`` defaults to ``shuffle``, as in the JAX package. Workers
-are threads (PIL decode and numpy release the GIL); the JAX package's
-``worker_mode: process`` and multi-host sampler are not ported
-(ROADMAP.md, Queue 1 item 9).
+card. ``drop_last`` defaults to ``shuffle``, as in the JAX package.
+
+``worker_mode``: ``thread`` (the default; PIL decode and numpy release the
+GIL, the Python between them does not) or ``process``: a ``fork`` pool
+that inherits the dataset and maps ``(seed_key, index)`` to samples with
+``imap``, one sample a task, a batch at a time with ``prefetch`` batches
+in flight as the thread workers have, in order, so its batches are the
+thread loader's. ``start()`` forks the workers ahead of the first epoch; the
+trainer calls it before its model goes to the card, where the parent is
+small and has no CUDA context yet. A worker touches no CUDA and no
+tensor in any case: samples are numpy, built by PIL and numpy only. It
+goes back to the default SIGTERM and ignores SIGINT, so ``close()`` (also
+called by ``__del__`` and at the end of the trainer's runs) can end it
+whatever handler the trainer installed. The JAX package's multi-host
+sampler belongs to parallelism (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations
 
+import multiprocessing as mp
 import random
+import signal
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
 import numpy as np
 
+WORKER_MODES = ("thread", "process")
+
+# the dataset of a process worker, set in the worker by _init_worker
+_worker_dataset = None
+
+
+def _init_worker(dataset):
+    global _worker_dataset
+    _worker_dataset = dataset
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+
+
+def _process_fetch(args):
+    seed_key, index = args
+    return _worker_dataset.__getitem__(index, rng=random.Random(seed_key))
+
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 0, drop_last: Optional[bool] = None,
-                 seed: int = 0, collate=None, prefetch: int = 2):
+                 seed: int = 0, collate=None, prefetch: int = 2,
+                 worker_mode: str = "thread"):
+        self._pool = None
+        if worker_mode not in WORKER_MODES:
+            raise ValueError(f"worker_mode {worker_mode!r}: not one of {WORKER_MODES}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -34,6 +68,7 @@ class DataLoader:
         self.seed = seed
         self.collate = collate if collate is not None else type(dataset).collate
         self.prefetch = prefetch
+        self.worker_mode = worker_mode
         self.epoch = 0
 
     def __len__(self):
@@ -52,9 +87,29 @@ class DataLoader:
             rs.shuffle(idx)
         return idx
 
+    def _seed_key(self, index: int) -> str:
+        return f"{self.seed}:{self.epoch}:{int(index)}"
+
     def _fetch(self, index: int):
-        rng = random.Random(f"{self.seed}:{self.epoch}:{int(index)}")
-        return self.dataset.__getitem__(int(index), rng=rng)
+        return self.dataset.__getitem__(int(index), rng=random.Random(self._seed_key(index)))
+
+    def start(self):
+        """Fork the process workers now (a no-op for threads or no workers)."""
+        if self.worker_mode == "process" and self.num_workers > 0 and self._pool is None:
+            ctx = mp.get_context("fork")
+            self._pool = ctx.Pool(self.num_workers, initializer=_init_worker,
+                                  initargs=(self.dataset,))
+        return self._pool
+
+    def close(self):
+        """End the process workers (a later epoch starts new ones)."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+
+    def __del__(self):
+        self.close()
 
     def __iter__(self) -> Iterator:
         idx = self._indices()
@@ -64,16 +119,27 @@ class DataLoader:
             for b in batches:
                 yield self._assemble([self._fetch(i) for i in b])
             return
+        if self.worker_mode == "process":
+            pool = self.start()
+            yield from self._pipelined(batches, lambda b: pool.imap(
+                _process_fetch, [(self._seed_key(i), int(i)) for i in b]), list)
+            return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            # keep `prefetch` batches in flight beyond the one being read
-            pending = []
-            bi = 0
-            while bi < len(batches) or pending:
-                while bi < len(batches) and len(pending) <= self.prefetch:
-                    pending.append([pool.submit(self._fetch, i) for i in batches[bi]])
-                    bi += 1
-                futs = pending.pop(0)
-                yield self._assemble([f.result() for f in futs])
+            yield from self._pipelined(
+                batches, lambda b: [pool.submit(self._fetch, i) for i in b],
+                lambda futs: [f.result() for f in futs])
+
+    def _pipelined(self, batches, submit, result):
+        """Batches in order, keeping ``prefetch`` of them in flight beyond
+        the one being read (so a process pool buffers a few batches, not
+        the epoch)."""
+        pending = []
+        bi = 0
+        while bi < len(batches) or pending:
+            while bi < len(batches) and len(pending) <= self.prefetch:
+                pending.append(submit(batches[bi]))
+                bi += 1
+            yield self._assemble(result(pending.pop(0)))
 
     def _assemble(self, samples):
         if self.batch_size == 1 and "name" in samples[0]:
@@ -85,11 +151,6 @@ def build_loader(dataset, spec: dict, seed: int = 0, collate=None) -> DataLoader
     """``spec`` is the reference's {train,val,test}_loader YAML block;
     ``pin_memory`` is accepted and unused (the trainer pins what it
     uploads)."""
-    mode = spec.get("worker_mode", "thread")
-    if mode != "thread":
-        raise NotImplementedError(
-            f"worker_mode {mode!r} is not ported to dgvcc_tpu_torch yet (threads "
-            "only); see ROADMAP.md, Queue 1 item 9")
     return DataLoader(
         dataset,
         batch_size=spec.get("batch_size", 1),
@@ -99,4 +160,5 @@ def build_loader(dataset, spec: dict, seed: int = 0, collate=None) -> DataLoader
         seed=seed,
         collate=collate,
         prefetch=spec.get("prefetch", 2),
+        worker_mode=spec.get("worker_mode", "thread"),
     )

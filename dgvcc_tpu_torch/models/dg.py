@@ -181,6 +181,7 @@ class DGModel(nn.Module):
         self.batched_two_view, self.remat = batched_two_view, remat
 
         cfg = tuple(VGG16_CFG if vgg_cfg is None else vgg_cfg)
+        self.vgg_cfg, self.stage_splits = cfg, tuple(stage_splits)
         s0, s1, s2, s3 = stage_splits
         n = len(feature_layout(cfg, True))
         if not (0 <= s0 < s1 < s2 < s3 <= n):
@@ -335,8 +336,8 @@ class DGModel(nn.Module):
 
 
 # the model params of the reference YAML configs; `pretrained` (a
-# weight-loading flag) and `tp_axis` (tensor parallelism, ROADMAP.md
-# Queue 1) are not taken
+# weight-loading flag, read by the trainer) and `tp_axis` (tensor
+# parallelism, ROADMAP.md Queue 1 item 5) are not taken
 _PARAM_NAMES = ("mem_size", "mem_dim", "den_dropout", "cls_dropout",
                 "cls_thrs", "err_thrs", "has_err_loss", "fused_mem",
                 "fused_mem_train", "batched_two_view", "remat", "vgg_cfg",

@@ -15,6 +15,10 @@ so this module needs neither JAX nor flax:
     -> ``den_head.0``; ``cls_conv1`` / ``cls_conv2`` -> ``cls_head.0`` /
     ``cls_head.2``;
   * ``memory/mem`` (K, S) -> ``mem`` (1, K, S).
+
+``install_pretrained`` puts a torchvision ``vgg16_bn`` state_dict into a
+DGModel's ``enc1/enc2/enc3`` (the JAX package's
+``nn/torch_io.py::load_pretrained_backbone`` for the DG family).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from dgvcc_tpu_torch.nn.vgg import VGG16_CFG, feature_layout
 
 _BLOCKS = {"den_dec": "den_dec.0", "den_head": "den_head.0",
            "cls_conv1": "cls_head.0", "cls_conv2": "cls_head.2"}
@@ -90,3 +96,40 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     return dict(sd)
+
+
+DG_FAMILY = ("base", "mem", "memadd", "cls", "memcls", "final")
+# vgg16_bn features[:23] / [23:33] / [33:43] (reference models.py:36-38)
+VGG16_BN_STAGES = (("enc1", 0, 23), ("enc2", 23, 33), ("enc3", 33, 43))
+
+
+def vgg16_bn_to_dg(tv: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """torchvision ``vgg16_bn`` keys ``features.{i}.*`` -> the DGModel's
+    ``enc{1,2,3}.{i - lo}.*``: conv weight and bias, BN weight, bias and
+    running statistics."""
+    sd: Dict[str, torch.Tensor] = {}
+    fields = {"conv": ("weight", "bias"),
+              "bn": ("weight", "bias", "running_mean", "running_var")}
+    for enc, lo, hi in VGG16_BN_STAGES:
+        for kind, idx, _ in feature_layout(VGG16_CFG, True):
+            if lo <= idx < hi and kind in fields:
+                for f in fields[kind]:
+                    sd[f"{enc}.{idx - lo}.{f}"] = tv[f"features.{idx}.{f}"].float()
+    return sd
+
+
+def install_pretrained(model: torch.nn.Module, model_name: str,
+                       weights: Mapping[str, str]) -> str:
+    """Install the pretrained backbone of ``weights`` ({name: .pth path})
+    that ``model_name`` has a mapping for; returns what was installed, or
+    "no pretrained mapping". A checkpoint of other widths raises."""
+    if model_name in DG_FAMILY and "vgg16_bn" in weights:
+        sd = vgg16_bn_to_dg(load_reference_pth(weights["vgg16_bn"]))
+        unexpected = sorted(set(sd) - set(model.state_dict()))
+        if unexpected:
+            raise ValueError(f"{model_name}'s encoder is not vgg16_bn's layout: no "
+                             f"{unexpected[:3]}")
+        with torch.no_grad():
+            model.load_state_dict(sd, strict=False)
+        return "vgg16_bn → enc1/2/3"
+    return "no pretrained mapping"

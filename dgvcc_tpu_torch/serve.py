@@ -11,15 +11,16 @@ Usage:
     for c in counter.stream(frame_batches):       # pipelined streaming
         ...
 
-Only the full-precision path is ported: int8 (``quantize``), a device
-mesh (``mesh`` / ``shard``), ``auto_threshold`` and ``from_artifact``
-raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+Only the full-precision path is ported: a device mesh (``mesh`` /
+``shard``) and ``auto_threshold`` raise ``NotImplementedError`` (ROADMAP.md,
+Queue 1 item 1), as do int8 (``quantize``) and ``from_artifact`` (item 6).
 """
 
 from __future__ import annotations
 
 import collections
 import math
+import os
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
@@ -28,6 +29,8 @@ import torch
 from dgvcc_tpu_torch.core.registry import MODELS
 
 _NOT_PORTED = "is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1"
+_SERVING_EXTRAS = f"{_NOT_PORTED} item 1"
+_INT8 = f"{_NOT_PORTED} item 6"
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -63,6 +66,30 @@ class _Pending:
         return self.host.numpy().copy()
 
 
+def serving_state_dict(path: str, model: torch.nn.Module):
+    """(state_dict in the reference layout, whether it is the EMA shadow)
+    of checkpoint ``path`` for ``model``: the shadow where the checkpoint
+    keeps one (the port's sidecar, a JAX ``ema_params``), the raw weights
+    otherwise."""
+    from dgvcc_tpu_torch.nn.convert import dg_state_dict_from_flax, load_reference_pth
+    from dgvcc_tpu_torch.train.checkpoint import JAX_SUFFIX, sidecar_path
+    from dgvcc_tpu_torch.train.jax_ckpt import read_jax_checkpoint
+
+    if path.endswith(JAX_SUFFIX):
+        loaded = read_jax_checkpoint(path)
+        ema = "ema_params" in loaded
+        return dg_state_dict_from_flax(loaded["ema_params" if ema else "params"],
+                                       loaded.get("batch_stats", {}),
+                                       model.stage_splits), ema
+    sd = load_reference_pth(path)
+    side = sidecar_path(path)
+    shadow = (torch.load(side, map_location="cpu", weights_only=True).get("ema")
+              if os.path.exists(side) else None)
+    if shadow:
+        sd.update(shadow)
+    return sd, bool(shadow)
+
+
 class VideoCounter:
     """Batched, shape-bucketed crowd counting over raw uint8 frames."""
 
@@ -72,11 +99,11 @@ class VideoCounter:
                  tile_threshold: int = 4096, mesh=None, shard: str = "batch",
                  auto_threshold: Optional[int] = None, device="cuda"):
         if quantize:
-            raise NotImplementedError(f"int8 serving (quantize) {_NOT_PORTED}")
+            raise NotImplementedError(f"int8 serving (quantize) {_INT8}")
         if mesh is not None or shard != "batch":
-            raise NotImplementedError(f"mesh / spatial serving {_NOT_PORTED}")
+            raise NotImplementedError(f"mesh / spatial serving {_SERVING_EXTRAS}")
         if auto_threshold is not None:
-            raise NotImplementedError(f"auto_threshold {_NOT_PORTED}")
+            raise NotImplementedError(f"auto_threshold {_SERVING_EXTRAS}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         if self.device.type == "cuda":
@@ -100,21 +127,21 @@ class VideoCounter:
                         mesh=None, shard: str = "batch", bucket: int = 64,
                         auto_threshold: Optional[int] = None, device="cuda",
                         seed: int = 0, **model_params):
-        """A counter for ``model_name`` with the weights of ``ckpt_path``
-        (a reference DGVCC ``.pth`` or one the port saved, same layout),
-        or without one, random weights from ``seed``."""
+        """A counter for ``model_name`` with the weights of ``ckpt_path``,
+        strict-loaded, or without one, random weights from ``seed``.
+        ``ckpt_path``: a reference DGVCC ``.pth`` or one the port saved
+        (same layout; the EMA shadow of its training-state sidecar, when
+        there is one, in place of the raw parameters), or the JAX package's
+        ``.ckpt`` (its ``ema_params`` when present)."""
         import dgvcc_tpu_torch.models  # noqa: F401
-        from dgvcc_tpu_torch.nn.convert import load_reference_pth
 
         resolve_device(device)
         model = MODELS.build(model_name, dtype=dtype, **model_params)
-        if ckpt_path and str(ckpt_path).endswith((".pth", ".pt")):
-            model.load_state_dict(load_reference_pth(ckpt_path), strict=True)
-        elif ckpt_path:
-            raise NotImplementedError(
-                f"checkpoint {ckpt_path!r}: the JAX package's msgpack "
-                f"checkpoints {_NOT_PORTED} (export a .pth with "
-                "`python -m dgvcc_tpu.cli.main --task export`)")
+        if ckpt_path:
+            sd, ema = serving_state_dict(str(ckpt_path), model)
+            if ema:
+                print("[serve ckpt] using EMA-averaged weights")
+            model.load_state_dict(sd, strict=True)
         else:
             model.reset_parameters(torch.Generator().manual_seed(seed))
         return cls(model, log_para=log_para, dtype=dtype, quantize=quantize,
@@ -124,7 +151,7 @@ class VideoCounter:
 
     @classmethod
     def from_artifact(cls, path: str, **kwargs):
-        raise NotImplementedError(f"int8 serving artifacts {_NOT_PORTED}")
+        raise NotImplementedError(f"int8 serving artifacts {_INT8}")
 
     # ---- device-side steps ------------------------------------------------
 

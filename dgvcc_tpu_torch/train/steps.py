@@ -10,8 +10,8 @@ Modes (reference dgtrainer.py:149-204):
     cls     — density + 10x BCE on the foreground classifier
     final   — forward_train → den + 10*BCE + con_weight*consistency
               (the error loss is computed, reported and not added)
-Mode ``isw`` and the Bayesian loss are not ported (ROADMAP.md, Queue 1
-item 6).
+Mode ``isw`` (ROADMAP.md, Queue 1 item 2) and the Bayesian loss (item 4)
+are not ported.
 """
 
 from __future__ import annotations
@@ -53,12 +53,12 @@ def build_loss_fn(model: torch.nn.Module, loss, mode: str, log_para: float,
     to 0)."""
     if mode == "isw":
         raise NotImplementedError("mode 'isw' is not ported to dgvcc_tpu_torch yet; "
-                                  "see ROADMAP.md, Queue 1 item 6")
+                                  "see ROADMAP.md, Queue 1 item 2")
     if mode not in MODES:
         raise ValueError(f"Unknown mode: {mode}")
     if getattr(loss, "kind", "mse") != "mse":
         raise NotImplementedError("only the 'mse' count loss is ported; the Bayesian "
-                                  "loss is ROADMAP.md, Queue 1 item 6")
+                                  "loss is ROADMAP.md, Queue 1 item 4")
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator, epoch: int = 0):
         model.train()
@@ -111,18 +111,18 @@ def build_train_step(model: torch.nn.Module, loss, mode: str, log_para: float,
                      loss_fn: Optional[Callable] = None,
                      con_weight: float = 10.0) -> Callable:
     """Returns step(state, batch, generator, epoch=0) -> (state, metrics):
-    gradients of the mode's loss, one optimizer update (the state
-    is updated in place and returned). The metrics are detached device
-    tensors, so a step never waits for the card; read them when needed
-    (the trainer reads the loss once per epoch)."""
+    gradients of the mode's loss, then ``state.apply_gradients()``: one
+    optimizer update, or one micro step of an accumulation window, and
+    the EMA (the state is updated in place and returned). The metrics are
+    detached device tensors, so a step never waits for the card; read
+    them when needed (the trainer reads the loss once per epoch)."""
     loss_fn = loss_fn or build_loss_fn(model, loss, mode, log_para, con_weight)
 
     def step(state: TrainState, batch: Dict[str, Any], generator, epoch: int = 0):
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(batch, generator, epoch)
         total.backward()
-        state.optimizer.step()
-        state.step += 1
+        state.apply_gradients()
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

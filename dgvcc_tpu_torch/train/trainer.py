@@ -19,17 +19,43 @@ On the card:
   * checkpoints are ``.pth`` state_dicts in the reference layout with a
     training-state sidecar (``train/checkpoint.py``), so resume is exact;
   * the dropout draws of epoch e come from a generator seeded from (seed,
-    e), so a resumed epoch draws what the uninterrupted run drew.
+    e), so a resumed epoch draws what the uninterrupted run drew; so do
+    the ``device_aug`` draws, from a stream of their own.
+
+The JAX trainer's extra config keys:
+  * ``device_aug: true``: the host ships uint8 pre-crops of crop + 64
+    (``RawCropDataset``, through pinned memory and a non-blocking copy)
+    and the two-view augmentation runs batched on the card
+    (``data/device_pipeline.py``); needs an MSE-mode den / den_cls set;
+  * ``accum_steps: k``, ``ema: d``: gradient accumulation and EMA shadow
+    weights (``train/state.py``); validation, test and vis evaluate the
+    shadow;
+  * ``async_save: true``: checkpoints written by a background thread
+    (``train/checkpoint.py::AsyncWriter``), flushed at the end of train,
+    test and train_and_test, also when they raise;
+  * ``pretrained_weights: {vgg16_bn: path}``: a torchvision state_dict
+    into enc1/enc2/enc3 when the model's ``pretrained`` param is true (the
+    default); the EMA shadow restarts from it;
+  * ``profile_epoch: N``: a ``torch.profiler`` trace of epoch N's train
+    loop (CPU and CUDA activities) under ``{log_dir}/trace``.
+
+``train`` stops cleanly on SIGTERM / SIGINT (a flag set by a handler in
+the main thread, the previous handlers restored after): a stop between
+epochs finishes the epoch as usual; a stop inside one returns with
+``last`` at epoch - 1, as it was when that epoch ended, so a resume redoes
+the stopped epoch exactly.
 
 Config keys of modules not ported raise with a pointer to ROADMAP.md
-(``UNPORTED_KEYS``, ``UNPORTED_MODES``), as does ``pretrained_weights``.
+(``UNPORTED_KEYS``, ``UNPORTED_MODES``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import math
 import os
+import signal
 import time
 from typing import Optional
 
@@ -40,10 +66,13 @@ from dgvcc_tpu_torch.core.config import Config
 from dgvcc_tpu_torch.core.logging import RunLogger
 from dgvcc_tpu_torch.core.registry import DATASETS, LOSSES, MODELS
 from dgvcc_tpu_torch.core.tb import ScalarWriter
+from dgvcc_tpu_torch.data.datasets import DensityMapDataset, RawCropDataset
+from dgvcc_tpu_torch.data.device_pipeline import augment_two_view_batch
 from dgvcc_tpu_torch.data.loader import build_loader
+from dgvcc_tpu_torch.nn.convert import install_pretrained
 from dgvcc_tpu_torch.ops.tiling import TiledCounter
 from dgvcc_tpu_torch.serve import resolve_device
-from dgvcc_tpu_torch.train.checkpoint import CheckpointRotator, load_checkpoint
+from dgvcc_tpu_torch.train.checkpoint import AsyncWriter, CheckpointRotator, load_checkpoint
 from dgvcc_tpu_torch.train.state import create_train_state
 from dgvcc_tpu_torch.train.steps import build_train_step
 from dgvcc_tpu_torch.utils.misc import (AverageMeter, DictAvgMeter, denormalize,
@@ -51,17 +80,16 @@ from dgvcc_tpu_torch.utils.misc import (AverageMeter, DictAvgMeter, denormalize,
 
 # extra keys of the JAX trainer whose modules are not ported, and where
 # ROADMAP.md lists them
-UNPORTED_KEYS = {
-    "device_aug": "Queue 1 item 5 (data on device)",
-    "accum_steps": "Queue 1 item 8 (training extras)",
-    "ema": "Queue 1 item 8 (training extras)",
-    "async_save": "Queue 1 item 8 (training extras)",
-    "test_quantized": "Queue 1 item 8 (int8)",
-    "profile_epoch": "Queue 1 item 9",
-    "pretrained_weights": "Queue 1 item 9",
-}
-UNPORTED_MODES = ("isw", "joint", "generation", "regression", "discrimination")
+UNPORTED_KEYS = {"test_quantized": "Queue 1 item 6 (int8)"}
+# modes and model families not ported: their Queue 1 item in ROADMAP.md
+UNPORTED_MODES = {"isw": 2, "joint": 3, "generation": 3, "regression": 3,
+                  "discrimination": 3}
+FAMILY_ITEMS = {**dict.fromkeys(("sw", "sw_vgg", "sw_densenet", "ibn", "ibn_densenet",
+                                 "isw"), 2),
+                **dict.fromkeys(("dgnet", "dgnet_cls", "gen", "gen0", "reg", "reg_mem"), 3)}
 BATCH_KEYS = ("img1", "img2", "dmap", "bmap")
+# the draws of device_aug: a stream apart from the dropout draws
+AUG_STREAM = 7_919_000_003
 
 
 def config_device(cfg: Config, override: Optional[str] = None) -> str:
@@ -82,10 +110,11 @@ def check_ported(cfg: Config):
     if any(int(v) > 1 for v in (cfg.mesh or {}).values()):
         raise NotImplementedError("config key 'mesh' (multi-device training) is not "
                                   "ported to dgvcc_tpu_torch yet; see ROADMAP.md, "
-                                  "Queue 1 item 7")
+                                  "Queue 1 item 5")
     if cfg.mode in UNPORTED_MODES:
         raise NotImplementedError(f"mode {cfg.mode!r} is not ported to dgvcc_tpu_torch "
-                                  "yet; see ROADMAP.md, Queue 1 item 6")
+                                  f"yet; see ROADMAP.md, Queue 1 item "
+                                  f"{UNPORTED_MODES[cfg.mode]}")
 
 
 class DGTrainer:
@@ -96,7 +125,10 @@ class DGTrainer:
         seed_everything(cfg.seed)
         self.log_dir = os.path.join(cfg.log_dir, cfg.version)
         self.logger = RunLogger(self.log_dir)
-        self.rotator = CheckpointRotator(self.log_dir)
+        # `async_save: true`: the epoch loop pays a clone on the card, a
+        # background thread the host copy and the disk
+        self.ckpt_writer = AsyncWriter() if cfg.extra.get("async_save") else None
+        self.rotator = CheckpointRotator(self.log_dir, writer=self.ckpt_writer)
         # `tensorboard: true` adds TB scalars under {log_dir}/tb, additive to
         # log.txt; a no-op (and no extra readback) when off
         self.tb = ScalarWriter(os.path.join(self.log_dir, "tb"),
@@ -106,6 +138,9 @@ class DGTrainer:
         self.patch_size = cfg.patch_size
         self._resume = None
         self._built = False
+        self._preempted = False
+        # the epoch of the newest `last` this trainer saved or resumed from
+        self._last_epoch = None
 
     # ---- construction ----------------------------------------------------
 
@@ -125,9 +160,10 @@ class DGTrainer:
         import dgvcc_tpu_torch.models  # noqa: F401
 
         if cfg.model["name"] not in MODELS:
+            item = FAMILY_ITEMS.get(cfg.model["name"], 4)
             raise NotImplementedError(f"model {cfg.model['name']!r} is not ported to "
                                       "dgvcc_tpu_torch yet (the DG family is); see "
-                                      "ROADMAP.md, Queue 1 item 6")
+                                      f"ROADMAP.md, Queue 1 item {item}")
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         params = dict(cfg.model.get("params", {}))
         if params.pop("tp_axis", None) is not None:
@@ -136,18 +172,41 @@ class DGTrainer:
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
         self.loss = LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
 
+        self.device_aug = bool(cfg.extra.get("device_aug"))
+        self._train_crop = None
         self.loaders = {}
         for split in ("train", "val", "test"):
             spec = getattr(cfg, f"{split}_dataset")
             if spec is None:
                 continue
             ds = DATASETS.build(spec["name"], method=split, **spec.get("params", {}))
+            if split == "train" and self.device_aug:
+                kind = getattr(self.loss, "kind", "mse")
+                if not isinstance(ds, DensityMapDataset) or kind != "mse":
+                    raise ValueError("device_aug needs an MSE-mode den / den_cls train "
+                                     f"dataset, not {spec['name']!r} with the {kind!r} loss")
+                self._train_crop = int(spec.get("params", {}).get("crop_size", 320))
+                ds = RawCropDataset(ds, pre_crop=self._train_crop + 64)
             self.loaders[split] = build_loader(ds, getattr(cfg, f"{split}_loader") or {},
                                                seed=cfg.seed)
+            # process workers fork before the model reaches the card
+            self.loaders[split].start()
 
+        ema = float(cfg.extra.get("ema", 0) or 0)
         self.state = create_train_state(self.model, cfg.optimizer, cfg.scheduler,
-                                        device=self.device)
+                                        device=self.device,
+                                        accum_steps=int(cfg.extra.get("accum_steps", 1) or 1),
+                                        ema=ema)
+        if ema:
+            self.log(f"EMA enabled: decay {ema} per optimizer update (validation, test "
+                     "and vis use the averaged weights)")
         self.scheduler = self.state.scheduler
+        # pretrained ImageNet backbones, `pretrained_weights: {vgg16_bn: path}`
+        weights = cfg.extra.get("pretrained_weights")
+        if weights and cfg.model.get("params", {}).get("pretrained", True):
+            desc = install_pretrained(self.model, cfg.model["name"], weights)
+            self.state.seed_ema()
+            self.log(f"Loaded pretrained backbone: {desc}")
         # the 'nocon' ablation zeroes the final-mode consistency weight
         con_weight = 0.0 if cfg.extra.get("no_consistency") else 10.0
         self.train_step = build_train_step(self.model, self.loss, self.mode,
@@ -157,23 +216,30 @@ class DGTrainer:
                                     device=self.device)
         self._built = True
 
-    def _epoch_generator(self, epoch: int) -> torch.Generator:
-        """Dropout draws of one epoch, seeded from (seed, epoch)."""
+    def _epoch_generator(self, epoch: int, stream: int = 0) -> torch.Generator:
+        """Dropout draws (stream 0) or augmentation draws (AUG_STREAM) of
+        one epoch, seeded from (seed, epoch)."""
         g = torch.Generator(device=self.device)
-        return g.manual_seed((self.cfg.seed * 1_000_003 + epoch + 1) % (2**63))
+        return g.manual_seed((self.cfg.seed * 1_000_003 + epoch + 1 + stream) % (2**63))
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """numpy -> the device, through pinned memory and a non-blocking copy."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     def _to_device(self, batch):
-        """NHWC numpy -> NCHW (channels-last) tensors on the device, through
-        pinned memory and a non-blocking copy."""
-        out = {}
-        for k in BATCH_KEYS:
-            if k not in batch:
-                continue
-            t = torch.from_numpy(batch[k])
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t.permute(0, 3, 1, 2)
-        return out
+        """NHWC numpy -> NCHW (channels-last) tensors on the device."""
+        return {k: self._upload(batch[k]).permute(0, 3, 1, 2) for k in BATCH_KEYS
+                if k in batch}
+
+    def _train_batch(self, batch, aug_generator):
+        if self.device_aug:
+            return augment_two_view_batch(self._upload(batch["frames_u8"]),
+                                          self._upload(batch["dmaps"]), aug_generator,
+                                          self._train_crop)
+        return self._to_device(batch)
 
     # ---- checkpoints -----------------------------------------------------
 
@@ -187,15 +253,19 @@ class DGTrainer:
             raise NotImplementedError(
                 "[gen_ckpt, reg_ckpt] checkpoint pairs belong to the joint and "
                 "generation modes, which are not ported to dgvcc_tpu_torch yet; see "
-                "ROADMAP.md, Queue 1 item 6")
+                "ROADMAP.md, Queue 1 item 3")
         self.log(f"Loading checkpoint from {path}")
         extra, warnings = load_checkpoint(path, self.state, strict=strict)
         for w in warnings[:10]:
             self.log(f"  [ckpt] {w}")
-        # exact resume: epoch, best and the scheduler from the sidecar
+        # exact resume: epoch, best and the scheduler from the sidecar (or
+        # the JAX checkpoint's extra)
         self._resume = extra if "epoch" in extra else None
         if self._resume and self.scheduler is not None and "scheduler" in self._resume:
             self.scheduler.load_state_dict(self._resume["scheduler"])
+        last = os.path.join(self.log_dir, "last.pth")
+        if self._resume and os.path.exists(last) and os.path.samefile(path, last):
+            self._last_epoch = int(self._resume["epoch"])
 
     def _ckpt_extra(self, epoch, best):
         extra = {"epoch": epoch, "best": best}
@@ -205,18 +275,60 @@ class DGTrainer:
 
     # ---- loops -------------------------------------------------------------
 
+    def _save_last(self, epoch: int, best: float):
+        self.rotator.save_last(self.state, self._ckpt_extra(epoch, best))
+        self._last_epoch = epoch
+
+    def _stop_mid_epoch(self, epoch: int, steps: int, best: float):
+        """A preemption seen before step ``steps`` of ``epoch``: ``last`` is
+        left at epoch - 1 as that epoch ended, so a resume redoes this one
+        exactly."""
+        if steps == 0:  # nothing of this epoch ran: the state is epoch - 1's
+            self._save_last(epoch - 1, best)
+            self.log(f"Preemption: saved last.pth at epoch {epoch - 1} (mid-epoch stop)")
+        elif self._last_epoch == epoch - 1:
+            self.log(f"Preemption: last.pth stays at epoch {epoch - 1} (mid-epoch stop; "
+                     f"the {steps} steps of epoch {epoch} are dropped)")
+        else:
+            self.log(f"Preemption: mid-epoch stop in epoch {epoch}, the first of this "
+                     f"run; nothing saved (the {steps} steps are dropped)")
+
+    @contextlib.contextmanager
+    def _profiling(self, epoch: int):
+        """`profile_epoch: N`: a torch.profiler trace of epoch N's train loop
+        under {log_dir}/trace."""
+        target = self.cfg.extra.get("profile_epoch")
+        if target is None or int(target) != epoch:
+            yield
+            return
+        trace_dir = os.path.join(self.log_dir, "trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.log(f"[profiler] tracing epoch {epoch} -> {trace_dir}")
+        with torch.profiler.profile(activities=activities) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(trace_dir, f"epoch{epoch}.pt.trace.json"))
+
     def train_epoch(self, epoch: int, best_criterion: float, best_epoch: int):
         start = time.time()
         self._epoch = epoch
         if self.scheduler is not None:
             self.state.set_learning_rate(self.scheduler.current_lr)
         generator = self._epoch_generator(epoch)
+        aug_generator = self._epoch_generator(epoch, AUG_STREAM) if self.device_aug else None
         train_loader = self.loaders["train"]
         train_loader.set_epoch(epoch)
         metrics = None
-        for batch in self._progress(train_loader, f"Epoch {epoch}: Training..."):
-            self.state, metrics = self.train_step(self.state, self._to_device(batch),
-                                                  generator, epoch)
+        with self._profiling(epoch):
+            for i, batch in enumerate(self._progress(train_loader,
+                                                     f"Epoch {epoch}: Training...")):
+                if self._preempted:
+                    self._stop_mid_epoch(epoch, i, best_criterion)
+                    return best_criterion, best_epoch
+                self.state, metrics = self.train_step(
+                    self.state, self._train_batch(batch, aug_generator), generator, epoch)
         # the loss is read back once per epoch: a per-batch read would
         # wait for the card every step
         train_loss = float(metrics["loss_total"]) if metrics is not None else float("nan")
@@ -247,22 +359,24 @@ class DGTrainer:
         if criterion < best_criterion:
             best_criterion = criterion
             best_epoch = epoch
-            self.rotator.save_last(self.state, self._ckpt_extra(epoch, best_criterion))
+            self._save_last(epoch, best_criterion)
             self.log(f"Epoch {epoch}: saving best model...")
             self.rotator.save_best(self.state, epoch, criterion)
         else:
-            self.rotator.save_last(self.state, self._ckpt_extra(epoch, best_criterion))
+            self._save_last(epoch, best_criterion)
         return best_criterion, best_epoch
 
     def validate(self, epoch: int, best_criterion: float) -> float:
         crit = AverageMeter()
         extra = DictAvgMeter()
         start = time.time()
-        for sample in self._progress(self.loaders["val"], f"Epoch {epoch}: Validating..."):
-            pred = self.counter.count(sample["img1"])
-            gt_count = float(len(sample["gt"]))
-            crit.update(abs(pred - gt_count))
-            extra.update({"mse": (pred - gt_count) ** 2})
+        with self.state.ema_weights():
+            for sample in self._progress(self.loaders["val"],
+                                         f"Epoch {epoch}: Validating..."):
+                pred = self.counter.count(sample["img1"])
+                gt_count = float(len(sample["gt"]))
+                crit.update(abs(pred - gt_count))
+                extra.update({"mse": (pred - gt_count) ** 2})
         self.log(f"Epoch {epoch}: Val criterion: {crit.avg:.4f}", end=" ")
         for k, v in extra.avg.items():
             self.log(f"{k}: {v:.4f}", end=" ")
@@ -297,31 +411,73 @@ class DGTrainer:
         self.load_ckpt(checkpoint if checkpoint is not None else self.cfg.checkpoint)
         start_epoch, best_criterion, best_epoch = self._resume_point()
         try:
-            for epoch in range(start_epoch, num_epochs or self.cfg.num_epochs):
-                best_criterion, best_epoch = self.train_epoch(epoch, best_criterion,
-                                                              best_epoch)
-                if self._early_stop(epoch, best_epoch, best_criterion):
-                    break
+            with self._graceful_shutdown():
+                for epoch in range(start_epoch, num_epochs or self.cfg.num_epochs):
+                    best_criterion, best_epoch = self.train_epoch(epoch, best_criterion,
+                                                                  best_epoch)
+                    if self._preempted:
+                        self.log(f"Preemption: stopped in or after epoch {epoch}; "
+                                 "resume from last.pth")
+                        break
+                    if self._early_stop(epoch, best_epoch, best_criterion):
+                        break
         finally:
+            # deferred saves reach the disk also when the loop raises
+            self.rotator.flush()
+            self._close_loaders()
             self.tb.close()
         self.log(f"Best epoch: {best_epoch}, best criterion: {best_criterion}")
         self.log(f"Training results saved to {self.log_dir}")
         self.log(f"End training at {get_current_datetime()}")
         return best_criterion, best_epoch
 
+    @contextlib.contextmanager
+    def _graceful_shutdown(self):
+        """SIGTERM / SIGINT only set ``_preempted`` inside: the epoch loop
+        stops at the next batch or after the epoch. Handlers are installed
+        from the main thread only, and the previous ones put back."""
+        self._preempted = False
+
+        def handler(signum, _frame):
+            self._preempted = True
+            self.log(f"Received signal {signum}: stopping at the next batch or after "
+                     "this epoch, with last.pth saved")
+
+        prev = {}
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    prev[sig] = signal.signal(sig, handler)
+                except ValueError:  # not the main thread: no handler possible
+                    pass
+            yield
+        finally:
+            for sig, h in prev.items():
+                signal.signal(sig, h)
+
+    def _close_loaders(self):
+        for loader in self.loaders.values():
+            loader.close()
+
     def test(self, checkpoint=None, loader=None):
         self.build()
         self.log(f"Start testing at {get_current_datetime()}")
         if checkpoint is not None:
             self.load_ckpt(checkpoint)
+        try:
+            return self._test(loader or self.loaders["test"])
+        finally:
+            self.rotator.flush()
+
+    def _test(self, loader):
         meter = DictAvgMeter()
         rows = []
-        for i, sample in enumerate(self._progress(loader or self.loaders["test"],
-                                                  "Testing...")):
-            pred = self.counter.count(sample["img1"])
-            gt_count = float(len(sample["gt"]))
-            meter.update({"mae": abs(pred - gt_count), "mse": (pred - gt_count) ** 2})
-            rows.append((str(sample.get("name", i)), gt_count, pred))
+        with self.state.ema_weights():
+            for i, sample in enumerate(self._progress(loader, "Testing...")):
+                pred = self.counter.count(sample["img1"])
+                gt_count = float(len(sample["gt"]))
+                meter.update({"mae": abs(pred - gt_count), "mse": (pred - gt_count) ** 2})
+                rows.append((str(sample.get("name", i)), gt_count, pred))
         if self.cfg.extra.get("test_report"):
             self._test_report(rows)
         self.log("Testing results:", end=" ")
@@ -360,13 +516,18 @@ class DGTrainer:
         self.log(f"Start training and testing at {get_current_datetime()}")
         self.load_ckpt(checkpoint if checkpoint is not None else self.cfg.checkpoint)
         start_epoch, best_criterion, best_epoch = self._resume_point()
-        for epoch in range(start_epoch, num_epochs or self.cfg.num_epochs):
-            prev = best_criterion
-            best_criterion, best_epoch = self.train_epoch(epoch, best_criterion, best_epoch)
-            if best_criterion < prev:
-                self.test()
-            if self._early_stop(epoch, best_epoch, best_criterion):
-                break
+        try:
+            for epoch in range(start_epoch, num_epochs or self.cfg.num_epochs):
+                prev = best_criterion
+                best_criterion, best_epoch = self.train_epoch(epoch, best_criterion,
+                                                              best_epoch)
+                if best_criterion < prev:
+                    self.test()
+                if self._early_stop(epoch, best_epoch, best_criterion):
+                    break
+        finally:
+            self.rotator.flush()
+            self._close_loaders()
         self.log(f"Best epoch: {best_epoch}, best criterion: {best_criterion}")
         self.log(f"Training results saved to {self.log_dir}")
         self.log(f"End training and testing at {get_current_datetime()}")
@@ -390,6 +551,12 @@ class DGTrainer:
         vis_dir = os.path.join(self.log_dir, "vis")
         os.makedirs(vis_dir, exist_ok=True)
         has_cls = getattr(self.model, "use_cls", False) and self.mode != "base"
+        with self.state.ema_weights():
+            self._vis(vis_dir, has_cls, plt)
+        self.log(f"Visualization results saved to {self.log_dir}")
+        self.log(f"End visualization at {get_current_datetime()}")
+
+    def _vis(self, vis_dir, has_cls, plt):
         for sample in self._progress(self.loaders["test"], "Visualizing..."):
             name = sample["name"]
             img1 = sample["img1"]
@@ -420,8 +587,6 @@ class DGTrainer:
                 ax.imshow(d)
             fig.savefig(os.path.join(vis_dir, f"{name}.png"))
             plt.close(fig)
-        self.log(f"Visualization results saved to {self.log_dir}")
-        self.log(f"End visualization at {get_current_datetime()}")
 
     def _cls_map(self, img):
         """Whole-image classifier map (stride 16, sigmoid probabilities)."""

@@ -448,3 +448,69 @@ def test_dg_forward_train_kernels_match_einsum_path(cuda):
         else:
             rel = ((gk - ge).norm() / ge.norm()).item()
             assert rel <= 1e-4, (n, rel)
+
+
+# ---- data on the card and the training extras (no kernel of their own):
+# the card's results against the same code on the CPU
+
+@pytest.mark.parametrize("b,pre,crop", [(16, 384, 320), (3, 200, 128)])
+def test_device_aug_on_the_card_matches_the_cpu(cuda, b, pre, crop):
+    """Injected draws: the batched augmentation on the card against the
+    CPU (f32, atol 1e-5: the card contracts a * b + c into FMAs)."""
+    from dgvcc_tpu_torch.data import device_pipeline as dp
+
+    g = torch.Generator(device=cuda).manual_seed(b + pre)
+    frames = torch.randint(0, 256, (b, pre, pre, 3), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    dmaps = torch.rand((b, pre, pre, 1), generator=g, device=cuda)
+    draws = dp.draw_augmentation(b, pre, pre, crop, g)
+    got = dp.apply_augmentation(frames, dmaps, draws, crop)
+    want = dp.apply_augmentation(frames.cpu(), dmaps.cpu(),
+                                 {k: v.cpu() for k, v in draws.items()}, crop)
+    for k, w in want.items():
+        assert got[k].is_contiguous(memory_format=torch.channels_last), k
+        torch.testing.assert_close(got[k].cpu(), w, atol=1e-5, rtol=0)
+
+
+def test_accumulation_ema_and_async_save_on_the_card(cuda, tmp_path):
+    """accum_steps 3 with EMA on the card: the parameters hold inside the
+    window, the card's update and shadow match the CPU's (1e-6), and an
+    async save written from the card equals a sync save."""
+    from dgvcc_tpu_torch.train.checkpoint import (AsyncWriter, CheckpointRotator,
+                                                  save_checkpoint, sidecar_path)
+    from dgvcc_tpu_torch.train.state import create_train_state
+
+    spec = {"name": "adamw", "params": {"lr": 1e-2, "weight_decay": 1e-2}}
+    states = []
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Conv2d(3, 8, 3), torch.nn.BatchNorm2d(8))
+        states.append(create_train_state(model, spec, device=dev, accum_steps=3, ema=0.9))
+    g = torch.Generator().manual_seed(1)
+    grads = [[torch.randn(p.shape, generator=g) for p in states[0].model.parameters()]
+             for _ in range(4)]
+    for m, gs in enumerate(grads, 1):
+        for st in states:
+            before = [p.detach().clone() for p in st.model.parameters()]
+            for p, x in zip(st.model.parameters(), gs):
+                p.grad = x.to(p.device)
+            st.apply_gradients()
+            held = all(torch.equal(a, p) for a, p in zip(before, st.model.parameters()))
+            assert held == (m != 3), m
+    for a, b in zip(states[0].model.parameters(), states[1].model.parameters()):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=1e-7, rtol=1e-6)
+    for k, e in states[0].ema_params.items():
+        torch.testing.assert_close(states[1].ema_params[k].cpu(), e, atol=1e-7, rtol=1e-6)
+    st = states[1]
+    writer = AsyncWriter()
+    CheckpointRotator(str(tmp_path), writer=writer).save_last(st, {"epoch": 1})
+    writer.close()
+    save_checkpoint(str(tmp_path / "sync.pth"), st, {"epoch": 1})
+    for a, b in ((tmp_path / "last.pth", tmp_path / "sync.pth"),
+                 (sidecar_path(str(tmp_path / "last.pth")),
+                  sidecar_path(str(tmp_path / "sync.pth")))):
+        x, y = torch.load(a, weights_only=True), torch.load(b, weights_only=True)
+        flat_x = x if "optimizer" not in x else {**x["ema"], **x["accum"]["acc_grads"]}
+        flat_y = y if "optimizer" not in y else {**y["ema"], **y["accum"]["acc_grads"]}
+        for k in flat_x:
+            assert torch.equal(flat_x[k], flat_y[k]), k

@@ -3,13 +3,20 @@ the CPU: datasets, transforms and loader (dgvcc_tpu_torch/data/), the
 host helpers (utils/misc.py) and TiledCounter (ops/tiling.py).
 
 The loaders must give the JAX loaders' batches bit for bit for one seed
-(the same seed keys, the same draws in the same order). TiledCounter's
+(the same seed keys, the same draws in the same order), with thread
+workers, with process workers (``worker_mode: process``) and for the
+``device_aug`` path's ``RawCropDataset``. Each test that starts a process
+pool runs under its own time limit (SIGALRM) and closes the pool in a
+``finally``. TiledCounter's
 counts and density maps are held to the JAX counter's on the same
 weights (carried by ``dg_state_dict_from_flax``) at rtol 1e-4 / atol
 1e-5: float32, other summation order.
 """
 
 import io
+import os
+import signal
+import time
 
 import numpy as np
 import pytest
@@ -19,14 +26,16 @@ from PIL import Image
 import dgvcc_tpu.data  # noqa: F401  (registers the JAX datasets)
 import dgvcc_tpu_torch.data  # noqa: F401  (registers the port's)
 from dgvcc_tpu.core.registry import DATASETS as JAX_DATASETS
+from dgvcc_tpu.data.datasets import RawCropDataset as JaxRawCropDataset
 from dgvcc_tpu.data.loader import build_loader as jax_build_loader
 from dgvcc_tpu.ops import tiling as jtiling
 from dgvcc_tpu.utils import misc as jmisc
 from dgvcc_tpu_torch.core.registry import DATASETS
+from dgvcc_tpu_torch.data.datasets import RawCropDataset
 from dgvcc_tpu_torch.data.loader import build_loader
 from dgvcc_tpu_torch.ops import dmap, tiling
 from dgvcc_tpu_torch.utils import misc
-from test_torch_port_helpers import dg_pair
+from test_torch_port_helpers import dg_pair, time_limit
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -100,12 +109,134 @@ def test_loaders_yield_the_jax_batches_bit_for_bit(data_root, name, split):
 
 
 def test_unported_datasets_and_worker_mode_point_to_the_roadmap(data_root):
+    """The Bayesian-loss datasets point to ROADMAP.md; a worker_mode other
+    than thread or process raises rather than falling back to threads."""
     for name in ("bay", "jhu_domain_bay"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DATASETS.build(name, method="train", **_params(data_root, "den"))
     ds = DATASETS.build("den", method="train", **_params(data_root, "den"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_loader(ds, {"batch_size": 2, "worker_mode": "process"})
+    with pytest.raises(ValueError, match="worker_mode 'processes'"):
+        build_loader(ds, {"batch_size": 2, "worker_mode": "processes"})
+
+
+def _epochs(loader, epochs=(0, 1)):
+    out = []
+    for epoch in epochs:
+        loader.set_epoch(epoch)
+        out.append(list(loader))
+    return out
+
+
+@pytest.mark.parametrize("split", ["train", "val"])
+@pytest.mark.parametrize("name", ["den_cls", "den", "jhu_domain_cls"])
+def test_process_loader_yields_the_thread_and_jax_batches(data_root, name, split):
+    spec = ({"batch_size": 2, "shuffle": True} if split == "train"
+            else {"batch_size": 1, "shuffle": False})
+    params = _params(data_root, name)
+    jl = jax_build_loader(JAX_DATASETS.build(name, method=split, **params),
+                          dict(spec, num_workers=0), seed=5)
+    tl = build_loader(DATASETS.build(name, method=split, **params),
+                      dict(spec, num_workers=2), seed=5)
+    pl = build_loader(DATASETS.build(name, method=split, **params),
+                      dict(spec, num_workers=2, worker_mode="process"), seed=5)
+    try:
+        with time_limit():
+            got = _epochs(pl)
+    finally:
+        pl.close()
+    for epoch, (want, threads, procs) in enumerate(zip(_epochs(jl), _epochs(tl), got)):
+        assert len(procs) == len(threads) == len(want) == len(pl) > 0
+        for i, (a, b, c) in enumerate(zip(want, threads, procs)):
+            _assert_same(a, c, f"{name} {split} epoch {epoch} batch {i} vs JAX")
+            _assert_same(b, c, f"{name} {split} epoch {epoch} batch {i} vs threads")
+
+
+@pytest.mark.parametrize("worker_mode", ["thread", "process"])
+@pytest.mark.parametrize("pre_crop", [40, 72])
+def test_raw_crop_batches_match_jax(data_root, pre_crop, worker_mode):
+    """device_aug's host share: the uint8 pre-crop and its density map,
+    padded where the image is smaller (72 pads every image, 40 some)."""
+    params = _params(data_root, "den_cls")
+    spec = {"batch_size": 3, "shuffle": True}
+    jl = jax_build_loader(JaxRawCropDataset(JAX_DATASETS.build("den_cls", method="train",
+                                                               **params), pre_crop),
+                          dict(spec, num_workers=0), seed=8)
+    pl = build_loader(RawCropDataset(DATASETS.build("den_cls", method="train", **params),
+                                     pre_crop),
+                      dict(spec, num_workers=2, worker_mode=worker_mode), seed=8)
+    try:
+        with time_limit():
+            got = _epochs(pl)
+    finally:
+        pl.close()
+    for epoch, (want, batches) in enumerate(zip(_epochs(jl), got)):
+        assert len(batches) == len(want) == 2
+        for i, (a, b) in enumerate(zip(want, batches)):
+            _assert_same(a, b, f"raw crop {pre_crop} epoch {epoch} batch {i}")
+            assert b["frames_u8"].shape == (3, pre_crop, pre_crop, 3)
+            assert b["frames_u8"].dtype == np.uint8
+
+
+def test_process_workers_end_with_close_and_restart(data_root):
+    """close() (also run by the trainer after its runs) ends the workers;
+    the next epoch starts new ones. The workers ignore SIGINT and die on
+    SIGTERM whatever handler the parent has installed."""
+    ds = DATASETS.build("den", method="train", **_params(data_root, "den"))
+    pl = build_loader(ds, {"batch_size": 2, "shuffle": True, "num_workers": 2,
+                           "worker_mode": "process"}, seed=1)
+    prev = signal.signal(signal.SIGTERM, lambda *a: None)
+    try:
+        with time_limit():
+            first = list(pl)
+            workers = list(pl._pool._pool)
+            assert len(workers) == 2 and all(w.is_alive() for w in workers)
+            pl.close()
+            for w in workers:
+                w.join(timeout=30)
+                assert not w.is_alive()
+            assert pl._pool is None
+            again = list(pl)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        pl.close()
+    for a, b in zip(first, again):
+        _assert_same(a, b, "after a restart")
+
+
+class _Touching:
+    """A dataset that leaves a file for each sample it makes (visible
+    across the fork)."""
+
+    def __init__(self, base, where):
+        self.base, self.where = base, where
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, index, rng=None):
+        open(os.path.join(self.where, str(index)), "w").close()
+        return self.base.__getitem__(index, rng=rng)
+
+
+def test_process_loader_keeps_prefetch_batches_in_flight(data_root, tmp_path):
+    """Workers make the batch being read and ``prefetch`` more, not the
+    whole epoch ahead of the consumer."""
+    base = DATASETS.build("den", method="train", **_params(data_root, "den"))
+    pl = build_loader(_Touching(base, str(tmp_path)),
+                      {"batch_size": 1, "shuffle": True, "num_workers": 2,
+                       "worker_mode": "process", "prefetch": 1},
+                      seed=3, collate=type(base).collate)
+    try:
+        with time_limit():
+            it = iter(pl)
+            next(it)
+            time.sleep(1.0)
+            made = len(os.listdir(tmp_path))
+            rest = list(it)
+    finally:
+        pl.close()
+    assert len(pl) == 6 and len(rest) == 5
+    assert 1 <= made <= 2, made
 
 
 def test_host_helpers_match_jax():

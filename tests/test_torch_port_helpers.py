@@ -1,11 +1,15 @@
 """Shared set-up of the port's parity tests (this module holds no tests):
-one JAX DGModel and its port twin with the same seeded weights.
+one JAX DGModel and its port twin with the same seeded weights, and the
+time limit of a test that starts process workers.
 
 Weights come from numpy (``np.random.default_rng``), go into the JAX
 variables, and reach the port through its own bridge
 (``dgvcc_tpu_torch.nn.convert.dg_state_dict_from_flax``). Batch-norm
 statistics are random too, so no BN is an identity.
 """
+
+import contextlib
+import signal
 
 import jax
 import jax.numpy as jnp
@@ -74,3 +78,22 @@ def nchw(x_nhwc: np.ndarray) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
     return x.detach().float().numpy().transpose(0, 2, 3, 1)
+
+
+POOL_SECONDS = 120  # the time limit of a test that starts process workers
+
+
+@contextlib.contextmanager
+def time_limit(seconds=POOL_SECONDS):
+    """Raise TimeoutError in the test (its main thread) if it runs longer
+    than ``seconds``, so a stuck worker pool cannot hang the test run."""
+    def expire(signum, frame):
+        raise TimeoutError(f"the test ran longer than {seconds} s")
+
+    prev = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, prev)

@@ -67,10 +67,6 @@ def test_unported_options_raise_with_a_pointer():
             VideoCounter(torch.nn.Identity(), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VideoCounter.from_artifact("x.int8")
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        VideoCounter.from_checkpoint("final", "best.ckpt", device="cpu",
-                                     mem_size=8, mem_dim=16,
-                                     dec_widths=((16, 16), (16, 16), (16, 8)))
 
 
 def test_from_checkpoint_loads_a_pth_strictly(tmp_path, pair):

@@ -271,7 +271,7 @@ def test_loss_fn_and_gradients_match_jax(mode):
 
 
 def test_isw_mode_points_to_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         build_loss_fn(torch.nn.Identity(), LOSSES.build("mse"), "isw", 1000.0)
 
 

@@ -244,9 +244,9 @@ def test_checkpoint_load_is_nonstrict_unless_asked(root, tmp_path):
                        sd["den_head.0.conv.weight"])
     with pytest.raises(ValueError, match="strict load failed"):
         t.load_ckpt(path, strict=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        t.load_ckpt(str(tmp_path / "last.ckpt"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="not a .pth, .pt or .ckpt"):
+        t.load_ckpt(str(tmp_path / "last.msgpack"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         t.load_ckpt([path, path])
 
 
@@ -263,7 +263,7 @@ def test_unported_config_keys_raise(root, tmp_path, key, value):
 def test_unported_model_family_raises(root, tmp_path):
     cfg = _cfg(root, tmp_path, "x")
     cfg["model"] = {"name": "csrnet", "params": {}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         DGTrainer(Config.from_dict(cfg), device="cpu").build()
 
 

@@ -73,7 +73,25 @@ Phases, each of which exits non-zero on failure:
 7. configs/tpu/sta_final_bigcrop.yml at full width (B=8 two-view 512^2
    crops, remat, accum_steps 4) on a repeated synthetic batch: parameters
    unchanged after micro steps 1-3 and 5-7, moved after 4 and 8, #2 and #3
-   once per micro step; ms per micro step and per update, peak memory.
+   once per micro step; ms per micro step and per update, peak memory;
+8. the whitening family (no kernel of its own; #1-#3 launch counts are
+   read over it): one SwitchWhiten at 256 channels, B=16, 20x20 in f32
+   against float64 (output 1e-4, running statistics 1e-5); sw, ibn and isw
+   from configs/baselines/sta_*.yml and sw_vgg, sw_densenet (121) and
+   ibn_densenet (121) at their defaults, seeded, each serving 768x1024
+   frames through VideoCounter at B=1 and B=4 in bf16 against the same
+   counter in f32 (2e-2), frames/s at B=4; sw and ibn train 10 steps of
+   mode simple and isw 10 steps at epoch 6 after a covariance pass whose
+   masks hold 1008, 16320 and 65408 sensitive entries, each on a repeated
+   synthetic B=16 batch of 320^2 crops (bf16, f32 AdamW): finite, falling
+   losses, isw's whitening loss on; ms/step, peak memory, and the device
+   time of the sw step's SwitchWhiten sites (each site's forward and
+   backward alone, torch.profiler) against the step's; then
+   ``DGTrainer.train_and_test`` with configs/baselines/sta_isw.yml on phase
+   6's files for 2 epochs: masks after epoch 0's validation, the JAX
+   trainer's log lines, ``last`` / ``best_*``, ``--task test`` from best_*
+   on the command line against the in-process MAE, and VideoCounter
+   serving best_*.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -84,8 +102,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1074,81 +1094,75 @@ def host_parts(root):
     return out
 
 
-def files_phase(ma, mt, dm, gpu, step_ms_repeated):
-    """Phase 6: from files to a trained model, three ways (FILE_RUNS).
-    Returns kernel #4's launches on its path (the dmap_cli run) and the
-    training and eval kernels' launches in each run."""
-    import shutil
-    import tempfile
-
+def files_phase(ma, mt, dm, gpu, step_ms_repeated, tmp):
+    """Phase 6: from files to a trained model, three ways (FILE_RUNS), in
+    directory ``tmp`` (the files stay there for phase 8). Returns kernel
+    #4's launches on its path (the dmap_cli run) and the training and eval
+    kernels' launches in each run."""
     from dgvcc_tpu_torch.data import dmap_cli
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        root = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        write_dataset(root)
-        log(f"files: wrote 40 JPEGs of {FRAME[0]}x{FRAME[1]} with points in "
-            f"{time.perf_counter() - t0:.1f}s")
+    root = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    write_dataset(root)
+    log(f"files: wrote 40 JPEGs of {FRAME[0]}x{FRAME[1]} with points in "
+        f"{time.perf_counter() - t0:.1f}s")
 
-        # ---- density maps through the command line (kernel #4)
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch.data.dmap_cli",
-                              "--path", root], capture_output=True, text=True,
-                             timeout=300, cwd=ROOT)
-        wall = time.perf_counter() - t0
-        if out.returncode:
-            fail(f"dmap_cli exited {out.returncode}:\n{out.stderr[-3000:]}")
-        last = out.stdout.strip().splitlines()[-1]
-        log(f"dmap_cli ({wall:.1f}s with start-up): {last}")
-        m = re.search(r"(\d+) of (\d+) images done in ([\d.]+)s; gaussian_density kernel "
-                      r"launched (\d+)x", last)
-        if not m or int(m.group(1)) != 40 or int(m.group(4)) != 40:
-            fail(f"dmap_cli did not launch the kernel once per image (40): {last}")
-        dmap_launches = int(m.group(4))
-        for split, k in (("train", 0), ("val", 1), ("test", 3)):
-            stem = os.path.join(root, split, f"IMG_{k}")
-            got = np.load(stem + "_dmap.npy")
-            want = dm.gaussian_density_fixed_np(FRAME, np.load(stem + ".npy"))
-            err = float(np.abs(got - want).max())
-            log(f"dmap_cli map {split}/IMG_{k}: {got.shape} {got.dtype}, sum "
-                f"{got.sum():.4f}, max_abs_err vs numpy golden {err:.3e}")
-            if got.dtype != np.float32 or not np.allclose(got, want, **TOL_DMAP):
-                fail(f"dmap_cli wrote a map that disagrees with the golden ({stem})")
-        img_fns = dmap_cli.list_images(root, ["train", "val", "test"])
-        dmap_cli.generate(img_fns[:2], overwrite=True)  # warm: CUDA and the library
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dmap_cli.generate(img_fns, overwrite=True)
-        per_image = 1e3 * (time.perf_counter() - t0) / len(img_fns)
-        log(f"dmap_cli generate (in process, CUDA up): {per_image:.3f} ms/image at "
-            f"{FRAME[0]}x{FRAME[1]} (read points, upload, kernel, download, np.save) "
-            f"[{gpu}]")
+    # ---- density maps through the command line (kernel #4)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch.data.dmap_cli",
+                          "--path", root], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if out.returncode:
+        fail(f"dmap_cli exited {out.returncode}:\n{out.stderr[-3000:]}")
+    last = out.stdout.strip().splitlines()[-1]
+    log(f"dmap_cli ({wall:.1f}s with start-up): {last}")
+    m = re.search(r"(\d+) of (\d+) images done in ([\d.]+)s; gaussian_density kernel "
+                  r"launched (\d+)x", last)
+    if not m or int(m.group(1)) != 40 or int(m.group(4)) != 40:
+        fail(f"dmap_cli did not launch the kernel once per image (40): {last}")
+    dmap_launches = int(m.group(4))
+    for split, k in (("train", 0), ("val", 1), ("test", 3)):
+        stem = os.path.join(root, split, f"IMG_{k}")
+        got = np.load(stem + "_dmap.npy")
+        want = dm.gaussian_density_fixed_np(FRAME, np.load(stem + ".npy"))
+        err = float(np.abs(got - want).max())
+        log(f"dmap_cli map {split}/IMG_{k}: {got.shape} {got.dtype}, sum "
+            f"{got.sum():.4f}, max_abs_err vs numpy golden {err:.3e}")
+        if got.dtype != np.float32 or not np.allclose(got, want, **TOL_DMAP):
+            fail(f"dmap_cli wrote a map that disagrees with the golden ({stem})")
+    img_fns = dmap_cli.list_images(root, ["train", "val", "test"])
+    dmap_cli.generate(img_fns[:2], overwrite=True)  # warm: CUDA and the library
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dmap_cli.generate(img_fns, overwrite=True)
+    per_image = 1e3 * (time.perf_counter() - t0) / len(img_fns)
+    log(f"dmap_cli generate (in process, CUDA up): {per_image:.3f} ms/image at "
+        f"{FRAME[0]}x{FRAME[1]} (read points, upload, kernel, download, np.save) "
+        f"[{gpu}]")
 
-        # ---- where a sample's host time goes
-        for (dataset, part), (ms, speedup) in host_parts(root).items():
-            log(f"host part, {dataset} {TRAIN_CROP}^2 from {FRAME[0]}x{FRAME[1]}: {part} "
-                f"{ms:.3f} ms (median of {HOST_PART_SAMPLES}); {HOST_PART_THREADS} threads "
-                f"at once {speedup:.2f}x one [{gpu}]")
+    # ---- where a sample's host time goes
+    for (dataset, part), (ms, speedup) in host_parts(root).items():
+        log(f"host part, {dataset} {TRAIN_CROP}^2 from {FRAME[0]}x{FRAME[1]}: {part} "
+            f"{ms:.3f} ms (median of {HOST_PART_SAMPLES}); {HOST_PART_THREADS} threads "
+            f"at once {speedup:.2f}x one [{gpu}]")
 
-        # ---- train_and_test with configs/sta_final.yml pointed at the files
-        with open(os.path.join(ROOT, "configs", "sta_final.yml")) as f:
-            import yaml
+    # ---- train_and_test with configs/sta_final.yml pointed at the files
+    with open(os.path.join(ROOT, "configs", "sta_final.yml")) as f:
+        import yaml
 
-            base = yaml.safe_load(f)
-        for split in ("train", "val", "test"):
-            base[f"{split}_dataset"] = dict(base[f"{split}_dataset"], params=dict(
-                base[f"{split}_dataset"]["params"], root=root))
-        base.update(num_epochs=2)
-        runs = {}
-        for i, (label, keys) in enumerate(FILE_RUNS):
-            raw = dict(base, log_dir=os.path.join(tmp, f"logs{i}"))
-            for k, v in keys.items():
-                raw[k] = dict(raw[k], **v) if isinstance(v, dict) else v
-            runs[label] = file_run(label, raw, tmp, ma, mt, gpu, step_ms_repeated, check=i == 0)
-        return dmap_launches, runs
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        base = yaml.safe_load(f)
+    for split in ("train", "val", "test"):
+        base[f"{split}_dataset"] = dict(base[f"{split}_dataset"], params=dict(
+            base[f"{split}_dataset"]["params"], root=root))
+    base.update(num_epochs=2)
+    runs = {}
+    for i, (label, keys) in enumerate(FILE_RUNS):
+        raw = dict(base, log_dir=os.path.join(tmp, f"logs{i}"))
+        for k, v in keys.items():
+            raw[k] = dict(raw[k], **v) if isinstance(v, dict) else v
+        runs[label] = file_run(label, raw, tmp, ma, mt, gpu, step_ms_repeated, check=i == 0)
+    return dmap_launches, runs
 
 
 def file_run(label, raw, tmp, ma, mt, gpu, step_ms_repeated, check):
@@ -1283,6 +1297,368 @@ def file_run(label, raw, tmp, ma, mt, gpu, step_ms_repeated, check):
         if k not in got or abs(float(got[k]) - want[k]) > TOL_CLI_TEST * max(want[k], 1.0):
             fail(f"CLI --task test {k} {got.get(k)} != in-process {want[k]}")
     return launches
+
+
+# ---- phase 8: the whitening family ------------------------------------------
+# trained from configs/baselines/sta_{name}.yml; served at their defaults too
+WHITEN_CONFIGS = ("sw", "ibn", "isw")
+WHITEN_SERVED = ("sw", "ibn", "isw", "sw_vgg", "sw_densenet", "ibn_densenet")
+TOL_SW_OUT = 1e-4                   # SwitchWhiten f32 vs float64 on the card: output,
+TOL_SW_STATS = 1e-5                 # and running statistics (relative to the largest)
+TOL_WHITEN_COUNTS = 1e-1            # bf16 counter vs the same weights in f32, relative to
+                                    # the map's mass sum |d| / log_para. A random head's
+                                    # map is signed and its count a cancelling sum; bf16
+                                    # conv outputs of mean / std 5 into SW (an untrained
+                                    # model's running statistics are zeros) leave sw's
+                                    # count 4.6% of the mass (20% of the count) from f32
+                                    # at B=1 (run 1, PR 10): a fault of the bf16 path
+                                    # (a cast, a dtype) moves it by O(1)
+WHITEN_STEPS = 10
+ISW_SENSITIVE = [1008.0, 16320.0, 65408.0]  # sites of 64, 256, 512 at relax_denom 2
+
+
+def check_switch_whiten(gpu):
+    """One SwitchWhiten at 256 channels (SW_KW), B=16, 20x20, f32 in train
+    mode against the same layer in float64: output and running statistics."""
+    import copy
+
+    from dgvcc_tpu_torch.models.whitening import SW_KW
+    from dgvcc_tpu_torch.nn.whitening import SwitchWhiten
+
+    g = torch.Generator(device="cuda").manual_seed(80)
+    sw = SwitchWhiten(256, **SW_KW).cuda()
+    with torch.no_grad():
+        for p in (sw.sw_mean_weight, sw.sw_var_weight, sw.bias):
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda"))
+        sw.weight.copy_(0.5 + torch.rand(256, generator=g, device="cuda"))
+    ref = copy.deepcopy(sw).double()
+    x = 2.0 * torch.randn(16, 256, 20, 20, generator=g, device="cuda") + 1.0
+    out, want = sw.train()(x), ref.train()(x.double())
+    errs = {"out": rel_max(out, want)}
+    for name in ("running_mean", "running_cov"):
+        errs[name] = rel_max(getattr(sw, name), getattr(ref, name))
+    log(f"SwitchWhiten 256 ch B=16 20x20 f32 vs float64: out {errs['out']:.3e} (tol "
+        f"{TOL_SW_OUT}), running_mean {errs['running_mean']:.3e}, running_cov "
+        f"{errs['running_cov']:.3e} (tol {TOL_SW_STATS}) [{gpu}]")
+    if errs["out"] > TOL_SW_OUT or max(errs["running_mean"], errs["running_cov"]) > TOL_SW_STATS:
+        fail("SwitchWhiten on the card disagrees with float64")
+    return errs
+
+
+def rel_max(a, b):
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+
+def whitening_config(name):
+    from dgvcc_tpu_torch.core.config import load_config
+
+    return load_config(os.path.join(ROOT, "configs", "baselines", f"sta_{name}.yml"))
+
+
+class _AbsMap(torch.nn.Module):
+    """A counter's model with |d| for its map: its count is the map's mass."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return self.model(x).abs()
+
+
+def serve_whitening(gpu):
+    """Each family through VideoCounter: 768x1024 frames at B=1 and B=4 in
+    bf16 against the same counter in f32; frames/s at B=4."""
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    rng = np.random.default_rng(8)
+    frames = rng.integers(0, 256, (4,) + FRAME + (3,), dtype=np.uint8)
+    fps = {}
+    for name in WHITEN_SERVED:
+        params = (whitening_config(name).model.get("params", {})
+                  if name in WHITEN_CONFIGS else {})
+        bf16, f32 = (VideoCounter.from_checkpoint(name, None, dtype=dt, seed=8, **params)
+                     for dt in (torch.bfloat16, torch.float32))
+        mass = VideoCounter(_AbsMap(f32.model), dtype=torch.float32)
+        for b in (1, 4):
+            got, want = bf16.count_frames(frames[:b]), f32.count_frames(frames[:b])
+            scale = float(mass.count_frames(frames[:b]).max())
+            err = float(np.abs(got - want).max())
+            log(f"{name} count_frames B={b} 768x1024 bf16: counts {np.round(got, 3).tolist()}, "
+                f"f32 {np.round(want, 3).tolist()}, max |diff| {err:.4g} = {err / scale:.4f} of "
+                f"the mass {scale:.4g} (tol {TOL_WHITEN_COUNTS})")
+            if not np.isfinite(got).all() or err > TOL_WHITEN_COUNTS * max(scale, 1.0):
+                fail(f"{name} count_frames B={b}: bf16 counts disagree with f32")
+        bf16.count_frames(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            bf16.count_frames(frames)
+        fps[name] = 24 / (time.perf_counter() - t0)
+        log(f"serve {name} count_frames B=4 768x1024 bf16: {fps[name]:.2f} frames/s [{gpu}]")
+        del bf16, f32, mass
+        torch.cuda.empty_cache()
+    return fps
+
+
+def whitening_state(name, seed=0):
+    """A config's counter at full width, seeded, bf16 compute, f32 AdamW
+    with the OneCycle lr of epoch 0; its train step."""
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+    from dgvcc_tpu_torch.train.state import create_train_state
+    from dgvcc_tpu_torch.train.steps import build_train_step
+
+    cfg = whitening_config(name)
+    model = MODELS.build(name, dtype=torch.bfloat16, **cfg.model.get("params", {}))
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed + seed))
+    state = create_train_state(model, cfg.optimizer, cfg.scheduler)
+    step = build_train_step(model, LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {})),
+                            cfg.mode, cfg.log_para)
+    return cfg, state, step
+
+
+def time_steps(run, label, gpu, steps=10):
+    """ms/step over ``steps`` synchronised steps after 3, and the peak
+    memory of one above what was resident before it (earlier phases keep
+    some tensors alive)."""
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train {label} (B={TRAIN_B} {TRAIN_CROP}^2 bf16): {ms:.3f} ms/step, peak memory "
+        f"{peak:.3f} GiB ({peak - resident:.3f} GiB above the {resident:.3f} GiB resident) "
+        f"[{gpu}]")
+    return ms, peak - resident
+
+
+def device_ms_total(fn, calls):
+    """Device time of one call of a function that launches many kernels:
+    every device activity of ``calls`` calls (torch.profiler) summed and
+    divided by ``calls``; with it the five largest activities by name.
+    Without device activities in the trace it fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].strip()[:60] or e.name[:60]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    if not by_name:
+        fail("torch.profiler recorded no device activity")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return sum(by_name.values()), top
+
+
+def sw_site_share(state, step, batch, step_ms_device, gpu):
+    """Device time of the SwitchWhiten sites of one sw train step: each
+    site's forward and backward run alone on its step's input shape (bf16,
+    the model's parameters, train mode), torch.profiler device time,
+    summed; against the whole step's."""
+    import copy
+
+    from dgvcc_tpu_torch.nn.whitening import SwitchWhiten
+
+    shapes = []
+    hooks = [m.register_forward_hook(lambda m, i, o: shapes.append((m, tuple(i[0].shape))))
+             for m in state.model.modules() if isinstance(m, SwitchWhiten)]
+    step(state, batch, None, 0)
+    for h in hooks:
+        h.remove()
+    total = 0.0
+    g = torch.Generator(device="cuda").manual_seed(81)
+    for m, shape in shapes:
+        site = copy.deepcopy(m).train()
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
+        cot = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+        def fwd_bwd():
+            site(x).backward(cot)
+
+        ms, top = device_ms_total(fwd_bwd, 5)
+        total += ms
+        log(f"sw step, SwitchWhiten site {tuple(shape)}: {ms:.4f} ms of device time a "
+            f"forward and backward; largest: "
+            f"{', '.join(f'{n} {t:.3f}' for n, t in top[:3])} [{gpu}]")
+    log(f"sw step: the {len(shapes)} SwitchWhiten sites {total:.3f} ms of the step's "
+        f"{step_ms_device:.3f} ms of device time ({100 * total / step_ms_device:.1f}%) [{gpu}]")
+    return total, len(shapes)
+
+
+def train_whitening(gpu):
+    """sw and ibn: 10 steps of mode simple on a repeated B=16 batch of 320^2
+    crops; isw: a covariance pass on the batch's two views fills the
+    tracker, then 10 steps at epoch 6 with its masks. Losses finite and
+    falling; ms/step and peak memory; the SW sites' share of the sw step."""
+    from dgvcc_tpu_torch.models.whitening import IswCovTracker
+
+    batch = {k: v.contiguous(memory_format=torch.channels_last)
+             for k, v in synthetic_batch(3).items()}
+    out = {}
+    for name in WHITEN_CONFIGS:
+        cfg, state, step = whitening_state(name)
+        epoch, b = 0, dict(batch)
+        if name == "isw":
+            params = cfg.model["params"]
+            tracker = IswCovTracker(relax_denom=params["relax_denom"],
+                                    clusters=params["clusters"])
+            state.model.eval()
+            with torch.no_grad():
+                stats = state.model.cov_stats(torch.cat([batch["img1"][:4], batch["img2"][:4]]))
+            tracker.add({k: v.cpu().numpy() for k, v in stats.items()})
+            tracker.set_mask_matrix()
+            log(f"isw covariance pass (2 views x 4 crops of {TRAIN_CROP}^2): sensitive "
+                f"counts {tracker.num_sensitive} (want {ISW_SENSITIVE})")
+            if tracker.num_sensitive != ISW_SENSITIVE:
+                fail("isw: the sensitive counts are not the relax_denom 2 counts")
+            for key, tree in zip(("isw_masks", "isw_nums", "isw_margins"),
+                                 tracker.mask_batch()):
+                b[key] = {k: v.cuda() for k, v in tree.items()}
+            epoch = 6
+
+        def run():
+            return step(state, b, None, epoch)[1]
+
+        metrics = [{k: v.item() for k, v in run().items()} for _ in range(WHITEN_STEPS)]
+        losses = [m["loss_total"] for m in metrics]
+        log(f"train {name} ({cfg.mode}, sta_{name}.yml, epoch {epoch}), {WHITEN_STEPS} steps: "
+            f"loss_total {[round(x, 4) for x in losses]}"
+            + (f"; loss_wt {[round(m['loss_wt'], 5) for m in metrics]}" if name == "isw" else ""))
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            fail(f"train {name}: a loss is not finite")
+        if not losses[-1] < losses[0]:
+            fail(f"train {name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+        if name == "isw" and not all(m["loss_wt"] > 0 for m in metrics):
+            fail("train isw: the whitening loss is not on at epoch 6")
+        ms, peak = time_steps(run, f"{name} ({cfg.mode})", gpu)
+        out[name] = {"ms_per_step": ms, "peak_gib": peak, "losses": losses}
+        if name == "sw":
+            step_dev, top = device_ms_total(run, 3)
+            log(f"train sw step: {step_dev:.3f} ms of device time; largest: "
+                f"{', '.join(f'{n} {t:.3f}' for n, t in top)} [{gpu}]")
+            out[name]["sw_sites_ms"], out[name]["sw_sites"] = sw_site_share(
+                state, step, b, step_dev, gpu)
+            out[name]["step_device_ms"] = step_dev
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def isw_file_run(tmp, gpu):
+    """DGTrainer.train_and_test with configs/baselines/sta_isw.yml on phase
+    6's files for 2 epochs: masks after epoch 0's validation, the JAX
+    trainer's log lines, last / best_*, ``--task test`` from best_* on the
+    command line, and a counter serving best_*."""
+    import glob
+
+    import yaml
+
+    from dgvcc_tpu_torch.core.config import Config
+    from dgvcc_tpu_torch.serve import VideoCounter
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    with open(os.path.join(ROOT, "configs", "baselines", "sta_isw.yml")) as f:
+        raw = yaml.safe_load(f)
+    root = os.path.join(tmp, "data")
+    for split in ("train", "val", "test"):
+        raw[f"{split}_dataset"] = dict(raw[f"{split}_dataset"], params=dict(
+            raw[f"{split}_dataset"]["params"], root=root))
+    raw.update(num_epochs=2, log_dir=os.path.join(tmp, "logs_isw"))
+    cfg_path = os.path.join(tmp, "sta_isw.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    trainer = DGTrainer(Config.from_dict(raw))
+    trainer.build()
+    tracker = trainer.isw_tracker
+    selections = []
+    select = tracker.set_mask_matrix
+
+    def recording():
+        select()
+        selections.append(list(tracker.num_sensitive))
+
+    tracker.set_mask_matrix = recording
+    t0 = time.perf_counter()
+    trainer.train_and_test()
+    log(f"[sta_isw.yml] train_and_test 2 epochs: {time.perf_counter() - t0:.1f}s; masks "
+        f"selected after each validation: sensitive counts {selections} [{gpu}]")
+    if len(selections) != 2 or selections[0] != ISW_SENSITIVE:
+        fail("[sta_isw.yml] the tracker holds no masks after epoch 0's validation")
+    text = open(os.path.join(trainer.log_dir, "log.txt")).read()
+    patterns = [re.compile(p.pattern.replace("sta_final", "sta_isw")) for p in LOG_LINES]
+    for line in text.splitlines():
+        if not any(p.fullmatch(line) for p in patterns):
+            fail(f"[sta_isw.yml] log.txt line not of the JAX trainer's shapes: {line!r}")
+    losses = [float(x) for x in re.findall(r"Training loss: (\S+)", text)]
+    maes = [float(x) for x in re.findall(r"Val criterion: (\S+)", text)]
+    log(f"[sta_isw.yml] train losses {losses}, val MAE {maes}")
+    if len(losses) != 2 or len(maes) != 2 or not all(map(math.isfinite, losses + maes)):
+        fail("[sta_isw.yml] a loss or val MAE is missing or not finite")
+    last = os.path.join(trainer.log_dir, "last.pth")
+    best = glob.glob(os.path.join(trainer.log_dir, "best_*.pth"))
+    if len(best) != 1 or not os.path.exists(last):
+        fail(f"[sta_isw.yml] checkpoints missing: last {os.path.exists(last)}, best {best}")
+    want = trainer.test(checkpoint=best[0])
+    out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", "--config", cfg_path,
+                          "--task", "test", "--ckpt", best[0]], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    if out.returncode:
+        fail(f"[sta_isw.yml] CLI test exited {out.returncode}:\n{out.stderr[-3000:]}")
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("Testing results:")]
+    got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
+    log(f"[sta_isw.yml] CLI --task test {os.path.basename(best[0])}: "
+        f"{line[-1] if line else None}; in process: mae {want['mae']:.4f}")
+    if "mae" not in got or abs(float(got["mae"]) - want["mae"]) > TOL_CLI_TEST * max(want["mae"],
+                                                                                   1.0):
+        fail(f"[sta_isw.yml] CLI --task test mae {got.get('mae')} != in-process {want['mae']}")
+    frames = np.random.default_rng(9).integers(0, 256, (4,) + FRAME + (3,), dtype=np.uint8)
+    counts = VideoCounter.from_checkpoint("isw", best[0], dtype=torch.bfloat16,
+                                          **raw["model"]["params"]).count_frames(frames)
+    log(f"[sta_isw.yml] VideoCounter.from_checkpoint({os.path.basename(best[0])}) counts "
+        f"{np.round(counts, 3).tolist()}")
+    if counts.shape != (4,) or not np.isfinite(counts).all():
+        fail("[sta_isw.yml] the counter of best_* gave no finite counts")
+    return {"mae": want["mae"], "losses": losses}
+
+
+def whitening_phase(ma, mt, tmp, gpu):
+    """Phase 8: the whitening family on the card. Returns what it measured
+    and the launches of kernels #1-#3 over it (none run on these models)."""
+    t0 = time.perf_counter()
+    ma.LAUNCHES = mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    res = {"sw_check": check_switch_whiten(gpu), "fps_b4": serve_whitening(gpu),
+           "train": train_whitening(gpu)}
+    # the in-process test and the command line's pick their convolution
+    # algorithms the same way (phase 3 turned cuDNN's benchmark on): bf16
+    # SW and IW counts follow the algorithm's rounding
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        res["files"] = isw_file_run(tmp, gpu)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    launches = {"memory_attention_fused": ma.LAUNCHES,
+                "memory_attention_train_fwd": mt.FWD_LAUNCHES,
+                "memory_attention_train_bwd": mt.BWD_LAUNCHES}
+    log(f"phase 8 (whitening family): {time.perf_counter() - t0:.1f}s; kernel launches "
+        f"{launches}")
+    return res, launches
 
 
 def check_counts(name, got, want, want_label="einsum path"):
@@ -1498,21 +1874,29 @@ def main():
     # ---- 5. train the main path ----------------------------------------------
     train_launches, train_times, step_ms = train_phase(mt, gpu)
 
-    # ---- 6. from files to a trained model ----------------------------------
-    dmap_launches, file_launches = files_phase(ma, mt, dm, gpu, step_ms)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # ---- 6. from files to a trained model ------------------------------
+        dmap_launches, file_launches = files_phase(ma, mt, dm, gpu, step_ms, tmp)
 
-    # ---- 7. sta_final_bigcrop.yml: accum_steps 4 at 512^2 ------------------
-    big_launches = bigcrop_phase(mt, gpu)
+        # ---- 7. sta_final_bigcrop.yml: accum_steps 4 at 512^2 --------------
+        big_launches = bigcrop_phase(mt, gpu)
+
+        # ---- 8. the whitening family (sw, ibn, isw, sw_vgg, DenseNets) -----
+        _, whiten_launches = whitening_phase(ma, mt, tmp, gpu)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
-    # ---- 8. result --------------------------------------------------------
+    # ---- result --------------------------------------------------------------
     # each path's launches, from its own run (counts set to 0 just before)
     by_path = {"serving": {"memory_attention_fused": launches},
                "train step (phase 5)": {"memory_attention_train_fwd": train_launches[0],
                                         "memory_attention_train_bwd": train_launches[1]},
                **{f"files {label}": n for label, n in file_launches.items()},
                "bigcrop accum_steps 4": {"memory_attention_train_fwd": big_launches[0],
-                                         "memory_attention_train_bwd": big_launches[1]}}
+                                         "memory_attention_train_bwd": big_launches[1]},
+               "whitening family (phase 8)": whiten_launches}
 
     def total(name):
         return sum(n.get(name, 0) for n in by_path.values())

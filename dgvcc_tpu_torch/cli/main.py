@@ -11,8 +11,8 @@ dir gets a snapshot of the config; ``--task test`` needs a checkpoint).
 prints one ``name count`` line per frame and a throughput summary. The
 device is ``cuda`` unless ``--device`` or the config's ``device:`` key
 starts with ``cpu``. The other tasks of ``python -m dgvcc_tpu`` are not
-ported yet: ``generate`` is ROADMAP.md Queue 1 item 3; ``quantize``, ``aot``
-and ``export`` are item 6.
+ported yet: ``generate`` is ROADMAP.md Queue 1 item 2; ``quantize``, ``aot``
+and ``export`` are item 5.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
     from dgvcc_tpu_torch.train.trainer import config_device
 
     if task not in ("train", "test", "vis", "train_test", "serve"):
-        item = 3 if task == "generate" else 6
+        item = 2 if task == "generate" else 5
         raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
                          f"yet; see ROADMAP.md, Queue 1 item {item} (use python -m "
                          "dgvcc_tpu for it)")

@@ -18,6 +18,8 @@ from dgvcc_tpu_torch.nn.layers import Conv2d
 
 # torchvision cfgs: 'M' = 2x2/2 max pool
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512, "M"]
+VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M", 512, 512, 512, 512, "M",
+             512, 512, 512, 512, "M"]
 
 
 def feature_layout(cfg: Sequence, batch_norm: bool) -> List[Tuple[str, int, Any]]:

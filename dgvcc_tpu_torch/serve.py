@@ -13,7 +13,8 @@ Usage:
 
 Only the full-precision path is ported: a device mesh (``mesh`` /
 ``shard``) and ``auto_threshold`` raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1 item 1), as do int8 (``quantize``) and ``from_artifact`` (item 6).
+Queue 1 item 1), as do int8 (``quantize``) and ``from_artifact`` (item 5).
+It serves the DG family and the whitening counters.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from dgvcc_tpu_torch.core.registry import MODELS
 
 _NOT_PORTED = "is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1"
 _SERVING_EXTRAS = f"{_NOT_PORTED} item 1"
-_INT8 = f"{_NOT_PORTED} item 6"
+_INT8 = f"{_NOT_PORTED} item 5"
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -70,18 +71,19 @@ def serving_state_dict(path: str, model: torch.nn.Module):
     """(state_dict in the reference layout, whether it is the EMA shadow)
     of checkpoint ``path`` for ``model``: the shadow where the checkpoint
     keeps one (the port's sidecar, a JAX ``ema_params``), the raw weights
-    otherwise."""
-    from dgvcc_tpu_torch.nn.convert import dg_state_dict_from_flax, load_reference_pth
+    otherwise. A reference checkpoint's keys that ``model`` never reads
+    (isw's layer4) are dropped."""
+    from dgvcc_tpu_torch.nn.convert import (drop_reference_unused, load_reference_pth,
+                                            state_dict_from_flax)
     from dgvcc_tpu_torch.train.checkpoint import JAX_SUFFIX, sidecar_path
     from dgvcc_tpu_torch.train.jax_ckpt import read_jax_checkpoint
 
     if path.endswith(JAX_SUFFIX):
         loaded = read_jax_checkpoint(path)
         ema = "ema_params" in loaded
-        return dg_state_dict_from_flax(loaded["ema_params" if ema else "params"],
-                                       loaded.get("batch_stats", {}),
-                                       model.stage_splits), ema
-    sd = load_reference_pth(path)
+        return state_dict_from_flax(model, loaded["ema_params" if ema else "params"],
+                                    loaded.get("batch_stats", {})), ema
+    sd = drop_reference_unused(load_reference_pth(path), model)
     side = sidecar_path(path)
     shadow = (torch.load(side, map_location="cpu", weights_only=True).get("ema")
               if os.path.exists(side) else None)

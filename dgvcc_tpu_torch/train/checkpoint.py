@@ -24,7 +24,8 @@ trainer.py:41-44): matching weights are restored, a missing, unexpected or
 mis-shaped one is a warning; ``strict=True`` raises on any of them. The
 JAX package's msgpack ``.ckpt`` loads too (``train/jax_ckpt.py``): its
 params and batch statistics (and EMA params) go through
-``nn/convert.py::dg_state_dict_from_flax``; step and extra are restored;
+``nn/convert.py::state_dict_from_flax`` for the model's family; step and
+extra are restored;
 its optax state is not mapped onto ``torch.optim`` (a warning, as for a
 changed optimizer).
 """
@@ -41,7 +42,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from dgvcc_tpu_torch.nn.convert import dg_state_dict_from_flax, load_reference_pth
+from dgvcc_tpu_torch.nn.convert import (drop_reference_unused, load_reference_pth,
+                                        state_dict_from_flax)
 from dgvcc_tpu_torch.train.jax_ckpt import read_jax_checkpoint, to_python
 
 SUFFIX = ".pth"
@@ -155,13 +157,12 @@ def _restore_accum(state, accum: Optional[Dict[str, Any]], warnings: List[str]):
 def _load_jax(path: str, state, warnings: List[str]):
     """The JAX package's msgpack checkpoint -> (weights, training state)."""
     loaded = read_jax_checkpoint(path)
-    splits = getattr(state.model, "stage_splits", (0, 23, 33, 43))
-    weights = dg_state_dict_from_flax(loaded.get("params", {}),
-                                      loaded.get("batch_stats", {}), splits)
+    weights = state_dict_from_flax(state.model, loaded.get("params", {}),
+                                   loaded.get("batch_stats", {}))
     train = {"step": int(loaded.get("step", state.step)),
              "extra": to_python(loaded.get("extra", {}))}
     if "ema_params" in loaded:
-        train["ema"] = dg_state_dict_from_flax(loaded["ema_params"], None, splits)
+        train["ema"] = state_dict_from_flax(state.model, loaded["ema_params"], None)
     if "opt_state" in loaded:
         warnings.append("optimizer state not restored: the JAX package's optax state "
                         "is not mapped onto torch.optim")
@@ -179,7 +180,7 @@ def load_checkpoint(path: str, state, strict: bool = False) -> Tuple[Dict[str, A
     if path.endswith(JAX_SUFFIX):
         weights, train = _load_jax(path, state, train_warnings)
     elif path.endswith((".pth", ".pt")):
-        weights = load_reference_pth(path)
+        weights = drop_reference_unused(load_reference_pth(path), state.model)
         side = sidecar_path(path)
         train = (torch.load(side, map_location="cpu", weights_only=True)
                  if os.path.exists(side) else None)

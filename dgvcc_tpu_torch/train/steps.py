@@ -1,17 +1,21 @@
 """Per-mode train steps, counterpart of dgvcc_tpu/train/steps.py.
 
 Batches are dicts of NCHW tensors on the model's device:
-    img1 (B,3,H,W), img2 (B,3,H,W)?, dmap (B,1,H,W), bmap (B,1,H/16,W/16)?
+    img1 (B,3,H,W), img2 (B,3,H,W)?, dmap (B,1,H,W), bmap (B,1,H/16,W/16)?,
+    isw_masks / isw_nums / isw_margins ({"m0": ..., ...})?
 
 Modes (reference dgtrainer.py:149-204):
-    simple  — one view, count loss
+    simple  — one view, count loss (a DG model's tuple or a counter's map)
     base    — two views, count loss on both
     add     — model.forward_train → + consistency loss
     cls     — density + 10x BCE on the foreground classifier
     final   — forward_train → den + 10*BCE + con_weight*consistency
               (the error loss is computed, reported and not added)
-Mode ``isw`` (ROADMAP.md, Queue 1 item 2) and the Bayesian loss (item 4)
-are not ported.
+    isw     — the model returns [task_loss, wt_loss] (its own count loss
+              and the whitening loss on the batch's masks); total = task +
+              0.6 * wt from epoch 6 on
+The reconstructed modes (ROADMAP.md, Queue 1 item 2) and the Bayesian loss
+(item 3) are not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import torch
 
 from dgvcc_tpu_torch.train.state import TrainState
 
-MODES = ("simple", "base", "add", "cls", "final")
+MODES = ("simple", "base", "add", "cls", "final", "isw")
+# the reconstructed modes of dgvcc_tpu/train/genjoint.py
+UNPORTED = ("generation", "regression", "joint", "discrimination")
 
 
 def bce(pred_prob: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
@@ -51,14 +57,14 @@ def build_loss_fn(model: torch.nn.Module, loss, mode: str, log_para: float,
     con_weight: weight of the two-view consistency term in 'final' mode
     (10.0 in the reference, dgtrainer.py:189; the 'nocon' ablation sets it
     to 0)."""
-    if mode == "isw":
-        raise NotImplementedError("mode 'isw' is not ported to dgvcc_tpu_torch yet; "
+    if mode in UNPORTED:
+        raise NotImplementedError(f"mode {mode!r} is not ported to dgvcc_tpu_torch yet; "
                                   "see ROADMAP.md, Queue 1 item 2")
     if mode not in MODES:
         raise ValueError(f"Unknown mode: {mode}")
     if getattr(loss, "kind", "mse") != "mse":
         raise NotImplementedError("only the 'mse' count loss is ported; the Bayesian "
-                                  "loss is ROADMAP.md, Queue 1 item 4")
+                                  "loss is ROADMAP.md, Queue 1 item 3")
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator, epoch: int = 0):
         model.train()
@@ -91,6 +97,17 @@ def build_loss_fn(model: torch.nn.Module, loss, mode: str, log_para: float,
             loss_cls = bce(c1, batch["bmap"]) + bce(c2, batch["bmap"])
             total = loss_den + 10.0 * loss_cls
             metrics.update(loss_den=loss_den, loss_cls=loss_cls)
+        elif mode == "isw":
+            # the model's own count loss (not _count_loss) and the whitening
+            # loss on the masks the batch carries; the epoch is a Python int
+            wt_on = epoch > 5
+            task_loss, wt_loss = model(batch["img1"], gts=batch["dmap"] * log_para,
+                                       masks=batch.get("isw_masks"),
+                                       num_sensitive=batch.get("isw_nums"),
+                                       margins=batch.get("isw_margins"),
+                                       apply_wtloss=wt_on, generator=generator)
+            total = task_loss + 0.6 * wt_loss if wt_on else task_loss
+            metrics.update(loss_den=task_loss, loss_wt=wt_loss)
         else:  # final
             dc1, dc2, c1, c2, _, loss_con, loss_err = model.forward_train(
                 batch["img1"], batch["img2"], batch["bmap"], generator=generator)

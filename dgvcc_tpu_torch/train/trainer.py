@@ -18,6 +18,10 @@ On the card:
     (dgvcc_tpu/models/dg.py:110-116) that the H100 does not share;
   * checkpoints are ``.pth`` state_dicts in the reference layout with a
     training-state sidecar (``train/checkpoint.py``), so resume is exact;
+  * mode ``isw`` (the ISW counter): a covariance tracker (``wt_type``
+    'isw' or 'irw' among the model params) whose masks ride in every train
+    batch of an epoch; validation runs the covariance pass on each val
+    sample's two views and selects the sensitive entries after it;
   * the dropout draws of epoch e come from a generator seeded from (seed,
     e), so a resumed epoch draws what the uninterrupted run drew; so do
     the ``device_aug`` draws, from a stream of their own.
@@ -70,7 +74,7 @@ from dgvcc_tpu_torch.data.datasets import DensityMapDataset, RawCropDataset
 from dgvcc_tpu_torch.data.device_pipeline import augment_two_view_batch
 from dgvcc_tpu_torch.data.loader import build_loader
 from dgvcc_tpu_torch.nn.convert import install_pretrained
-from dgvcc_tpu_torch.ops.tiling import TiledCounter
+from dgvcc_tpu_torch.ops.tiling import TiledCounter, tile_image
 from dgvcc_tpu_torch.serve import resolve_device
 from dgvcc_tpu_torch.train.checkpoint import AsyncWriter, CheckpointRotator, load_checkpoint
 from dgvcc_tpu_torch.train.state import create_train_state
@@ -80,13 +84,11 @@ from dgvcc_tpu_torch.utils.misc import (AverageMeter, DictAvgMeter, denormalize,
 
 # extra keys of the JAX trainer whose modules are not ported, and where
 # ROADMAP.md lists them
-UNPORTED_KEYS = {"test_quantized": "Queue 1 item 6 (int8)"}
-# modes and model families not ported: their Queue 1 item in ROADMAP.md
-UNPORTED_MODES = {"isw": 2, "joint": 3, "generation": 3, "regression": 3,
-                  "discrimination": 3}
-FAMILY_ITEMS = {**dict.fromkeys(("sw", "sw_vgg", "sw_densenet", "ibn", "ibn_densenet",
-                                 "isw"), 2),
-                **dict.fromkeys(("dgnet", "dgnet_cls", "gen", "gen0", "reg", "reg_mem"), 3)}
+UNPORTED_KEYS = {"test_quantized": "Queue 1 item 5 (int8)"}
+# modes and model families not ported: their Queue 1 item in ROADMAP.md (a
+# family not listed is a classic baseline, item 3)
+UNPORTED_MODES = {"joint": 2, "generation": 2, "regression": 2, "discrimination": 2}
+FAMILY_ITEMS = dict.fromkeys(("dgnet", "dgnet_cls", "gen", "gen0", "reg", "reg_mem"), 2)
 BATCH_KEYS = ("img1", "img2", "dmap", "bmap")
 # the draws of device_aug: a stream apart from the dropout draws
 AUG_STREAM = 7_919_000_003
@@ -110,11 +112,29 @@ def check_ported(cfg: Config):
     if any(int(v) > 1 for v in (cfg.mesh or {}).values()):
         raise NotImplementedError("config key 'mesh' (multi-device training) is not "
                                   "ported to dgvcc_tpu_torch yet; see ROADMAP.md, "
-                                  "Queue 1 item 5")
+                                  "Queue 1 item 4")
     if cfg.mode in UNPORTED_MODES:
         raise NotImplementedError(f"mode {cfg.mode!r} is not ported to dgvcc_tpu_torch "
                                   f"yet; see ROADMAP.md, Queue 1 item "
                                   f"{UNPORTED_MODES[cfg.mode]}")
+
+
+def covariance_views(counter: TiledCounter, sample, patch_size: int):
+    """The inputs of ISW's covariance pass on a val sample (its two views
+    concatenated, NCHW, on the counter's device): one per real tile of
+    ``patch_size`` when the image reaches it (the bucket's filler tiles left
+    out), else the image itself, unpadded, as the reference's predict2
+    (dgtrainer.py:86-102). The JAX trainer pads that image with black to
+    multiples of 128 first (ROADMAP.md, Queue 3)."""
+    h, w, _ = sample["img1"].shape
+    x1, x2 = (counter._upload(sample[k]) for k in ("img1", "img2"))
+    if h >= patch_size or w >= patch_size:
+        t1, _, nh, nw = tile_image(x1, patch_size)
+        t2, _, _, _ = tile_image(x2, patch_size)
+        pairs = [(t1[i:i + 1], t2[i:i + 1]) for i in range(nh * nw)]
+    else:
+        pairs = [(x1[None], x2[None])]
+    return [torch.cat([a, b]).permute(0, 3, 1, 2) for a, b in pairs]
 
 
 class DGTrainer:
@@ -160,9 +180,10 @@ class DGTrainer:
         import dgvcc_tpu_torch.models  # noqa: F401
 
         if cfg.model["name"] not in MODELS:
-            item = FAMILY_ITEMS.get(cfg.model["name"], 4)
+            item = FAMILY_ITEMS.get(cfg.model["name"], 3)
             raise NotImplementedError(f"model {cfg.model['name']!r} is not ported to "
-                                      "dgvcc_tpu_torch yet (the DG family is); see "
+                                      "dgvcc_tpu_torch yet (the DG and whitening "
+                                      "families are); see "
                                       f"ROADMAP.md, Queue 1 item {item}")
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         params = dict(cfg.model.get("params", {}))
@@ -211,9 +232,18 @@ class DGTrainer:
         con_weight = 0.0 if cfg.extra.get("no_consistency") else 10.0
         self.train_step = build_train_step(self.model, self.loss, self.mode,
                                            self.log_para, con_weight=con_weight)
-        # the DG family tiles at the config's patch_size (dgtrainer.py:71-84)
+        # the DG and whitening families tile at the config's patch_size
+        # (dgtrainer.py:71-84)
         self.counter = TiledCounter(self.model, self.log_para, self.patch_size,
                                     device=self.device)
+        # ISW's two-pass covariance protocol (dgtrainer.py:86-102)
+        self.isw_tracker = None
+        if self.mode == "isw":
+            from dgvcc_tpu_torch.models.whitening import IrwCovTracker, IswCovTracker
+
+            tracker = IrwCovTracker if params.get("wt_type", "isw") == "irw" else IswCovTracker
+            self.isw_tracker = tracker(relax_denom=params.get("relax_denom", 2.0),
+                                       clusters=params.get("clusters", 3))
         self._built = True
 
     def _epoch_generator(self, epoch: int, stream: int = 0) -> torch.Generator:
@@ -253,7 +283,7 @@ class DGTrainer:
             raise NotImplementedError(
                 "[gen_ckpt, reg_ckpt] checkpoint pairs belong to the joint and "
                 "generation modes, which are not ported to dgvcc_tpu_torch yet; see "
-                "ROADMAP.md, Queue 1 item 3")
+                "ROADMAP.md, Queue 1 item 2")
         self.log(f"Loading checkpoint from {path}")
         extra, warnings = load_checkpoint(path, self.state, strict=strict)
         for w in warnings[:10]:
@@ -321,14 +351,16 @@ class DGTrainer:
         train_loader = self.loaders["train"]
         train_loader.set_epoch(epoch)
         metrics = None
+        isw_extra = self._isw_masks()
         with self._profiling(epoch):
             for i, batch in enumerate(self._progress(train_loader,
                                                      f"Epoch {epoch}: Training...")):
                 if self._preempted:
                     self._stop_mid_epoch(epoch, i, best_criterion)
                     return best_criterion, best_epoch
-                self.state, metrics = self.train_step(
-                    self.state, self._train_batch(batch, aug_generator), generator, epoch)
+                batch = self._train_batch(batch, aug_generator)
+                batch.update(isw_extra)
+                self.state, metrics = self.train_step(self.state, batch, generator, epoch)
         # the loss is read back once per epoch: a per-batch read would
         # wait for the card every step
         train_loss = float(metrics["loss_total"]) if metrics is not None else float("nan")
@@ -366,6 +398,23 @@ class DGTrainer:
             self._save_last(epoch, best_criterion)
         return best_criterion, best_epoch
 
+    def _isw_masks(self):
+        """The tracker's (masks, nums, margins) on the device, for every
+        train batch of an epoch; {} without a tracker."""
+        if self.isw_tracker is None:
+            return {}
+        trees = self.isw_tracker.mask_batch()
+        return {key: {k: v.to(self.device) for k, v in tree.items()}
+                for key, tree in zip(("isw_masks", "isw_nums", "isw_margins"), trees)}
+
+    def _cov_pass(self, sample):
+        """ISW's covariance statistics of a val sample's two views, into
+        the tracker."""
+        with self.counter.evaluating():
+            for x2 in covariance_views(self.counter, sample, self.patch_size):
+                stats = self.model.cov_stats(x2)
+                self.isw_tracker.add({k: v.cpu().numpy() for k, v in stats.items()})
+
     def validate(self, epoch: int, best_criterion: float) -> float:
         crit = AverageMeter()
         extra = DictAvgMeter()
@@ -374,9 +423,13 @@ class DGTrainer:
             for sample in self._progress(self.loaders["val"],
                                          f"Epoch {epoch}: Validating..."):
                 pred = self.counter.count(sample["img1"])
+                if self.isw_tracker is not None and "img2" in sample:
+                    self._cov_pass(sample)
                 gt_count = float(len(sample["gt"]))
                 crit.update(abs(pred - gt_count))
                 extra.update({"mse": (pred - gt_count) ** 2})
+        if self.isw_tracker is not None and self.isw_tracker.has_stats():
+            self.isw_tracker.set_mask_matrix()
         self.log(f"Epoch {epoch}: Val criterion: {crit.avg:.4f}", end=" ")
         for k, v in extra.avg.items():
             self.log(f"{k}: {v:.4f}", end=" ")

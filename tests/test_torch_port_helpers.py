@@ -2,6 +2,9 @@
 one JAX DGModel and its port twin with the same seeded weights, and the
 time limit of a test that starts process workers.
 
+The whitening family's tests share ``randomize_whitening``,
+``variable_shapes``, ``close`` and ``close_grads``.
+
 Weights come from numpy (``np.random.default_rng``), go into the JAX
 variables, and reach the port through its own bridge
 (``dgvcc_tpu_torch.nn.convert.dg_state_dict_from_flax``). Batch-norm
@@ -78,6 +81,63 @@ def nchw(x_nhwc: np.ndarray) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
     return x.detach().float().numpy().transpose(0, 2, 3, 1)
+
+
+# ---- the whitening family's tests
+
+def close(got, want, rel, what="", floor=1e-30):
+    """max |got - want| <= rel * max(max |want|, floor)."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), floor)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= rel, f"{what}: max |diff| / max |want| = {err:.3e} > {rel}"
+
+
+def randomize_whitening(tree, rng):
+    """Seeded leaves: He-normal kernels, small biases, norm scales and SW
+    affine weights in [0.5, 1.5], BN variances in [0.5, 2], SW mix logits
+    N(0, 0.5), SPD SW running covariances."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = randomize_whitening(v, rng)
+            continue
+        s = tuple(v.shape)
+        if k == "kernel":
+            a = rng.normal(0, np.sqrt(2.0 / np.prod(s[:-1])), s)
+        elif k in ("scale", "weight"):
+            a = rng.uniform(0.5, 1.5, s)
+        elif k == "var":
+            a = rng.uniform(0.5, 2.0, s)
+        elif k == "running_cov":
+            g, c, _ = s
+            m = rng.normal(0, 1, (g, c, 2 * c))
+            a = 0.5 * m @ m.transpose(0, 2, 1) / (2 * c) + 0.5 * np.eye(c)
+        elif k.startswith("sw_"):
+            a = rng.normal(0, 0.5, s)
+        else:  # bias, mean, running_mean
+            a = rng.normal(0, 0.1, s)
+        out[k] = a.astype(np.float32)
+    return out
+
+
+def variable_shapes(module, x, **kw):
+    """The shapes of a module's variables (``randomize_whitening`` fills them)."""
+    v = jax.eval_shape(lambda: module.init({"params": jax.random.PRNGKey(0)},
+                                           jnp.asarray(x), **kw))
+    return unfreeze(v.get("params", {})), unfreeze(v.get("batch_stats", {}))
+
+
+def close_grads(model, want_grads, rel):
+    """Every parameter's gradient within ``rel`` in relative norm (against
+    1e-3 of the largest gradient norm at least)."""
+    floor = 1e-3 * max(float(v.norm()) for v in want_grads.values())
+    for name, p in model.named_parameters():
+        want = want_grads[name].float()
+        err = float((p.grad - want).norm()) / max(float(want.norm()), floor)
+        assert err <= rel, f"d{name}: ||diff|| / ||want|| = {err:.3e} > {rel}"
 
 
 POOL_SECONDS = 120  # the time limit of a test that starts process workers

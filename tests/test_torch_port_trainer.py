@@ -246,13 +246,14 @@ def test_checkpoint_load_is_nonstrict_unless_asked(root, tmp_path):
         t.load_ckpt(path, strict=True)
     with pytest.raises(ValueError, match="not a .pth, .pt or .ckpt"):
         t.load_ckpt(str(tmp_path / "last.msgpack"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         t.load_ckpt([path, path])
 
 
 @pytest.mark.parametrize("key,value", [
     *((k, 1 if k != "ema" else 0.999) for k in ptrainer.UNPORTED_KEYS),
-    ("mesh", {"data": 2}), *(("mode", m) for m in ptrainer.UNPORTED_MODES)])
+    ("mesh", {"data": 2}), ("mesh", {"model": 2}),
+    *(("mode", m) for m in ptrainer.UNPORTED_MODES)])
 def test_unported_config_keys_raise(root, tmp_path, key, value):
     cfg = _cfg(root, tmp_path, "x")
     cfg[key] = value
@@ -263,7 +264,7 @@ def test_unported_config_keys_raise(root, tmp_path, key, value):
 def test_unported_model_family_raises(root, tmp_path):
     cfg = _cfg(root, tmp_path, "x")
     cfg["model"] = {"name": "csrnet", "params": {}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         DGTrainer(Config.from_dict(cfg), device="cpu").build()
 
 

@@ -91,18 +91,45 @@ Phases, each of which exits non-zero on failure:
    6's files for 2 epochs: masks after epoch 0's validation, the JAX
    trainer's log lines, ``last`` / ``best_*``, ``--task test`` from best_*
    on the command line against the in-process MAE, and VideoCounter
-   serving best_*.
+   serving best_*;
+9. HTTP serving and the fleet (``final``, bf16): a CountingServer over
+   phase 3's counter (max batch 16, window 5 ms) takes 64 distinct
+   768x1024 JPEGs (quality 90) from 1, 4 and 16 concurrent clients
+   (scripts/stress_torch_http.py in a process of its own): each count
+   within 1e-2 of count_frames on that frame alone, /metrics equal to
+   /stats, a mean batch above 1 at 16 clients; req/s, p50 / p95, mean
+   batch and /stats fps beside phase 4's frames/s. Then the fleet through
+   the command line: configs/sta_final.yml, 2 replicas on the one card
+   (--devices 0,0), restart on; 8 clients: both replicas serve, counts
+   within 1e-2 of the same weights in process; one replica SIGKILLed
+   mid-run: no client error, the summed /stats never fall, the replica
+   comes back on a new port; req/s and each replica's seconds to ready;
+10. the U-Net regressors: dgnet in modes simple (sta_reg_base.yml) and
+   discrimination (sta_dis.yml), reg_mem in mode regression (sta_reg.yml),
+   10 steps each on a repeated B=16 two-view batch of 320^2 (every loss
+   part finite, no launch of #2 / #3; ms/step on the host clock and in
+   device time, peak memory); dgnet, dgnet_cls, reg and reg_mem serving
+   768x1024 at B=4 in bf16 against the same weights in float32 (2e-2 of
+   the map's mass, the classifier's binarised gate taken from the f32
+   twin), frames/s, and reg_mem's bank through kernel #1 against the
+   einsum path (2e-2), once per forward; then DGTrainer.train_and_test on
+   phase 6's files: sta_reg_base.yml for 2 epochs (800-px tiles, a test
+   after each epoch, ``--task test`` on the command line within 1e-3 of the
+   in-process MAE) and sta_reg.yml for 1 epoch (finite losses, #1 in every
+   validation and test forward).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repo, the script exits non-zero and prints no result.
 """
 
+import io
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1363,7 +1390,8 @@ class _AbsMap(torch.nn.Module):
         self.model = model
 
     def forward(self, x):
-        return self.model(x).abs()
+        out = self.model(x)
+        return (out[0] if isinstance(out, tuple) else out).abs()
 
 
 def serve_whitening(gpu):
@@ -1706,6 +1734,478 @@ def check_cli(frames, VideoCounter):
                  "VideoCounter")
 
 
+# ---- phase 9: HTTP serving and the fleet -----------------------------------
+
+HTTP_FRAMES = 64                    # distinct 768x1024 JPEGs (quality 90), posted in turn
+HTTP_CLIENTS = (1, 4, 16)           # concurrent clients, HTTP_FRAMES requests each
+HTTP_MAX_BATCH, HTTP_WINDOW = 16, 0.005
+TOL_HTTP = 1e-2                     # a count through the server vs count_frames on that
+#                                     frame alone, relative to max(|c|, 1): in a batch of
+#                                     up to 16 the bf16 convolutions take other algorithms
+FLEET_CLIENTS, FLEET_REQUESTS = 8, 32
+FLEET_KILL_REQUESTS = 96            # the run in which one replica is SIGKILLed
+FLEET_READY_S = 300
+
+
+def _stress_tool():
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import stress_torch_http
+
+    return stress_torch_http
+
+
+def _check_http_counts(label, counts, want):
+    worst = 0.0
+    for k, cs in counts.items():
+        for c in cs:
+            worst = max(worst, abs(c - want[k]) / max(abs(want[k]), 1.0))
+    log(f"{label}: counts vs count_frames on each frame alone: max relative diff "
+        f"{worst:.3e} (tol {TOL_HTTP})")
+    if not worst <= TOL_HTTP:
+        fail(f"{label}: a count through the server disagrees with count_frames")
+    return worst
+
+
+def http_phase(ma, counter, serve_fps, gpu):
+    """Phase 9a: an in-process CountingServer over phase 3's counter (final,
+    bf16, seed 0): 64 distinct JPEGs from 1, 4 and 16 clients, each load
+    from scripts/stress_torch_http.py in a process of its own (its threads
+    do not take the server's GIL). Returns what it measured and kernel #1's
+    launches in the served run."""
+    import urllib.request
+
+    from PIL import Image
+
+    from dgvcc_tpu_torch.serve_http import METRICS, CountingServer
+
+    st = _stress_tool()
+    t0 = time.perf_counter()
+    bodies = st.encode_frames(HTTP_FRAMES, *FRAME, seed=90, quality=90)
+    decoded = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in bodies]
+    want = [float(counter.count_frames(f[None])[0]) for f in decoded]
+    log(f"http: {HTTP_FRAMES} JPEGs of {FRAME[0]}x{FRAME[1]} encoded, decoded and counted "
+        f"alone in {time.perf_counter() - t0:.1f}s")
+    srv = CountingServer(counter, port=0, model_name="final", max_batch=HTTP_MAX_BATCH,
+                         batch_window=HTTP_WINDOW)
+    srv.start()
+    url = f"http://127.0.0.1:{srv.port}"
+    res = {}
+    # as the command line's --http: with cuDNN's benchmark on (phase 3) each
+    # new micro-batch size would time every convolution's algorithms first
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        ma.LAUNCHES = 0
+        st.post_count(url, bodies[0])
+        for clients in HTTP_CLIENTS:
+            path = os.path.join(tempfile.gettempdir(), f"chip_smoke_http_{clients}.json")
+            out = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "scripts", "stress_torch_http.py"),
+                 "--url", url, "--clients", str(clients), "--requests", str(HTTP_FRAMES),
+                 "--frames", str(HTTP_FRAMES), "--hw", *map(str, FRAME), "--seed", "90",
+                 "--quality", "90", "--json", path],
+                capture_output=True, text=True, timeout=600, cwd=ROOT)
+            if out.returncode or not os.path.exists(path):
+                fail(f"http {clients} clients: the load exited {out.returncode}:\n"
+                     f"{out.stderr[-3000:]}")
+            with open(path) as f:
+                r = json.load(f)
+            os.remove(path)
+            if r["errors"] or r["requests"] != HTTP_FRAMES:
+                fail(f"http {clients} clients: {r['errors']} errors, {r['requests']} answers")
+            counts = {int(k): v for k, v in r.pop("counts").items()}
+            r["max_rel_diff"] = _check_http_counts(f"http {clients} clients", counts, want)
+            log(f"http POST /count, {clients} clients x {HTTP_FRAMES} JPEG 768x1024, final "
+                f"bf16: {r['req_per_s']:.2f} req/s, p50 {r['p50_ms']:.2f} ms, p95 "
+                f"{r['p95_ms']:.2f} ms, mean batch {r['mean_batch']:.2f}, /stats fps "
+                f"{r['device_fps']:.2f} (count_frames in phase 4: B=1 {serve_fps[1]:.2f}, "
+                f"B=4 {serve_fps[4]:.2f}, B=16 {serve_fps[16]:.2f} frames/s) [{gpu}]")
+            res[clients] = r
+        launches = ma.LAUNCHES
+        if not res[HTTP_CLIENTS[-1]]["mean_batch"] > 1:
+            fail(f"http: mean batch {res[HTTP_CLIENTS[-1]]['mean_batch']} at "
+                 f"{HTTP_CLIENTS[-1]} clients, not above 1")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+        stats = st.get_json(url, "/stats")
+        values = dict(ln.split() for ln in text.splitlines() if not ln.startswith("#"))
+        for name, key in METRICS:
+            want_v = stats[key] - (key == "requests")  # the /stats request after it
+            if float(values[name]) != want_v:
+                fail(f"http /metrics {name} {values[name]} != /stats {key} {want_v}")
+        log(f"http /metrics equals /stats: frames {stats['frames']}, batches "
+            f"{stats['batches']}, requests {stats['requests']}, device_s "
+            f"{stats['device_s']:.3f}; kernel #1 launched {launches}x")
+        if launches == 0:
+            fail("http: the served run never launched kernel #1")
+    finally:
+        srv.shutdown()
+        torch.backends.cudnn.benchmark = benchmark
+    return res, launches, bodies, decoded
+
+
+def fleet_phase(bodies, decoded, gpu):
+    """Phase 9b: the fleet on the one card, configs/sta_final.yml
+    (checkpoint null: seed 2112), 2 replicas of the command line's --http
+    (--devices 0,0), restart on."""
+    import threading
+
+    from dgvcc_tpu_torch.serve import VideoCounter
+    from dgvcc_tpu_torch.serve_fleet import FleetServer
+
+    st = _stress_tool()
+    bodies = bodies[:16]
+    ref = VideoCounter.from_checkpoint("final", None, dtype=torch.bfloat16, seed=2112)
+    want = [float(ref.count_frames(f[None])[0]) for f in decoded[:16]]
+    del ref
+    torch.cuda.empty_cache()
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    fleet = FleetServer(os.path.join(ROOT, "configs", "sta_final.yml"), replicas=2,
+                        devices=["0", "0"], port=0, host="127.0.0.1", batch=HTTP_MAX_BATCH,
+                        restart=True, probe_s=0.5)
+    url = None
+    try:
+        t0 = time.perf_counter()
+        fleet.start(ready_timeout=FLEET_READY_S)
+        url = f"http://127.0.0.1:{fleet.port}"
+        deadline = time.monotonic() + FLEET_READY_S
+        while st.get_json(url, "/healthz")["status"] != "ok":
+            if time.monotonic() > deadline:
+                fail("fleet: the two replicas did not both come up")
+            time.sleep(0.25)
+        ready = [round(r.ready_s, 3) for r in fleet.replicas]
+        log(f"fleet: 2 replicas on card 0 ready in {ready} s (from spawn; both up "
+            f"{time.perf_counter() - t0:.1f}s after the start) [{gpu}]")
+        st.post_count(url, bodies[0])
+        st.post_count(url, bodies[1])  # each replica's first forward, untimed
+        r = st.load_report(url, bodies, FLEET_CLIENTS, FLEET_REQUESTS)
+        if r["errors"]:
+            fail(f"fleet: {r['errors']} client errors")
+        _check_http_counts("fleet", r.pop("counts"), want)
+        per = st.get_json(url, "/stats")["replicas"]
+        frames = [p["frames"] for p in per]
+        log(f"fleet POST /count, {FLEET_CLIENTS} clients x {FLEET_REQUESTS} JPEG 768x1024: "
+            f"{r['req_per_s']:.2f} req/s, p50 {r['p50_ms']:.2f} ms, p95 {r['p95_ms']:.2f} ms, "
+            f"mean batch {r['mean_batch']:.2f}; replicas' frames {frames} [{gpu}]")
+        if len(frames) != 2 or not all(f > 0 for f in frames):
+            fail(f"fleet: a replica served no frame ({frames})")
+
+        # SIGKILL one replica mid-run: no client error, the sums never fall
+        totals, stop = [], threading.Event()
+
+        def monitor():
+            while not stop.is_set():
+                s = st.get_json(url, "/stats")
+                totals.append((s["frames"], s["batches"], s["device_s"]))
+                time.sleep(0.1)
+
+        mon = threading.Thread(target=monitor, daemon=True)
+        mon.start()
+        loaded = {}
+        load = threading.Thread(target=lambda: loaded.update(
+            r=st.run_load(url, bodies, FLEET_CLIENTS, FLEET_KILL_REQUESTS)))
+        start_frames = st.get_json(url, "/stats")["frames"]
+        load.start()
+        victim = fleet.replicas[0]
+        old_port = victim.port
+        while st.get_json(url, "/stats")["frames"] < start_frames + 16 and load.is_alive():
+            time.sleep(0.02)
+        mid_run = load.is_alive()
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        load.join(timeout=600)
+        wall, counts, _, errors = loaded["r"]
+        log(f"fleet: replica :{old_port} SIGKILLed {'during' if mid_run else 'AFTER'} a run "
+            f"of {FLEET_KILL_REQUESTS} requests: {len(errors)} client errors, "
+            f"{sum(map(len, counts.values()))} answers in {wall:.2f}s")
+        if not mid_run or errors:
+            fail(f"fleet: the kill was not mid-run ({mid_run}) or clients saw errors "
+                 f"{errors[:3]}")
+        _check_http_counts("fleet through the kill", counts, want)
+        deadline = time.monotonic() + FLEET_READY_S
+        while not (victim.restarts >= 1 and victim.healthy and victim.ready_s is not None):
+            if time.monotonic() > deadline:
+                fail("fleet: the killed replica was not respawned")
+            time.sleep(0.25)
+        r2 = st.load_report(url, bodies, FLEET_CLIENTS, FLEET_REQUESTS)
+        stop.set()
+        mon.join(timeout=60)
+        if r2["errors"]:
+            fail(f"fleet after the respawn: {r2['errors']} client errors")
+        falls = [(a, b) for a, b in zip(totals, totals[1:])
+                 if any(y < x for x, y in zip(a, b))]
+        log(f"fleet: respawned on :{victim.port} (was :{old_port}), ready in "
+            f"{victim.ready_s:.3f}s; {len(totals)} /stats reads through the kill and "
+            f"respawn, frames {totals[0][0]} -> {totals[-1][0]}, falls {len(falls)}; after it "
+            f"(its first forwards included): {r2['req_per_s']:.2f} req/s [{gpu}]")
+        if falls or victim.port == old_port:
+            fail(f"fleet: the summed /stats fell ({falls[:3]}) or the port was reused")
+        return {"req_per_s": r["req_per_s"], "p50_ms": r["p50_ms"], "p95_ms": r["p95_ms"],
+                "ready_s": ready, "respawn_ready_s": victim.ready_s}
+    finally:
+        fleet.shutdown()
+        if any(rep.alive() for rep in fleet.replicas):
+            fail("fleet: a replica outlived the shutdown")
+
+
+# ---- phase 10: the U-Net regressors ----------------------------------------
+
+REGRESSOR_TRAIN = (("dgnet", "sta_reg_base.yml"), ("dgnet", "sta_dis.yml"),
+                   ("reg_mem", "sta_reg.yml"))
+REGRESSORS_SERVED = ("dgnet", "dgnet_cls", "reg", "reg_mem")
+REGRESSOR_STEPS = 10
+TOL_REGRESSOR_COUNTS = 2e-2         # bf16 vs f32 counts, relative to the map's mass, with
+#                                     the f32 twin's classifier gate: a gate binarised at
+#                                     0.5 flips whole 16x16 blocks on bf16 noise (the JAX
+#                                     package's own bf16 `reg` moves 2-26% of the mass so,
+#                                     its ungated density 0.1-0.6%: scripts/bf16_drift.py)
+# where a regressor's stride-16 classifier map sits in its output
+CLS_OF = {"dgnet_cls": lambda out: out[1][1], "reg": lambda out: out[2],
+          "reg_mem": lambda out: out[1]}
+
+
+def regressor_state(config):
+    """A regressor config's model at full width, seeded, bf16 compute, f32
+    AdamW with the OneCycle lr of epoch 0; its train step."""
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.config import load_config
+    from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+    from dgvcc_tpu_torch.train.state import create_train_state
+    from dgvcc_tpu_torch.train.steps import build_train_step
+
+    cfg = load_config(os.path.join(ROOT, "configs", config))
+    model = MODELS.build(cfg.model["name"], dtype=torch.bfloat16,
+                         **cfg.model.get("params", {}))
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    state = create_train_state(model, cfg.optimizer, cfg.scheduler)
+    step = build_train_step(model, LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {})),
+                            cfg.mode, cfg.log_para)
+    return cfg, state, step
+
+
+def train_regressors(mt, gpu):
+    """dgnet (simple, discrimination) and reg_mem (regression): 10 steps on
+    a repeated B=16 two-view batch of 320^2 crops; every loss part finite;
+    ms/step on the host clock and in device time, peak memory."""
+    batch = {k: v.contiguous(memory_format=torch.channels_last)
+             for k, v in synthetic_batch(4).items()}
+    out = {}
+    mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    for name, config in REGRESSOR_TRAIN:
+        cfg, state, step = regressor_state(config)
+        dropout = torch.Generator(device="cuda").manual_seed(cfg.seed)
+
+        def run():
+            return step(state, batch, dropout, 0)[1]
+
+        metrics = [{k: v.item() for k, v in run().items()} for _ in range(REGRESSOR_STEPS)]
+        label = f"{name} ({cfg.mode}, {config})"
+        log(f"train {label}, {REGRESSOR_STEPS} steps: "
+            + "; ".join(f"{k} {[round(m[k], 4) for m in metrics]}" for k in metrics[0]))
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            fail(f"train {label}: a loss part is not finite")
+        ms, peak = time_steps(run, label, gpu)
+        dev, top = device_ms_total(run, 3)
+        log(f"train {label}: {dev:.3f} ms of device time a step; largest: "
+            f"{', '.join(f'{n} {t:.3f}' for n, t in top[:3])} [{gpu}]")
+        out[config] = {"ms_per_step": ms, "device_ms": dev, "peak_gib": peak,
+                       "losses": [m["loss_total"] for m in metrics]}
+        del state, step
+        torch.cuda.empty_cache()
+    if mt.FWD_LAUNCHES or mt.BWD_LAUNCHES:
+        fail("train regressors: reg_mem's forward_train must take the einsum path, not "
+             "kernels #2/#3")
+    return out
+
+
+class _GatedBy(torch.nn.Module):
+    """A regressor whose binarised classifier gate (``c_gt``) comes from its
+    f32 twin, so that only the bf16 path's arithmetic moves its count."""
+
+    def __init__(self, model, twin, cls_of):
+        super().__init__()
+        self.model, self.twin, self.cls_of = model, twin, cls_of
+
+    def forward(self, x):
+        c = self.cls_of(self.twin(x.float()))
+        return self.model(x, c_gt=(c >= 0.5).float())[0]
+
+
+def serve_regressors(ma, gpu):
+    """Each family through VideoCounter at B=4, 768x1024: bf16 against the
+    same counter in f32 (2e-2 of the map's mass, with the f32 classifier's
+    gate where there is one; the served counts' own drift logged beside),
+    frames/s; reg_mem's bank through kernel #1 against the einsum path
+    (2e-2), with #1's launches."""
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    frames = np.random.default_rng(10).integers(0, 256, (4,) + FRAME + (3,), dtype=np.uint8)
+    fps, errs, launches = {}, {}, 0
+    # the f32 counter in float32, not TF32 (phase 8's whitening refuses TF32 itself)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for name in REGRESSORS_SERVED:
+        bf16, f32 = (VideoCounter.from_checkpoint(name, None, dtype=dt, seed=10)
+                     for dt in (torch.bfloat16, torch.float32))
+        mass = VideoCounter(_AbsMap(f32.model), dtype=torch.float32)
+        ma.LAUNCHES = 0
+        got = bf16.count_frames(frames)
+        n = ma.LAUNCHES
+        launches += n
+        want = f32.count_frames(frames)
+        scale = max(float(mass.count_frames(frames).max()), 1.0)
+        served = float(np.abs(got - want).max()) / scale
+        gated = got
+        if name in CLS_OF:
+            with torch.no_grad():
+                gated = VideoCounter(_GatedBy(bf16.model, f32.model, CLS_OF[name]),
+                                     dtype=torch.bfloat16).count_frames(frames)
+        errs[name] = {"served": served, "gated": float(np.abs(gated - want).max()) / scale}
+        log(f"{name} count_frames B=4 768x1024 bf16: counts {np.round(got, 3).tolist()}, f32 "
+            f"{np.round(want, 3).tolist()}: {served:.4f} of the mass {scale:.4g}"
+            + (f"; with the f32 classifier's gate {np.round(gated, 3).tolist()}: "
+               f"{errs[name]['gated']:.4f}" if name in CLS_OF else "")
+            + f" (tol {TOL_REGRESSOR_COUNTS})")
+        if not np.isfinite(got).all() or errs[name]["gated"] > TOL_REGRESSOR_COUNTS:
+            fail(f"{name} count_frames: bf16 counts disagree with f32")
+        if name == "reg_mem":
+            plain = VideoCounter.from_checkpoint(name, None, dtype=torch.bfloat16, seed=10,
+                                                 fused_mem=False)
+            ma.LAUNCHES = 0
+            check_counts("reg_mem count_frames B=4 768x1024, kernel #1", got,
+                         plain.count_frames(frames))
+            log(f"reg_mem serving: kernel #1 launched {n}x for one B=4 call")
+            if n != 1 or ma.LAUNCHES:
+                fail("reg_mem serving: kernel #1 not launched once per forward, or the "
+                     "einsum counter launched it")
+            del plain
+        elif n:
+            fail(f"{name} serving launched kernel #1 (it has no bank)")
+        bf16.count_frames(frames)
+        torch.cuda.synchronize()
+        ma.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(6):
+            bf16.count_frames(frames)
+        fps[name] = 24 / (time.perf_counter() - t0)
+        launches += ma.LAUNCHES
+        log(f"serve {name} count_frames B=4 768x1024 bf16: {fps[name]:.2f} frames/s [{gpu}]")
+        del bf16, f32, mass
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return fps, errs, launches
+
+
+class _Tee(io.StringIO):
+    """Standard output kept while it is printed."""
+
+    def write(self, s):
+        sys.__stdout__.write(s)
+        return super().write(s)
+
+
+def regressor_file_runs(ma, mt, tmp, gpu):
+    """DGTrainer.train_and_test on phase 6's files: sta_reg_base.yml (dgnet)
+    for 2 epochs (800-px tiles, a test after each epoch, --task test on the
+    command line against the in-process MAE), then sta_reg.yml (reg_mem,
+    regression) for 1 epoch (#1 in validation and test)."""
+    import contextlib
+
+    import yaml
+
+    from dgvcc_tpu_torch.core.config import Config
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    def config(name, epochs):
+        with open(os.path.join(ROOT, "configs", f"{name}.yml")) as f:
+            raw = yaml.safe_load(f)
+        for split in ("train", "val", "test"):
+            raw[f"{split}_dataset"] = dict(raw[f"{split}_dataset"], params=dict(
+                raw[f"{split}_dataset"]["params"], root=os.path.join(tmp, "data")))
+        raw.update(num_epochs=epochs, log_dir=os.path.join(tmp, f"logs_{name}"))
+        path = os.path.join(tmp, f"{name}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)
+        return raw, path
+
+    raw, cfg_path = config("sta_reg_base", 2)
+    trainer = DGTrainer(Config.from_dict(raw))
+    t0 = time.perf_counter()
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        trainer.train_and_test()
+    text = open(os.path.join(trainer.log_dir, "log.txt")).read()
+    losses = [float(x) for x in re.findall(r"Training loss: (\S+)", text)]
+    maes = [float(x) for x in re.findall(r"Testing results: mae: (\S+)", text)]
+    said = "validation and test on tiles of 800 px" in tee.getvalue()
+    log(f"[sta_reg_base.yml] dgnet train_and_test 2 epochs: {time.perf_counter() - t0:.1f}s; "
+        f"eval tile {trainer.counter.patch_size} px (printed: {said}); losses {losses}; test "
+        f"MAE after each epoch {maes} [{gpu}]")
+    if trainer.counter.patch_size != 800 or not said:
+        fail("[sta_reg_base.yml] dgnet does not evaluate on 800-px tiles")
+    if len(maes) != 2 or len(losses) != 2 or not all(map(math.isfinite, losses + maes)):
+        fail("[sta_reg_base.yml] not one finite test block after each epoch")
+    patterns = [re.compile(p.pattern.replace("sta_final", "sta_reg_base")) for p in LOG_LINES]
+    for line in text.splitlines():
+        if not any(p.fullmatch(line) for p in patterns):
+            fail(f"[sta_reg_base.yml] log.txt line not of the JAX trainer's shapes: {line!r}")
+    last = os.path.join(trainer.log_dir, "last.pth")
+    want = trainer.test(checkpoint=last)
+    out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", "--config", cfg_path,
+                          "--task", "test", "--ckpt", last], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    if out.returncode:
+        fail(f"[sta_reg_base.yml] CLI test exited {out.returncode}:\n{out.stderr[-3000:]}")
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("Testing results:")]
+    got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
+    log(f"[sta_reg_base.yml] CLI --task test last.pth: {line[-1] if line else None}; in "
+        f"process: mae {want['mae']:.4f}")
+    if "mae" not in got or abs(float(got["mae"]) - want["mae"]) > TOL_CLI_TEST * max(
+            want["mae"], 1.0):
+        fail(f"[sta_reg_base.yml] CLI --task test mae {got.get('mae')} != in-process "
+             f"{want['mae']}")
+
+    raw, _ = config("sta_reg", 1)
+    trainer = DGTrainer(Config.from_dict(raw))
+    ma.LAUNCHES = mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    trainer.train_and_test()
+    launches = ma.LAUNCHES
+    text = open(os.path.join(trainer.log_dir, "log.txt")).read()
+    losses = [float(x) for x in re.findall(r"Training loss: (\S+)", text)]
+    maes = [float(x) for x in re.findall(r"(?:Val criterion|Testing results: mae): (\S+)",
+                                         text)]
+    n_eval = len(trainer.loaders["val"]) + len(trainer.loaders["test"])
+    log(f"[sta_reg.yml] reg_mem regression 1 epoch: {time.perf_counter() - t0:.1f}s; loss "
+        f"{losses}, val and test MAE {maes}; kernel #1 launched {launches}x over "
+        f"{n_eval} val and test images; #2 / #3 {mt.FWD_LAUNCHES} / {mt.BWD_LAUNCHES} [{gpu}]")
+    if len(losses) != 1 or len(maes) != 2 or not all(map(math.isfinite, losses + maes)):
+        fail("[sta_reg.yml] a loss or MAE is missing or not finite")
+    if launches < n_eval:
+        fail("[sta_reg.yml] validation and test did not run through kernel #1")
+    return {"dgnet_test_mae": maes, "reg_mem_launches": launches}, launches
+
+
+def regressor_phase(ma, mt, tmp, gpu):
+    """Phase 10: the U-Net regressors. Returns what it measured and kernel
+    #1's launches over its in-process paths."""
+    t0 = time.perf_counter()
+    res = {"train": train_regressors(mt, gpu)}
+    res["fps_b4"], res["bf16_err"], serve_launches = serve_regressors(ma, gpu)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False  # as the command line's --task test
+    try:
+        res["files"], file_launches = regressor_file_runs(ma, mt, tmp, gpu)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    launches = {"memory_attention_fused": serve_launches + file_launches,
+                "memory_attention_train_fwd": mt.FWD_LAUNCHES,
+                "memory_attention_train_bwd": mt.BWD_LAUNCHES}
+    log(f"phase 10 (regressors): {time.perf_counter() - t0:.1f}s; kernel launches {launches}")
+    return res, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("[chip_smoke] CUDA is not available: this script runs on an "
@@ -1820,6 +2320,7 @@ def main():
 
     # ---- 4. times ---------------------------------------------------------
     log(f"card: {gpu}")
+    serve_fps = {}
     for b in (1, 4, 16):
         f = np.ascontiguousarray(batches[0][:b])
         for c in (counter, plain):
@@ -1832,6 +2333,8 @@ def main():
             for _ in range(iters):
                 c.count_frames(f)
             dt = time.perf_counter() - t0
+            if c is counter:
+                serve_fps[b] = b * iters / dt
             log(f"serve count_frames B={b} 768x1024 bf16 {label}: "
                 f"{b * iters / dt:.2f} frames/s ({1e3 * dt / (b * iters):.3f} "
                 f"ms/frame) [{gpu}]")
@@ -1884,6 +2387,15 @@ def main():
 
         # ---- 8. the whitening family (sw, ibn, isw, sw_vgg, DenseNets) -----
         _, whiten_launches = whitening_phase(ma, mt, tmp, gpu)
+
+        # ---- 9. HTTP serving and the fleet ---------------------------------
+        t0 = time.perf_counter()
+        _, http_launches, bodies, decoded = http_phase(ma, counter, serve_fps, gpu)
+        fleet_phase(bodies, decoded, gpu)
+        log(f"phase 9 (HTTP serving and the fleet): {time.perf_counter() - t0:.1f}s")
+
+        # ---- 10. the U-Net regressors (dgnet, dgnet_cls, reg, reg_mem) -------
+        _, regressor_launches = regressor_phase(ma, mt, tmp, gpu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f}s")
@@ -1896,7 +2408,9 @@ def main():
                **{f"files {label}": n for label, n in file_launches.items()},
                "bigcrop accum_steps 4": {"memory_attention_train_fwd": big_launches[0],
                                          "memory_attention_train_bwd": big_launches[1]},
-               "whitening family (phase 8)": whiten_launches}
+               "whitening family (phase 8)": whiten_launches,
+               "http serving (phase 9)": {"memory_attention_fused": http_launches},
+               "regressors (phase 10)": regressor_launches}
 
     def total(name):
         return sum(n.get(name, 0) for n in by_path.values())

@@ -2,17 +2,20 @@
 
     python -m dgvcc_tpu_torch --config configs/X.yml \
         --task {train,test,vis,train_test,serve} [--ckpt x.pth] [--device cpu]
-        [--frames DIR] [--batch N]
+        [--frames DIR | --http PORT] [--batch N]
 
 Reads the JAX package's YAML configs (core/config.py). ``train``, ``test``,
 ``vis`` and ``train_test`` drive ``train/trainer.py::DGTrainer`` (the log
 dir gets a snapshot of the config; ``--task test`` needs a checkpoint).
-``--task serve`` streams per-frame counts over a directory of images and
-prints one ``name count`` line per frame and a throughput summary. The
+``--task serve --frames DIR`` streams per-frame counts over a directory of
+images and prints one ``name count`` line per frame and a throughput
+summary; ``--task serve --http PORT`` answers ``POST /count`` with image
+bytes (``serve_http.py``), ``--batch`` bounding its micro-batch. The
 device is ``cuda`` unless ``--device`` or the config's ``device:`` key
 starts with ``cpu``. The other tasks of ``python -m dgvcc_tpu`` are not
-ported yet: ``generate`` is ROADMAP.md Queue 1 item 2; ``quantize``, ``aot``
-and ``export`` are item 5.
+ported yet: ``generate`` is ROADMAP.md Queue 1 item 1; ``quantize``, ``aot``
+and ``export``, and serving's ``--quantize``, ``--artifact`` and ``--aot``,
+are item 4.
 """
 
 from __future__ import annotations
@@ -94,6 +97,22 @@ def _serve(cfg, frames_dir: str, batch: int, device: str):
           f"on {counter.device}")
 
 
+def _serve_http(cfg, port: int, batch: int, device: str, block: bool = True):
+    """``--task serve --http PORT``: POST /count with image bytes returns
+    {"count": N} (serve_http.py); ``batch`` bounds the request
+    micro-batch. ``block=False`` serves on a daemon thread and returns the
+    server (tests, embedding)."""
+    from dgvcc_tpu_torch.serve_http import CountingServer
+
+    counter = _build_counter(cfg, device)
+    srv = CountingServer(counter, host="0.0.0.0", port=port,
+                         model_name=cfg.model["name"], max_batch=batch)
+    if not block:
+        srv.start()
+        return srv
+    srv.serve_forever()
+
+
 def _trainer_task(cfg, config_path: str, task: str, device: str):
     from dgvcc_tpu_torch.train.trainer import DGTrainer
 
@@ -116,15 +135,20 @@ def _trainer_task(cfg, config_path: str, task: str, device: str):
 
 
 def run(config_path: str, task: str, frames: str = None, batch: int = 4,
-        ckpt: str = None, device: str = None):
+        ckpt: str = None, device: str = None, http: int = None,
+        quantize=False, artifact: str = None, aot: str = None, block: bool = True):
     from dgvcc_tpu_torch.core.config import load_config
     from dgvcc_tpu_torch.train.trainer import config_device
 
     if task not in ("train", "test", "vis", "train_test", "serve"):
-        item = 2 if task == "generate" else 5
+        item = 1 if task == "generate" else 4
         raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
                          f"yet; see ROADMAP.md, Queue 1 item {item} (use python -m "
                          "dgvcc_tpu for it)")
+    for flag, value in (("--quantize", quantize), ("--artifact", artifact), ("--aot", aot)):
+        if value:
+            raise SystemExit(f"{flag} is not ported to dgvcc_tpu_torch yet; see "
+                             "ROADMAP.md, Queue 1 item 4 (use python -m dgvcc_tpu for it)")
     cfg = load_config(config_path)
     if ckpt is not None:
         cfg.checkpoint = ckpt
@@ -132,8 +156,10 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         return _trainer_task(cfg, config_path, task, config_device(cfg, device))
     if isinstance(cfg.checkpoint, (list, tuple)):
         raise SystemExit("--task serve takes a single checkpoint path")
+    if http is not None:
+        return _serve_http(cfg, http, batch, config_device(cfg, device), block=block)
     if frames is None:
-        raise SystemExit("--task serve requires --frames DIR")
+        raise SystemExit("--task serve requires --frames DIR (or --http PORT)")
     _serve(cfg, frames, batch, config_device(cfg, device))
 
 
@@ -145,7 +171,18 @@ def build_parser():
     parser.add_argument("--frames", type=str, default=None,
                         help="image directory for --task serve")
     parser.add_argument("--batch", type=int, default=4,
-                        help="serving batch size")
+                        help="serving batch size (with --http: the request micro-batch's "
+                             "bound)")
+    parser.add_argument("--http", type=int, default=None,
+                        help="--task serve: listen on this port instead of reading "
+                             "--frames (POST /count, GET /healthz, /stats, /metrics)")
+    parser.add_argument("--quantize", nargs="?", const=True, default=False,
+                        choices=[True, False, "auto"], metavar="auto",
+                        help="int8 serving: not ported (ROADMAP.md, Queue 1 item 4)")
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="int8 artifact: not ported (ROADMAP.md, Queue 1 item 4)")
+    parser.add_argument("--aot", type=str, default=None,
+                        help="AOT program artifact: not ported (ROADMAP.md, Queue 1 item 4)")
     parser.add_argument("--ckpt", type=str, default=None,
                         help="override the config's checkpoint: key (.pth)")
     parser.add_argument("--device", type=str, default=None,
@@ -156,7 +193,8 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     run(args.config, args.task, frames=args.frames, batch=args.batch,
-        ckpt=args.ckpt, device=args.device)
+        ckpt=args.ckpt, device=args.device, http=args.http, quantize=args.quantize,
+        artifact=args.artifact, aot=args.aot)
 
 
 if __name__ == "__main__":

@@ -362,7 +362,7 @@ def _not_ported(name):
     def build(**_):
         raise NotImplementedError(
             f"dataset {name!r} is not ported to dgvcc_tpu_torch yet: it feeds the "
-            "Bayesian loss, ROADMAP.md Queue 1 item 3")
+            "Bayesian loss, ROADMAP.md Queue 1 item 2")
     DATASETS.register(name, build)
 
 

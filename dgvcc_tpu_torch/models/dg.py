@@ -84,10 +84,22 @@ class MemoryBank(nn.Module):
                     "fused_mem=False")
             y_new = memory_attention_fused(y_flat, mem)
         else:
-            logits = torch.matmul(y_flat.float(), mem.float()) / math.sqrt(k)
-            attn = torch.softmax(logits, dim=-1).to(self.dtype)
-            y_new = torch.matmul(attn.float(), mem.float().t()).to(y.dtype)
+            y_new, _ = self._einsum(y_flat, mem)
         return y_new.reshape(b, h, w, k).permute(0, 3, 1, 2)
+
+    def _einsum(self, y_flat, mem):
+        logits = torch.matmul(y_flat.float(), mem.float()) / math.sqrt(y_flat.shape[-1])
+        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        return torch.matmul(attn.float(), mem.float().t()).to(y_flat.dtype), logits
+
+    def with_logits(self, y: torch.Tensor, mem: torch.Tensor):
+        """The einsum path, whatever ``fused`` says, and its float32 logits:
+        y (B, K, H, W), mem (K, S) -> (y_new (B, K, H, W), logits (B, H*W, S))."""
+        b, k, h, w = y.shape
+        self._check(k)
+        y_new, logits = self._einsum(y.permute(0, 2, 3, 1).reshape(b, h * w, k),
+                                     mem.to(self.dtype))
+        return y_new.reshape(b, h, w, k).permute(0, 3, 1, 2), logits
 
     def pair(self, y1: torch.Tensor, y2: torch.Tensor, mem: torch.Tensor):
         """Two-view training attention and its consistency loss in one op:
@@ -337,7 +349,7 @@ class DGModel(nn.Module):
 
 # the model params of the reference YAML configs; `pretrained` (a
 # weight-loading flag, read by the trainer) and `tp_axis` (tensor
-# parallelism, ROADMAP.md Queue 1 item 4) are not taken
+# parallelism, ROADMAP.md Queue 1 item 3) are not taken
 _PARAM_NAMES = ("mem_size", "mem_dim", "den_dropout", "cls_dropout",
                 "cls_thrs", "err_thrs", "has_err_loss", "fused_mem",
                 "fused_mem_train", "batched_two_view", "remat", "vgg_cfg",

@@ -16,6 +16,17 @@ so this module needs neither JAX nor flax:
     ``cls_head.2``;
   * ``memory/mem`` (K, S) -> ``mem`` (1, K, S).
 
+``regressor_state_dict_from_flax`` does the same for the U-Net regressors
+(``models/regressors.py``): the inverse of the JAX package's
+``regressor_m_checkpoint_to_flax`` for ``reg_mem`` (``fe/stage*`` ->
+``stage*``, ``fe/dec3_0`` -> ``dec3.0``, ``den_head`` a direct block,
+``cls_conv1`` / ``cls_conv2`` -> ``cls_head.0`` / ``.2``), and the same
+convention for ``dgnet``, ``dgnet_cls`` and ``reg``, whose reference
+layout the JAX package does not read (``cls_dec`` / ``cls_out`` ->
+``cls_head.0`` / ``.2``; ``reg``'s ``den_head_blocks_k`` -> ``den_dec.{2k}``,
+``den_out`` -> ``den_head``, ``cls_head_blocks_k`` -> ``cls_head.{2k}``,
+``cls_out`` -> ``cls_head.6``).
+
 ``whitening_state_dict_from_flax`` does the same for the whitening
 counters (``models/whitening.py``): the inverse of the JAX package's
 ``sw_counter_checkpoint_to_flax``, ``ibn_counter_checkpoint_to_flax``,
@@ -26,7 +37,8 @@ converter by the model's layout.
 
 ``install_pretrained`` puts a torchvision state_dict into a model, as the
 JAX package's ``nn/torch_io.py::load_pretrained_backbone`` does:
-``vgg16_bn`` into a DGModel's ``enc1/enc2/enc3``; ``resnet50`` into the
+``vgg16_bn`` into a DGModel's ``enc1/enc2/enc3`` and a regressor's
+``stage1/2/3``; ``resnet50`` into the
 trunk of ``sw``, ``ibn`` and ``isw``, ``densenet121`` into the trunk of
 the DenseNet counters (both non-strict: what has no site of the same
 shape keeps its init), ``vgg19`` into ``sw_vgg``'s 16 convolutions.
@@ -68,6 +80,32 @@ def _conv(sd, prefix, p):
         sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def _stages(sd, params, batch_stats, names, stage_splits):
+    """VGG stages ``conv{i}`` / ``bn{i}`` (torchvision indices) -> ``{stage}.{i - lo}``."""
+    for stage, lo in zip(names, stage_splits[:3]):
+        for name, p in params[stage].items():
+            kind, idx = re.fullmatch(r"(conv|bn)(\d+)", name).groups()
+            prefix = f"{stage}.{int(idx) - lo}"
+            if kind == "conv":
+                _conv(sd, prefix, p)
+            else:
+                _bn(sd, prefix, p, batch_stats and batch_stats[stage][name])
+
+
+def _blocks(sd, params, batch_stats, torch_name):
+    """Flax ConvBlocks (``Conv_0`` / ``BatchNorm_0``) -> ``.conv`` / ``.bn``
+    under ``torch_name(flax name)``; the decoder's ``decN_j`` -> ``decN.j``."""
+    for name, p in params.items():
+        if not isinstance(p, Mapping) or "Conv_0" not in p:
+            continue
+        m = re.fullmatch(r"(dec\d)_(\d+)", name)
+        prefix = f"{m.group(1)}.{m.group(2)}" if m else torch_name(name)
+        _conv(sd, f"{prefix}.conv", p["Conv_0"])
+        if "BatchNorm_0" in p:
+            _bn(sd, f"{prefix}.bn", p["BatchNorm_0"],
+                batch_stats and batch_stats[name]["BatchNorm_0"])
+
+
 def dg_state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping],
                             stage_splits=(0, 23, 33, 43)) -> Dict[str, torch.Tensor]:
     """JAX DGModel variables -> the port's (reference-layout) state_dict.
@@ -79,23 +117,40 @@ def dg_state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping],
     holds the parameters' keys only (no running statistics).
     """
     sd: Dict[str, torch.Tensor] = {}
-    for enc, lo in zip(("enc1", "enc2", "enc3"), stage_splits[:3]):
-        for name, p in params[enc].items():
-            kind, idx = re.fullmatch(r"(conv|bn)(\d+)", name).groups()
-            prefix = f"{enc}.{int(idx) - lo}"
-            if kind == "conv":
-                _conv(sd, prefix, p)
-            else:
-                _bn(sd, prefix, p, batch_stats and batch_stats[enc][name])
-    for name, p in params.items():
-        if name.startswith("enc") or name == "memory":
-            continue
-        m = re.fullmatch(r"(dec\d)_(\d+)", name)
-        prefix = f"{m.group(1)}.{m.group(2)}" if m else _BLOCKS[name]
-        _conv(sd, f"{prefix}.conv", p["Conv_0"])
-        if "BatchNorm_0" in p:
-            _bn(sd, f"{prefix}.bn", p["BatchNorm_0"],
-                batch_stats and batch_stats[name]["BatchNorm_0"])
+    _stages(sd, params, batch_stats, ("enc1", "enc2", "enc3"), stage_splits)
+    _blocks(sd, params, batch_stats, _BLOCKS.__getitem__)
+    if "memory" in params:
+        sd["mem"] = _t(np.asarray(params["memory"]["mem"])[None])
+    return sd
+
+
+def _regressor_block(params: Mapping):
+    """flax name of a regressor's head block -> its torch name."""
+    cls_out = "cls_head.6" if "cls_head_blocks_0" in params else "cls_head.2"
+    fixed = {"den_dec": "den_dec.0", "den_head": "den_head", "den_out": "den_head",
+             "cls_conv1": "cls_head.0", "cls_conv2": "cls_head.2", "cls_dec": "cls_head.0",
+             "cls_out": cls_out}
+
+    def name(flax_name):
+        m = re.fullmatch(r"(den|cls)_head_blocks_(\d+)", flax_name)
+        if m:
+            return f"{'den_dec' if m.group(1) == 'den' else 'cls_head'}.{2 * int(m.group(2))}"
+        return fixed[flax_name]
+
+    return name
+
+
+def regressor_state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping],
+                                   stage_splits=(0, 23, 33, 43)) -> Dict[str, torch.Tensor]:
+    """JAX regressor variables (dgnet, dgnet_cls, reg, reg_mem) -> the port's
+    state_dict (the models2 layout; ``batch_stats=None`` as in
+    ``dg_state_dict_from_flax``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    fe_stats = batch_stats and batch_stats["fe"]
+    _stages(sd, params["fe"], fe_stats, ("stage1", "stage2", "stage3"), stage_splits)
+    _blocks(sd, params["fe"], fe_stats, None)
+    _blocks(sd, {k: v for k, v in params.items() if k != "fe"}, batch_stats,
+            _regressor_block(params))
     if "memory" in params:
         sd["mem"] = _t(np.asarray(params["memory"]["mem"])[None])
     return sd
@@ -208,9 +263,11 @@ def state_dict_from_flax(model: torch.nn.Module, params: Mapping,
                          batch_stats: Optional[Mapping]) -> Dict[str, torch.Tensor]:
     """JAX variables of ``model``'s family -> its state_dict."""
     layout = getattr(model, "flax_layout", None)
+    splits = getattr(model, "stage_splits", (0, 23, 33, 43))
     if layout is None:
-        return dg_state_dict_from_flax(params, batch_stats,
-                                       getattr(model, "stage_splits", (0, 23, 33, 43)))
+        return dg_state_dict_from_flax(params, batch_stats, splits)
+    if layout == "regressor":
+        return regressor_state_dict_from_flax(params, batch_stats, splits)
     return whitening_state_dict_from_flax(layout, params, batch_stats)
 
 
@@ -232,18 +289,20 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
 
 
 DG_FAMILY = ("base", "mem", "memadd", "cls", "memcls", "final")
+UNET_FAMILY = ("dgnet", "dgnet_cls", "reg", "reg_mem")
 # vgg16_bn features[:23] / [23:33] / [33:43] (reference models.py:36-38)
-VGG16_BN_STAGES = (("enc1", 0, 23), ("enc2", 23, 33), ("enc3", 33, 43))
+VGG16_BN_STAGES = ((0, 23), (23, 33), (33, 43))
 
 
-def vgg16_bn_to_dg(tv: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def vgg16_bn_to_dg(tv: Mapping[str, torch.Tensor],
+                   stages=("enc1", "enc2", "enc3")) -> Dict[str, torch.Tensor]:
     """torchvision ``vgg16_bn`` keys ``features.{i}.*`` -> the DGModel's
-    ``enc{1,2,3}.{i - lo}.*``: conv weight and bias, BN weight, bias and
-    running statistics."""
+    ``enc{1,2,3}.{i - lo}.*`` (a regressor's: ``stage{1,2,3}``): conv weight
+    and bias, BN weight, bias and running statistics."""
     sd: Dict[str, torch.Tensor] = {}
     fields = {"conv": ("weight", "bias"),
               "bn": ("weight", "bias", "running_mean", "running_var")}
-    for enc, lo, hi in VGG16_BN_STAGES:
+    for enc, (lo, hi) in zip(stages, VGG16_BN_STAGES):
         for kind, idx, _ in feature_layout(VGG16_CFG, True):
             if lo <= idx < hi and kind in fields:
                 for f in fields[kind]:
@@ -357,13 +416,16 @@ def install_pretrained(model: torch.nn.Module, model_name: str,
         with torch.no_grad():
             model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=False)
         return "vgg19 → conv sites (SW idx remap)"
-    if model_name in DG_FAMILY and "vgg16_bn" in weights:
-        sd = vgg16_bn_to_dg(load_reference_pth(weights["vgg16_bn"]))
-        unexpected = sorted(set(sd) - set(model.state_dict()))
-        if unexpected:
-            raise ValueError(f"{model_name}'s encoder is not vgg16_bn's layout: no "
-                             f"{unexpected[:3]}")
+    if model_name in DG_FAMILY + UNET_FAMILY and "vgg16_bn" in weights:
+        unet = model_name in UNET_FAMILY
+        sd = vgg16_bn_to_dg(load_reference_pth(weights["vgg16_bn"]),
+                            ("stage1", "stage2", "stage3") if unet else ("enc1", "enc2", "enc3"))
+        current = model.state_dict()
+        bad = sorted(k for k, v in sd.items()
+                     if k not in current or tuple(v.shape) != tuple(current[k].shape))
+        if bad:
+            raise ValueError(f"{model_name}'s encoder is not vgg16_bn's layout: {bad[:3]}")
         with torch.no_grad():
             model.load_state_dict(sd, strict=False)
-        return "vgg16_bn → enc1/2/3"
+        return "vgg16_bn → fe/stage1-3" if unet else "vgg16_bn → enc1/2/3"
     return "no pretrained mapping"

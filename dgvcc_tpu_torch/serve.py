@@ -12,9 +12,11 @@ Usage:
         ...
 
 Only the full-precision path is ported: a device mesh (``mesh`` /
-``shard``) and ``auto_threshold`` raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1 item 1), as do int8 (``quantize``) and ``from_artifact`` (item 5).
-It serves the DG family and the whitening counters.
+``shard``) raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 3), as
+do int8 (``quantize``), ``auto_threshold`` and ``from_artifact`` (item 4).
+It serves the DG family, the whitening counters and the regressors. For
+the HTTP server (``serve_http.py``) a counter keeps ``quantized`` (None:
+no int8 graph) and ``dispatches``, its batches by precision.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import torch
 from dgvcc_tpu_torch.core.registry import MODELS
 
 _NOT_PORTED = "is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1"
-_SERVING_EXTRAS = f"{_NOT_PORTED} item 1"
-_INT8 = f"{_NOT_PORTED} item 5"
+_PARALLEL = f"{_NOT_PORTED} item 3"
+_INT8 = f"{_NOT_PORTED} item 4"
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -103,9 +105,9 @@ class VideoCounter:
         if quantize:
             raise NotImplementedError(f"int8 serving (quantize) {_INT8}")
         if mesh is not None or shard != "batch":
-            raise NotImplementedError(f"mesh / spatial serving {_SERVING_EXTRAS}")
+            raise NotImplementedError(f"mesh / spatial serving {_PARALLEL}")
         if auto_threshold is not None:
-            raise NotImplementedError(f"auto_threshold {_SERVING_EXTRAS}")
+            raise NotImplementedError(f"auto_threshold (quantize='auto') {_INT8}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         if self.device.type == "cuda":
@@ -120,6 +122,9 @@ class VideoCounter:
         # tile_size x tile_size tiles forwarded as one batch; 0 disables
         self.tile_size = tile_size
         self.tile_threshold = tile_threshold
+        # what the HTTP server reports: no int8 graph, batches by precision
+        self.quantized = None
+        self.dispatches = {"fp": 0, "int8": 0}
 
     @classmethod
     def from_checkpoint(cls, model_name: str, ckpt_path: Optional[str] = None,
@@ -216,6 +221,7 @@ class VideoCounter:
     def _launch(self, frames: np.ndarray) -> _Pending:
         """Dispatch one batch; the counts come back through a pending copy."""
         b, h, w, _ = frames.shape
+        self.dispatches["fp"] += 1
         with torch.inference_mode():
             dev = self._to_device(frames)
             if self.tile_size and max(h, w) > self.tile_threshold:

@@ -75,6 +75,12 @@ class TrainState:
                     p.grad = None
                 torch._foreach_zero_(self.acc_grads)
         else:
+            # a parameter the loss does not reach (a classifier behind a
+            # binarised gate) still takes its AdamW decay and step count, as
+            # under optax, whose gradient there is a zero
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             self.optimizer.step()
         if self.ema_params is not None:
             ema = list(self.ema_params.values())

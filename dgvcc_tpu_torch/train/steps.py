@@ -14,8 +14,10 @@ Modes (reference dgtrainer.py:149-204):
     isw     — the model returns [task_loss, wt_loss] (its own count loss
               and the whitening loss on the batch's masks); total = task +
               0.6 * wt from epoch 6 on
-The reconstructed modes (ROADMAP.md, Queue 1 item 2) and the Bayesian loss
-(item 3) are not ported.
+    regression, discrimination — the reconstructed modes of the regressors
+              (``train/genjoint.py``)
+The modes generation and joint (ROADMAP.md, Queue 1 item 1) and the
+Bayesian loss (item 2) are not ported.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ import torch
 
 from dgvcc_tpu_torch.train.state import TrainState
 
-MODES = ("simple", "base", "add", "cls", "final", "isw")
-# the reconstructed modes of dgvcc_tpu/train/genjoint.py
-UNPORTED = ("generation", "regression", "joint", "discrimination")
+MODES = ("simple", "base", "add", "cls", "final", "isw", "regression", "discrimination")
+# the generator's modes of dgvcc_tpu/train/genjoint.py
+UNPORTED = ("generation", "joint")
 
 
 def bce(pred_prob: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
@@ -59,12 +61,18 @@ def build_loss_fn(model: torch.nn.Module, loss, mode: str, log_para: float,
     to 0)."""
     if mode in UNPORTED:
         raise NotImplementedError(f"mode {mode!r} is not ported to dgvcc_tpu_torch yet; "
-                                  "see ROADMAP.md, Queue 1 item 2")
+                                  "see ROADMAP.md, Queue 1 item 1")
     if mode not in MODES:
         raise ValueError(f"Unknown mode: {mode}")
     if getattr(loss, "kind", "mse") != "mse":
         raise NotImplementedError("only the 'mse' count loss is ported; the Bayesian "
-                                  "loss is ROADMAP.md, Queue 1 item 3")
+                                  "loss is ROADMAP.md, Queue 1 item 2")
+    if mode in ("regression", "discrimination"):
+        from dgvcc_tpu_torch.train import genjoint
+
+        build = (genjoint.build_regression_loss if mode == "regression"
+                 else genjoint.build_discrimination_loss)
+        return build(model, loss, log_para)
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator, epoch: int = 0):
         model.train()

@@ -4,7 +4,8 @@ The reference's protocol (trainers/trainer.py:20, trainers/dgtrainer.py:27):
 epoch loop -> per-epoch scheduler step -> per-image validation (MAE
 criterion, MSE extra) -> rolling last / best checkpoints; test with the
 hard-coded re-save thresholds; train_and_test tests only when val
-improves. The ``log.txt`` lines are the JAX trainer's, word for word.
+improves (the BaseTrainer's models test every epoch). The ``log.txt`` lines
+are the JAX trainer's, word for word.
 
 On the card:
   * a batch goes from NHWC numpy to NCHW device tensors through pinned
@@ -84,11 +85,17 @@ from dgvcc_tpu_torch.utils.misc import (AverageMeter, DictAvgMeter, denormalize,
 
 # extra keys of the JAX trainer whose modules are not ported, and where
 # ROADMAP.md lists them
-UNPORTED_KEYS = {"test_quantized": "Queue 1 item 5 (int8)"}
+UNPORTED_KEYS = {"test_quantized": "Queue 1 item 4 (int8)"}
 # modes and model families not ported: their Queue 1 item in ROADMAP.md (a
-# family not listed is a classic baseline, item 3)
-UNPORTED_MODES = {"joint": 2, "generation": 2, "regression": 2, "discrimination": 2}
-FAMILY_ITEMS = dict.fromkeys(("dgnet", "dgnet_cls", "gen", "gen0", "reg", "reg_mem"), 2)
+# family not listed is a classic baseline, item 2)
+UNPORTED_MODES = {"joint": 1, "generation": 1}
+FAMILY_ITEMS = dict.fromkeys(("gen", "gen0"), 1)
+# models the reference drives through main_base.py / BaseTrainer
+# (main_base.py:36-52): they test after every epoch and tile evaluation at
+# 800 px whatever the config's patch_size (basetrainer.py:51-66, 149-173)
+BASETRAINER_MODELS = frozenset({"csrnet", "mcnn", "sasnet", "dssinet", "cctrans", "bl",
+                                "dgnet", "dgnet_cls"})
+BASETRAINER_EVAL_PATCH = 800
 BATCH_KEYS = ("img1", "img2", "dmap", "bmap")
 # the draws of device_aug: a stream apart from the dropout draws
 AUG_STREAM = 7_919_000_003
@@ -112,11 +119,32 @@ def check_ported(cfg: Config):
     if any(int(v) > 1 for v in (cfg.mesh or {}).values()):
         raise NotImplementedError("config key 'mesh' (multi-device training) is not "
                                   "ported to dgvcc_tpu_torch yet; see ROADMAP.md, "
-                                  "Queue 1 item 4")
+                                  "Queue 1 item 3")
     if cfg.mode in UNPORTED_MODES:
         raise NotImplementedError(f"mode {cfg.mode!r} is not ported to dgvcc_tpu_torch "
                                   f"yet; see ROADMAP.md, Queue 1 item "
                                   f"{UNPORTED_MODES[cfg.mode]}")
+
+
+def eval_patch_size(cfg: Config) -> int:
+    """The tile of validation and test: ``eval_patch_size`` when the config
+    sets it, else 800 px for the BaseTrainer's models and ``patch_size`` for
+    the others (dgvcc_tpu/train/trainer.py:396-405)."""
+    ps = cfg.extra.get("eval_patch_size")
+    if ps is None:
+        ps = (BASETRAINER_EVAL_PATCH if cfg.model.get("name") in BASETRAINER_MODELS
+              else cfg.patch_size)
+    return int(ps)
+
+
+def every_epoch_test(cfg: Config) -> bool:
+    """Whether ``train_and_test`` tests after every epoch: the config's
+    ``test_every_epoch``, else whether the model is one of the
+    BaseTrainer's (dgvcc_tpu/train/trainer.py:966-977)."""
+    knob = cfg.extra.get("test_every_epoch")
+    if knob is not None:
+        return bool(knob)
+    return cfg.model.get("name") in BASETRAINER_MODELS
 
 
 def covariance_views(counter: TiledCounter, sample, patch_size: int):
@@ -180,16 +208,21 @@ class DGTrainer:
         import dgvcc_tpu_torch.models  # noqa: F401
 
         if cfg.model["name"] not in MODELS:
-            item = FAMILY_ITEMS.get(cfg.model["name"], 3)
+            item = FAMILY_ITEMS.get(cfg.model["name"], 2)
             raise NotImplementedError(f"model {cfg.model['name']!r} is not ported to "
-                                      "dgvcc_tpu_torch yet (the DG and whitening "
-                                      "families are); see "
+                                      "dgvcc_tpu_torch yet (the DG, whitening and "
+                                      "regressor families are); see "
                                       f"ROADMAP.md, Queue 1 item {item}")
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         params = dict(cfg.model.get("params", {}))
         if params.pop("tp_axis", None) is not None:
             raise ValueError("model params must not set tp_axis")
-        self.model = MODELS.build(cfg.model["name"], dtype=dtype, **params)
+        if self.mode == "regression" and cfg.model["name"] not in ("reg_mem", "reg"):
+            # the reference's sta_reg.yml names 'dgnet', but its regression
+            # trainer drove DensityRegressorM (dgvcc_tpu/train/trainer.py:269-272)
+            self.model = MODELS.build("reg_mem", dtype=dtype)
+        else:
+            self.model = MODELS.build(cfg.model["name"], dtype=dtype, **params)
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
         self.loss = LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
 
@@ -232,9 +265,14 @@ class DGTrainer:
         con_weight = 0.0 if cfg.extra.get("no_consistency") else 10.0
         self.train_step = build_train_step(self.model, self.loss, self.mode,
                                            self.log_para, con_weight=con_weight)
-        # the DG and whitening families tile at the config's patch_size
-        # (dgtrainer.py:71-84)
-        self.counter = TiledCounter(self.model, self.log_para, self.patch_size,
+        # the DGTrainer's models tile at the config's patch_size
+        # (dgtrainer.py:71-84), the BaseTrainer's at 800 px
+        self.eval_patch_size = eval_patch_size(cfg)
+        if self.eval_patch_size != self.patch_size:
+            # the console only: log.txt keeps the JAX trainer's lines
+            print(f"[eval] validation and test on tiles of {self.eval_patch_size} px "
+                  f"(patch_size {self.patch_size})", flush=True)
+        self.counter = TiledCounter(self.model, self.log_para, self.eval_patch_size,
                                     device=self.device)
         # ISW's two-pass covariance protocol (dgtrainer.py:86-102)
         self.isw_tracker = None
@@ -283,7 +321,7 @@ class DGTrainer:
             raise NotImplementedError(
                 "[gen_ckpt, reg_ckpt] checkpoint pairs belong to the joint and "
                 "generation modes, which are not ported to dgvcc_tpu_torch yet; see "
-                "ROADMAP.md, Queue 1 item 2")
+                "ROADMAP.md, Queue 1 item 1")
         self.log(f"Loading checkpoint from {path}")
         extra, warnings = load_checkpoint(path, self.state, strict=strict)
         for w in warnings[:10]:
@@ -564,8 +602,10 @@ class DGTrainer:
         self.log(f"Per-image test report: {path} ({len(rows)} rows)")
 
     def train_and_test(self, checkpoint=None, num_epochs: Optional[int] = None):
-        """Test on the target domain when val improves (dgtrainer.py:301-327)."""
+        """Test on the target domain when val improves (dgtrainer.py:301-327),
+        or after every epoch (``test_every_epoch``; basetrainer.py:149-173)."""
         self.build()
+        every_epoch = every_epoch_test(self.cfg)
         self.log(f"Start training and testing at {get_current_datetime()}")
         self.load_ckpt(checkpoint if checkpoint is not None else self.cfg.checkpoint)
         start_epoch, best_criterion, best_epoch = self._resume_point()
@@ -574,7 +614,7 @@ class DGTrainer:
                 prev = best_criterion
                 best_criterion, best_epoch = self.train_epoch(epoch, best_criterion,
                                                               best_epoch)
-                if best_criterion < prev:
+                if every_epoch or best_criterion < prev:
                     self.test()
                 if self._early_stop(epoch, best_epoch, best_criterion):
                     break

@@ -91,6 +91,38 @@ def test_trainer_counter_and_dmap_cli_default_to_cuda_and_raise_without_it(tmp_p
     assert TiledCounter(torch.nn.Linear(2, 1), 1000.0, 64, device="cpu").device.type == "cpu"
 
 
+def test_serving_extras_and_regressors_default_to_cuda_and_raise_without_it(tmp_path):
+    """The CLI's --http, the fleet's replicas (no --device: the config's,
+    here tpu, which reads as cuda) and the regressors, in serving and in
+    the trainer."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour where CUDA is absent")
+    import yaml
+
+    from dgvcc_tpu_torch.cli.main import run
+    from dgvcc_tpu_torch.core.config import Config
+    from dgvcc_tpu_torch.serve import VideoCounter
+    from dgvcc_tpu_torch.serve_fleet import FleetServer
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    cfg = {"device": "tpu", "model": {"name": "final", "params": {}},
+           "log_dir": str(tmp_path / "logs")}
+    path = tmp_path / "c.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(str(path), "serve", http=0, block=False)
+    fleet = FleetServer(str(path), replicas=1, port=0, probe_s=0.2)
+    assert "--device" not in fleet.replicas[0].make_cmd(1)
+    with pytest.raises(RuntimeError, match="exited before becoming ready"):
+        fleet.start(ready_timeout=120)
+    assert not fleet.replicas[0].alive() and fleet.replicas[0].proc.returncode != 0
+    for name in ("dgnet", "dgnet_cls", "reg", "reg_mem"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            VideoCounter.from_checkpoint(name, None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DGTrainer(Config.from_dict(dict(cfg, model={"name": "dgnet"}, mode="discrimination")))
+
+
 def _queue1_items():
     text = (REPO / "ROADMAP.md").read_text()
     queue = text[text.index("### Queue 1"):text.index("### Queue 2")]
@@ -144,13 +176,22 @@ WHITENING_BASELINES = sorted(
     if re.search(r"_(sw|ibn|isw)\.yml$", p.name))
 
 
-def test_the_port_runs_23_of_the_59_configs():
-    """23 until the whitening family was ported, 41 since: the 18
-    configs/baselines/*_{sw,ibn,isw}.yml joined."""
+REGRESSOR_CONFIGS = ["configs/mall_base.yml", "configs/sta_dis.yml", "configs/sta_reg.yml",
+                     "configs/sta_reg_base.yml", "configs/stb_reg.yml",
+                     "configs/stb_reg_base.yml"]
+
+
+def test_the_port_runs_47_of_the_59_configs():
+    """23 until the whitening family was ported, then 41 (the 18
+    configs/baselines/*_{sw,ibn,isw}.yml), 47 since the regressors: dgnet in
+    modes simple and discrimination, reg_mem in mode regression."""
     paths = sorted((REPO / "configs").rglob("*.yml"))
     ported = [str(p.relative_to(REPO)) for p in paths if _runs_in_the_port(p)]
     assert len(paths) == 59
-    assert len(ported) == 41, ported
+    assert len(ported) == 47, ported
+    assert set(REGRESSOR_CONFIGS) <= set(ported)
+    for gen in ("sta_gen", "stb_gen", "sta_joint", "stb_joint"):
+        assert f"configs/{gen}.yml" not in ported
     assert len(WHITENING_BASELINES) == 18
     assert set(WHITENING_BASELINES) <= set(ported)
     assert "configs/tpu/sta_final_bigcrop.yml" in ported

@@ -274,8 +274,8 @@ def test_isw_mode_points_to_the_roadmap():
     """Mode isw is ported (tests/test_torch_port_whitening_models.py holds it
     to the JAX step); the modes still refused point at their Queue 1 item."""
     build_loss_fn(torch.nn.Identity(), LOSSES.build("mse"), "isw", 1000.0)
-    for mode in ("joint", "regression"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    for mode in ("joint", "generation"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
             build_loss_fn(torch.nn.Identity(), LOSSES.build("mse"), mode, 1000.0)
 
 

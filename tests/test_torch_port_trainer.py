@@ -246,7 +246,7 @@ def test_checkpoint_load_is_nonstrict_unless_asked(root, tmp_path):
         t.load_ckpt(path, strict=True)
     with pytest.raises(ValueError, match="not a .pth, .pt or .ckpt"):
         t.load_ckpt(str(tmp_path / "last.msgpack"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         t.load_ckpt([path, path])
 
 
@@ -264,7 +264,7 @@ def test_unported_config_keys_raise(root, tmp_path, key, value):
 def test_unported_model_family_raises(root, tmp_path):
     cfg = _cfg(root, tmp_path, "x")
     cfg["model"] = {"name": "csrnet", "params": {}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         DGTrainer(Config.from_dict(cfg), device="cpu").build()
 
 

@@ -116,13 +116,34 @@ Phases, each of which exits non-zero on failure:
    phase 6's files: sta_reg_base.yml for 2 epochs (800-px tiles, a test
    after each epoch, ``--task test`` on the command line within 1e-3 of the
    in-process MAE) and sta_reg.yml for 1 epoch (finite losses, #1 in every
-   validation and test forward).
+   validation and test forward);
+11. the generator and the classic baselines (no kernel of their own; #1
+   runs in the joint run's evaluation): at full width, seeded, bf16 with f32
+   AdamW, on a repeated batch of 320^2 crops, ten steps of each of gen in
+   mode generation (sta_gen.yml, B=16, two views), the joint step (gen +
+   reg_mem, sta_joint.yml, B=16) and the six baselines at their configs' B=8
+   (csrnet, mcnn, sasnet, dssinet, cctrans: MSE against a map at the
+   config's stride; bl: the Bayesian loss on padded points): every loss
+   finite and falling (the last three steps' mean below the first), no #2 /
+   #3; ms/step on the host clock and in device
+   time, peak memory above the resident; the six serving 768x1024 at B=4
+   through VideoCounter, bf16 against the same weights in float32 (no TF32;
+   2e-2 of the map's mass, 5e-2 for dssinet, whose untrained bf16 drifts so
+   in the JAX package too), frames/s; then on phase 6's files:
+   sta_bl.yml train_and_test for 2 epochs (bay crops, the loss's stride left
+   to the prediction), ``--task test`` on the command line within 1e-3 of
+   the in-process MAE; sta_gen.yml for 1 epoch, then ``--task generate`` on
+   the command line writes one ``_a.jpg`` per train image; sta_joint.yml for
+   1 epoch (``last_gen`` / ``last_reg``), then ``--task test`` from that pair
+   (the command line's ``main``, in process) launches #1 once per test
+   image.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repo, the script exits non-zero and prints no result.
 """
 
+import contextlib
 import io
 import json
 import math
@@ -1447,7 +1468,7 @@ def whitening_state(name, seed=0):
     return cfg, state, step
 
 
-def time_steps(run, label, gpu, steps=10):
+def time_steps(run, label, gpu, steps=10, batch=TRAIN_B):
     """ms/step over ``steps`` synchronised steps after 3, and the peak
     memory of one above what was resident before it (earlier phases keep
     some tensors alive)."""
@@ -1464,7 +1485,7 @@ def time_steps(run, label, gpu, steps=10):
     run()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"train {label} (B={TRAIN_B} {TRAIN_CROP}^2 bf16): {ms:.3f} ms/step, peak memory "
+    log(f"train {label} (B={batch} {TRAIN_CROP}^2 bf16): {ms:.3f} ms/step, peak memory "
         f"{peak:.3f} GiB ({peak - resident:.3f} GiB above the {resident:.3f} GiB resident) "
         f"[{gpu}]")
     return ms, peak - resident
@@ -1964,24 +1985,31 @@ CLS_OF = {"dgnet_cls": lambda out: out[1][1], "reg": lambda out: out[2],
           "reg_mem": lambda out: out[1]}
 
 
-def regressor_state(config):
-    """A regressor config's model at full width, seeded, bf16 compute, f32
-    AdamW with the OneCycle lr of epoch 0; its train step."""
+def config_state(config, model_name=None, params=None):
+    """A config's model at full width (or ``model_name``), seeded, bf16
+    compute, f32 AdamW with the OneCycle lr of epoch 0."""
     import dgvcc_tpu_torch.losses  # noqa: F401
     import dgvcc_tpu_torch.models  # noqa: F401
     from dgvcc_tpu_torch.core.config import load_config
     from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
     from dgvcc_tpu_torch.train.state import create_train_state
-    from dgvcc_tpu_torch.train.steps import build_train_step
 
     cfg = load_config(os.path.join(ROOT, "configs", config))
-    model = MODELS.build(cfg.model["name"], dtype=torch.bfloat16,
-                         **cfg.model.get("params", {}))
+    name = model_name or cfg.model["name"]
+    kw = cfg.model.get("params", {}) if params is None else params
+    model = MODELS.build(name, dtype=torch.bfloat16, **kw)
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     state = create_train_state(model, cfg.optimizer, cfg.scheduler)
-    step = build_train_step(model, LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {})),
-                            cfg.mode, cfg.log_para)
-    return cfg, state, step
+    return cfg, model, state, LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
+
+
+def regressor_state(config):
+    """A regressor config's model at full width, seeded, bf16 compute, f32
+    AdamW with the OneCycle lr of epoch 0 (``config_state``); its train step."""
+    from dgvcc_tpu_torch.train.steps import build_train_step
+
+    cfg, model, state, loss = config_state(config)
+    return cfg, state, build_train_step(model, loss, cfg.mode, cfg.log_para)
 
 
 def train_regressors(mt, gpu):
@@ -2110,8 +2138,6 @@ def regressor_file_runs(ma, mt, tmp, gpu):
     for 2 epochs (800-px tiles, a test after each epoch, --task test on the
     command line against the in-process MAE), then sta_reg.yml (reg_mem,
     regression) for 1 epoch (#1 in validation and test)."""
-    import contextlib
-
     import yaml
 
     from dgvcc_tpu_torch.core.config import Config
@@ -2204,6 +2230,278 @@ def regressor_phase(ma, mt, tmp, gpu):
                 "memory_attention_train_bwd": mt.BWD_LAUNCHES}
     log(f"phase 10 (regressors): {time.perf_counter() - t0:.1f}s; kernel launches {launches}")
     return res, launches
+
+
+# ---- phase 11: the generator and the classic baselines ------------------------
+
+BASELINES = ("csrnet", "mcnn", "sasnet", "dssinet", "cctrans", "bl")
+GEN_STEPS = 10
+TOL_BASELINE_COUNTS = 2e-2          # bf16 vs f32 counts, relative to the map's mass
+# dssinet untrained in bf16 (no norm layer, PReLUs, three scales summed): the
+# JAX package's own bf16 moves 2.37-2.45% of the mass with the same weights
+# (scripts/bf16_drift.py dssinet --port-seed 11 at 384x512 on the CPU), the
+# port 2.43-2.49% there and 2.3-2.8% on the card, port against JAX in bf16
+# 0.04-0.06%
+TOL_BASELINE_FAMILY = {"dssinet": 5e-2}
+
+
+def baseline_batch(cfg, seed):
+    """A repeated B=8 batch of 320^2 crops for a baseline config: the image,
+    and either the density map summed to the config's stride (MSE) or, for
+    the Bayesian loss, 20-200 head points a crop in padded form with their
+    targets and crop sizes (the bay collate's)."""
+    ds = cfg.train_dataset["params"]
+    b = cfg.train_loader["batch_size"]
+    full = synthetic_batch(seed, b=b)
+    batch = {"img1": full["img1"]}
+    if cfg.loss["name"] != "bl":
+        f = int(ds["downsample"])
+        batch["dmap"] = torch.nn.functional.avg_pool2d(full["dmap"], f) * f * f
+        return {k: v.contiguous(memory_format=torch.channels_last) for k, v in batch.items()}
+    g = torch.Generator().manual_seed(seed)
+    counts = torch.randint(20, 201, (b,), generator=g)
+    n = int(math.ceil(int(counts.max()) / 64) * 64)
+    mask = torch.arange(n)[None] < counts[:, None]
+    points = torch.rand(b, n, 2, generator=g) * TRAIN_CROP * mask[..., None]
+    targets = (0.3 + 0.7 * torch.rand(b, n, generator=g)) * mask
+    batch.update(points=points.cuda(), pt_mask=mask.cuda(), targets=targets.cuda(),
+                 st_sizes=torch.full((b,), float(FRAME[0])).cuda())
+    batch["img1"] = batch["img1"].contiguous(memory_format=torch.channels_last)
+    return batch
+
+
+def train_generator_and_baselines(mt, gpu):
+    """gen (generation), the joint step and the six baselines: ten steps on
+    a repeated batch (finite, falling losses, no #2 / #3), then ms/step on
+    the host clock and in device time, and peak memory."""
+    from dgvcc_tpu_torch.train.genjoint import build_joint_step
+    from dgvcc_tpu_torch.train.steps import build_train_step
+
+    runs = []
+    cfg, gen, gstate, loss = config_state("sta_gen.yml")
+    runs.append(("gen (generation, sta_gen.yml)", cfg, synthetic_batch(11),
+                 build_train_step(gen, loss, "generation", cfg.log_para), gstate))
+    cfg, gen, gstate, loss = config_state("sta_joint.yml", "gen", {})
+    _, reg, rstate, _ = config_state("sta_joint.yml", "reg_mem", {})
+    joint = build_joint_step(gen, reg, loss, cfg.log_para)
+    runs.append(("gen + reg_mem (joint, sta_joint.yml)", cfg, synthetic_batch(12),
+                 lambda st, batch, g, epoch: (st, joint(st[0], st[1], batch, g, epoch)[2]),
+                 (gstate, rstate)))
+    for i, name in enumerate(BASELINES):
+        cfg, model, state, loss = config_state(f"baselines/sta_{name}.yml")
+        runs.append((f"{name} ({cfg.loss['name']}, sta_{name}.yml)", cfg,
+                     baseline_batch(cfg, 20 + i),
+                     build_train_step(model, loss, cfg.mode, cfg.log_para), state))
+    out = {}
+    mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    for label, cfg, batch, step, state in runs:
+        dropout = torch.Generator(device="cuda").manual_seed(cfg.seed)
+
+        def run():
+            return step(state, batch, dropout, 0)[1]
+
+        metrics = [{k: v.item() for k, v in run().items()} for _ in range(GEN_STEPS)]
+        losses = [m["loss_total"] for m in metrics]
+        log(f"train {label}, {GEN_STEPS} steps: "
+            + "; ".join(f"{k} {[round(m[k], 4) for m in metrics]}" for k in metrics[0]))
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            fail(f"train {label}: a loss part is not finite")
+        # the mean of the last three: bl from scratch and dssinet swing from
+        # step to step on their way down
+        if not sum(losses[-3:]) / 3 < losses[0]:
+            fail(f"train {label}: the loss did not fall over {GEN_STEPS} steps on a repeated "
+                 "batch")
+        b = batch["img1"].shape[0]
+        ms, peak = time_steps(run, label, gpu, batch=b)
+        dev, top = device_ms_total(run, 3)
+        log(f"train {label}: {dev:.3f} ms of device time a step; largest: "
+            f"{', '.join(f'{n} {t:.3f}' for n, t in top[:3])} [{gpu}]")
+        out[label] = {"batch": b, "ms_per_step": ms, "device_ms": dev, "peak_gib": peak,
+                      "losses": losses}
+    del runs, state, step
+    torch.cuda.empty_cache()
+    if mt.FWD_LAUNCHES or mt.BWD_LAUNCHES:
+        fail("train generator / baselines: kernels #2 / #3 launched (reg_mem's forward_train "
+             "takes the einsum path)")
+    return out
+
+
+def serve_baselines(ma, gpu):
+    """The six through VideoCounter at B=4, 768x1024: bf16 against the same
+    weights in float32 (TF32 off), relative to the map's mass; frames/s."""
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    frames = np.random.default_rng(11).integers(0, 256, (4,) + FRAME + (3,), dtype=np.uint8)
+    fps, errs = {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    ma.LAUNCHES = 0
+    for name in BASELINES:
+        bf16, f32 = (VideoCounter.from_checkpoint(name, None, dtype=dt, seed=11)
+                     for dt in (torch.bfloat16, torch.float32))
+        got, want = bf16.count_frames(frames), f32.count_frames(frames)
+        mass = VideoCounter(_AbsMap(f32.model), dtype=torch.float32).count_frames(frames)
+        scale = max(float(mass.max()), 1.0)
+        errs[name] = float(np.abs(got - want).max()) / scale
+        tol = TOL_BASELINE_FAMILY.get(name, TOL_BASELINE_COUNTS)
+        log(f"{name} count_frames B=4 768x1024 bf16: counts {np.round(got, 3).tolist()}, f32 "
+            f"{np.round(want, 3).tolist()}: {errs[name]:.4f} of the mass {scale:.4g} (tol "
+            f"{tol})")
+        if not np.isfinite(got).all() or errs[name] > tol:
+            fail(f"{name} count_frames: bf16 counts disagree with f32")
+        bf16.count_frames(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            bf16.count_frames(frames)
+        fps[name] = 24 / (time.perf_counter() - t0)
+        log(f"serve {name} count_frames B=4 768x1024 bf16: {fps[name]:.2f} frames/s [{gpu}]")
+        del bf16, f32
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    if ma.LAUNCHES:
+        fail("baseline serving launched kernel #1 (no baseline has a bank)")
+    return fps, errs
+
+
+def phase_config(tmp, name, epochs, edit=None):
+    """configs/{name}.yml pointed at phase 6's files, for ``epochs``, changed
+    by ``edit(raw)`` where given; (raw dict, its path)."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", f"{name}.yml")) as f:
+        raw = yaml.safe_load(f)
+    for split in ("train", "val", "test"):
+        raw[f"{split}_dataset"] = dict(raw[f"{split}_dataset"], params=dict(
+            raw[f"{split}_dataset"]["params"], root=os.path.join(tmp, "data")))
+    stem = os.path.basename(name)
+    raw.update(num_epochs=epochs, log_dir=os.path.join(tmp, f"logs_{stem}"))
+    if edit is not None:
+        edit(raw)
+    path = os.path.join(tmp, f"{stem}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return raw, path
+
+
+def cli(args, what):
+    """``python -m dgvcc_tpu_torch`` with ``args``; its standard output."""
+    out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", *args], capture_output=True,
+                         text=True, timeout=600, cwd=ROOT)
+    if out.returncode:
+        fail(f"{what}: the command line exited {out.returncode}:\n{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def generator_file_runs(ma, mt, tmp, gpu):
+    """sta_bl.yml (2 epochs, the implied stride, CLI --task test), sta_gen.yml
+    (1 epoch, CLI --task generate) and sta_joint.yml (1 epoch, --task test from
+    [last_gen, last_reg] through the command line's main in process, kernel #1
+    once per test image) on phase 6's files. Returns what they measured and
+    #1's launches."""
+    from dgvcc_tpu_torch.cli.main import main as cli_main
+    from dgvcc_tpu_torch.core.config import Config
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    res = {}
+    # the loss's stride left to the prediction: 320 // 40
+    raw, cfg_path = phase_config(tmp, "baselines/sta_bl", 2,
+                                 edit=lambda raw: raw["loss"]["params"].pop("stride"))
+    trainer = DGTrainer(Config.from_dict(raw))
+    t0 = time.perf_counter()
+    trainer.train_and_test()
+    text = open(os.path.join(trainer.log_dir, "log.txt")).read()
+    losses = [float(x) for x in re.findall(r"Training loss: (\S+)", text)]
+    maes = [float(x) for x in re.findall(r"Testing results: mae: (\S+)", text)]
+    log(f"[sta_bl.yml] bl, the Bayesian loss (stride {trainer.loss.stride_for(40)} from the "
+        f"prediction) train_and_test 2 epochs: {time.perf_counter() - t0:.1f}s; losses "
+        f"{losses}; test MAE after each epoch {maes} [{gpu}]")
+    if len(losses) != 2 or len(maes) != 2 or not all(map(math.isfinite, losses + maes)):
+        fail("[sta_bl.yml] not one finite loss and test block after each epoch")
+    last = os.path.join(trainer.log_dir, "last.pth")
+    want = trainer.test(checkpoint=last)
+    line = [ln for ln in cli(["--config", cfg_path, "--task", "test", "--ckpt", last],
+                             "[sta_bl.yml] --task test").splitlines()
+            if ln.startswith("Testing results:")]
+    got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
+    log(f"[sta_bl.yml] CLI --task test last.pth: {line[-1] if line else None}; in process: "
+        f"mae {want['mae']:.4f}")
+    if "mae" not in got or abs(float(got["mae"]) - want["mae"]) > TOL_CLI_TEST * max(
+            want["mae"], 1.0):
+        fail(f"[sta_bl.yml] CLI --task test mae {got.get('mae')} != in-process {want['mae']}")
+    res["bl_test_mae"] = maes
+
+    raw, cfg_path = phase_config(tmp, "sta_gen", 1)
+    trainer = DGTrainer(Config.from_dict(raw))
+    t0 = time.perf_counter()
+    trainer.train_and_test()
+    text = open(os.path.join(trainer.log_dir, "log.txt")).read()
+    crit = [float(x) for x in re.findall(r"Val criterion: (\S+)", text)]
+    n_train = len(trainer.loaders["train"].dataset)
+    log(f"[sta_gen.yml] gen, generation 1 epoch: {time.perf_counter() - t0:.1f}s; "
+        f"{re.findall(r'Training loss: (\S+)', text)}; reconstruction MSE (val, test) {crit}")
+    if len(crit) < 2 or not all(map(math.isfinite, crit)):
+        fail("[sta_gen.yml] no finite validation and test criterion")
+    t0 = time.perf_counter()
+    cli(["--config", cfg_path, "--task", "generate", "--ckpt",
+         os.path.join(trainer.log_dir, "last.pth")], "[sta_gen.yml] --task generate")
+    gen_dir = os.path.join(trainer.log_dir, "gen")
+    written = sorted(os.listdir(gen_dir))
+    log(f"[sta_gen.yml] CLI --task generate: {len(written)} images in "
+        f"{time.perf_counter() - t0:.1f}s (with start-up) under gen/ ({written[:2]} ...)")
+    if len(written) != n_train or not all(w.endswith("_a.jpg") for w in written):
+        fail(f"[sta_gen.yml] --task generate wrote {len(written)} files, not one _a.jpg per "
+             f"train image ({n_train})")
+
+    raw, cfg_path = phase_config(tmp, "sta_joint", 1)
+    trainer = DGTrainer(Config.from_dict(raw))
+    ma.LAUNCHES = mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    trainer.train_and_test()
+    launches = ma.LAUNCHES
+    text = open(os.path.join(trainer.log_dir, "log.txt")).read()
+    pair = [os.path.join(trainer.log_dir, f"last_{m}.pth") for m in ("gen", "reg")]
+    log(f"[sta_joint.yml] gen + reg_mem, joint 1 epoch: {time.perf_counter() - t0:.1f}s; "
+        f"{re.findall(r'Training loss: (\S+)', text)}; kernel #1 launched {launches}x; #2 / "
+        f"#3 {mt.FWD_LAUNCHES} / {mt.BWD_LAUNCHES}; files "
+        f"{sorted(f for f in os.listdir(trainer.log_dir) if f.endswith('.pth'))} [{gpu}]")
+    if not all(os.path.exists(p) for p in pair) or mt.FWD_LAUNCHES or mt.BWD_LAUNCHES:
+        fail("[sta_joint.yml] no last_gen / last_reg pair, or #2 / #3 launched")
+    n_test = len(trainer.loaders["test"])
+    ma.LAUNCHES = 0
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        cli_main(["--config", cfg_path, "--task", "test", "--ckpt", ",".join(pair)])
+    test_launches = ma.LAUNCHES
+    line = [ln for ln in tee.getvalue().splitlines() if ln.startswith("Testing results:")]
+    log(f"[sta_joint.yml] --task test from [last_gen, last_reg] (the command line's main): "
+        f"{line[-1] if line else None}; kernel #1 launched {test_launches}x over {n_test} "
+        f"test images")
+    if not line or test_launches != n_test:
+        fail("[sta_joint.yml] --task test from the pair did not launch kernel #1 once per "
+             "test image")
+    res["joint_launches"] = launches + test_launches
+    return res, launches + test_launches
+
+
+def generator_baselines_phase(ma, mt, tmp, gpu):
+    """Phase 11: the generator and the classic baselines. Returns what it
+    measured and the kernels' launches over its in-process paths."""
+    t0 = time.perf_counter()
+    res = {"train": train_generator_and_baselines(mt, gpu)}
+    res["fps_b4"], res["bf16_err"] = serve_baselines(ma, gpu)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False  # as the command line's --task test
+    try:
+        res["files"], launches = generator_file_runs(ma, mt, tmp, gpu)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    out = {"memory_attention_fused": launches,
+           "memory_attention_train_fwd": mt.FWD_LAUNCHES,
+           "memory_attention_train_bwd": mt.BWD_LAUNCHES}
+    log(f"phase 11 (generator and classic baselines): {time.perf_counter() - t0:.1f}s; kernel "
+        f"launches {out}")
+    return res, out
 
 
 def main():
@@ -2396,6 +2694,9 @@ def main():
 
         # ---- 10. the U-Net regressors (dgnet, dgnet_cls, reg, reg_mem) -------
         _, regressor_launches = regressor_phase(ma, mt, tmp, gpu)
+
+        # ---- 11. the generator (generation, joint) and the classic baselines --
+        _, generator_launches = generator_baselines_phase(ma, mt, tmp, gpu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f}s")
@@ -2410,7 +2711,8 @@ def main():
                                          "memory_attention_train_bwd": big_launches[1]},
                "whitening family (phase 8)": whiten_launches,
                "http serving (phase 9)": {"memory_attention_fused": http_launches},
-               "regressors (phase 10)": regressor_launches}
+               "regressors (phase 10)": regressor_launches,
+               "generator and baselines (phase 11)": generator_launches}
 
     def total(name):
         return sum(n.get(name, 0) for n in by_path.values())

@@ -1,21 +1,23 @@
 """Command line of the port.
 
     python -m dgvcc_tpu_torch --config configs/X.yml \
-        --task {train,test,vis,train_test,serve} [--ckpt x.pth] [--device cpu]
-        [--frames DIR | --http PORT] [--batch N]
+        --task {train,test,vis,train_test,generate,serve} [--ckpt x.pth]
+        [--device cpu] [--frames DIR | --http PORT] [--batch N]
 
 Reads the JAX package's YAML configs (core/config.py). ``train``, ``test``,
-``vis`` and ``train_test`` drive ``train/trainer.py::DGTrainer`` (the log
-dir gets a snapshot of the config; ``--task test`` needs a checkpoint).
+``vis``, ``train_test`` and ``generate`` drive
+``train/trainer.py::DGTrainer`` (the log dir gets a snapshot of the config;
+``--task test`` needs a checkpoint; ``--ckpt gen.pth,reg.pth`` is a joint
+run's [gen, reg] pair; ``generate`` writes restyled train images with a
+generation or joint run's generator).
 ``--task serve --frames DIR`` streams per-frame counts over a directory of
 images and prints one ``name count`` line per frame and a throughput
 summary; ``--task serve --http PORT`` answers ``POST /count`` with image
 bytes (``serve_http.py``), ``--batch`` bounding its micro-batch. The
 device is ``cuda`` unless ``--device`` or the config's ``device:`` key
 starts with ``cpu``. The other tasks of ``python -m dgvcc_tpu`` are not
-ported yet: ``generate`` is ROADMAP.md Queue 1 item 1; ``quantize``, ``aot``
-and ``export``, and serving's ``--quantize``, ``--artifact`` and ``--aot``,
-are item 4.
+ported yet: ``quantize``, ``aot`` and ``export``, and serving's
+``--quantize``, ``--artifact`` and ``--aot``, are ROADMAP.md Queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -130,6 +132,8 @@ def _trainer_task(cfg, config_path: str, task: str, device: str):
         trainer.test()
     elif task == "vis":
         trainer.vis(checkpoint=cfg.checkpoint)
+    elif task == "generate":
+        trainer.generate(checkpoint=cfg.checkpoint)
     else:
         trainer.train_and_test()
 
@@ -140,18 +144,18 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
     from dgvcc_tpu_torch.core.config import load_config
     from dgvcc_tpu_torch.train.trainer import config_device
 
-    if task not in ("train", "test", "vis", "train_test", "serve"):
-        item = 1 if task == "generate" else 4
+    if task not in ("train", "test", "vis", "train_test", "generate", "serve"):
         raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
-                         f"yet; see ROADMAP.md, Queue 1 item {item} (use python -m "
+                         "yet; see ROADMAP.md, Queue 1 item 2 (use python -m "
                          "dgvcc_tpu for it)")
     for flag, value in (("--quantize", quantize), ("--artifact", artifact), ("--aot", aot)):
         if value:
             raise SystemExit(f"{flag} is not ported to dgvcc_tpu_torch yet; see "
-                             "ROADMAP.md, Queue 1 item 4 (use python -m dgvcc_tpu for it)")
+                             "ROADMAP.md, Queue 1 item 2 (use python -m dgvcc_tpu for it)")
     cfg = load_config(config_path)
     if ckpt is not None:
-        cfg.checkpoint = ckpt
+        # a comma pair is a joint run's [gen, reg] checkpoint
+        cfg.checkpoint = ckpt.split(",") if "," in ckpt else ckpt
     if task != "serve":
         return _trainer_task(cfg, config_path, task, config_device(cfg, device))
     if isinstance(cfg.checkpoint, (list, tuple)):
@@ -178,13 +182,14 @@ def build_parser():
                              "--frames (POST /count, GET /healthz, /stats, /metrics)")
     parser.add_argument("--quantize", nargs="?", const=True, default=False,
                         choices=[True, False, "auto"], metavar="auto",
-                        help="int8 serving: not ported (ROADMAP.md, Queue 1 item 4)")
+                        help="int8 serving: not ported (ROADMAP.md, Queue 1 item 2)")
     parser.add_argument("--artifact", type=str, default=None,
-                        help="int8 artifact: not ported (ROADMAP.md, Queue 1 item 4)")
+                        help="int8 artifact: not ported (ROADMAP.md, Queue 1 item 2)")
     parser.add_argument("--aot", type=str, default=None,
-                        help="AOT program artifact: not ported (ROADMAP.md, Queue 1 item 4)")
+                        help="AOT program artifact: not ported (ROADMAP.md, Queue 1 item 2)")
     parser.add_argument("--ckpt", type=str, default=None,
-                        help="override the config's checkpoint: key (.pth)")
+                        help="override the config's checkpoint: key (.pth; gen,reg for a "
+                             "joint run's pair)")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda[:N] or cpu; overrides the config's device:")
     return parser

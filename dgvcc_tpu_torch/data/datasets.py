@@ -6,12 +6,11 @@ to bucketed shapes with validity masks, and every random decision draws
 from the per-sample ``random.Random`` the loader passes, in the JAX
 package's order, so one seed gives the same samples bit for bit.
 
-Registered: ``den`` (``DensityMapDataset``) and ``den_cls``
-(``DenClsDataset``), plus ``jhu_domain`` / ``jhu_domain_cls`` in
-``data/jhu.py``. ``RawCropDataset`` wraps a ``den`` / ``den_cls`` train
-split for the trainer's ``device_aug``. The Bayesian-loss datasets
-(``bay``, ``jhu_domain_bay``) are not ported: a config naming one raises
-with a pointer to ROADMAP.md.
+Registered: ``den`` (``DensityMapDataset``), ``den_cls``
+(``DenClsDataset``) and ``bay`` (``BayesianDataset``, the Bayesian loss's
+points and targets), plus ``jhu_domain`` / ``jhu_domain_cls`` /
+``jhu_domain_bay`` in ``data/jhu.py``. ``RawCropDataset`` wraps a ``den`` /
+``den_cls`` train split for the trainer's ``device_aug``.
 
 Kept from the JAX package, on purpose: ``den`` loads ``{name}_dmap.npy``
 (what ``data/dmap_cli.py`` writes) with a ``_dmap2`` fallback.
@@ -35,25 +34,32 @@ from PIL import Image
 
 from dgvcc_tpu_torch.core.registry import DATASETS
 from dgvcc_tpu_torch.data import transforms as T
-from dgvcc_tpu_torch.utils.misc import get_padding, random_crop
+from dgvcc_tpu_torch.utils.misc import cal_inner_area, get_padding, random_crop
 
 
 def _point_bucket(n: int, step: int = 64) -> int:
     return max(step, int(np.ceil(n / step)) * step)
 
 
-def pad_points(points_list: List[np.ndarray]) -> Dict[str, np.ndarray]:
-    """Ragged point lists -> (B, Nb, 2) points, (B, Nb) mask, (B,) counts."""
+def pad_points(points_list: List[np.ndarray], targets_list=None) -> Dict[str, np.ndarray]:
+    """Ragged point lists -> (B, Nb, 2) points, (B, Nb) mask, (B,) counts,
+    and with ``targets_list`` (B, Nb) targets."""
     n_max = _point_bucket(max((len(p) for p in points_list), default=0))
     b = len(points_list)
     pts = np.zeros((b, n_max, 2), np.float32)
     msk = np.zeros((b, n_max), bool)
+    tgt = np.zeros((b, n_max), np.float32) if targets_list is not None else None
     for i, p in enumerate(points_list):
         if len(p):
             pts[i, :len(p)] = p
             msk[i, :len(p)] = True
-    return {"points": pts, "pt_mask": msk,
-            "gt_count": np.asarray([len(p) for p in points_list], np.float32)}
+            if tgt is not None:
+                tgt[i, :len(p)] = targets_list[i]
+    out = {"points": pts, "pt_mask": msk,
+           "gt_count": np.asarray([len(p) for p in points_list], np.float32)}
+    if tgt is not None:
+        out["targets"] = tgt
+    return out
 
 
 class CrowdDataset:
@@ -358,12 +364,79 @@ class RawCropDataset:
                 "dmaps": np.stack([s["dmaps"] for s in samples])}
 
 
-def _not_ported(name):
-    def build(**_):
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported to dgvcc_tpu_torch yet: it feeds the "
-            "Bayesian loss, ROADMAP.md Queue 1 item 2")
-    DATASETS.register(name, build)
+@DATASETS.register("bay")
+class BayesianDataset(CrowdDataset):
+    """The Bayesian loss's dataset: reference datasets/bay_dataset.py.
 
+    A train sample is a crop, its points and each point's target: the share
+    of the point's box (side: its mean 3-NN distance, computed before the
+    resize and clipped to [4, 128]) inside the crop; a point survives at a
+    share of 0.3 (bay_dataset.py:85-98). bay's own resize law
+    (pre_resize * U * 0.8 + 0.6, only when the result still holds the crop).
+    The points are mirrored only when the image is flipped, as the JAX
+    package fixed the reference, which mirrors them always."""
 
-_not_ported("bay")
+    name = "bay"
+
+    @staticmethod
+    def _cal_dists(pts):
+        """Mean 3-NN distance per point (bay_dataset.py:38-48), with the
+        reference's quirks the JAX package keeps: ``np.partition`` pins only
+        column 3, so a point's own 0 may count among its three, and under
+        four points the mean takes every other column."""
+        if len(pts) == 0:
+            return np.zeros((0, 1))
+        if len(pts) == 1:
+            return np.array([[4.0]])
+        sq = np.sum(pts * pts, axis=1)
+        dists = np.sqrt(np.maximum(sq[:, None] - 2 * pts @ pts.T + sq[None, :], 0.0))
+        if len(pts) < 4:
+            return np.mean(dists[:, 1:], axis=1, keepdims=True)
+        return np.mean(np.partition(dists, 3, axis=1)[:, 1:4], axis=1, keepdims=True)
+
+    def _train_sample(self, img, gt, gt_fn, base, rng):
+        dists = self._cal_dists(gt)
+        w, h = img.size
+        img = self._maybe_grey(img, rng)
+        factor = self.pre_resize * rng.random() * 0.8 + 0.6
+        new_w, new_h = int(w * factor), int(h * factor)
+        if min(new_w, new_h) >= min(self.crop_size):
+            # the distances stay as they were before the resize (the reference)
+            w, h = new_w, new_h
+            img = img.resize((w, h))
+            gt = gt * factor
+
+        st_size = min(w, h)
+        if st_size < self.crop_size[0]:
+            st_size = self.crop_size[0]
+            padding, h, w = get_padding(h, w, self.crop_size[0], self.crop_size[1])
+            img = T.pil_pad(img, padding)
+            if len(gt) > 0:
+                gt = gt + [padding[0], padding[1]]
+
+        i, j = random_crop(h, w, self.crop_size[0], self.crop_size[1], rng)
+        h, w = self.crop_size
+        img = img.crop((j, i, j + w, i + h))
+        targ = np.zeros(0, np.float32)
+        if len(gt) > 0:
+            nearest = np.clip(dists, 4.0, 128.0)
+            bbox = np.concatenate((gt - nearest / 2.0, gt + nearest / 2.0), axis=1)
+            inner = cal_inner_area(j, i, j + w, i + h, bbox)
+            ratio = np.clip(inner / np.squeeze(nearest * nearest, axis=-1), 0.0, 1.0)
+            keep = ratio >= 0.3
+            targ = ratio[keep].astype(np.float32)
+            gt = gt[keep] - [j, i]
+
+        if rng.random() > 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            if len(gt) > 0:
+                gt[:, 0] = w - gt[:, 0]
+        return {"img1": T.to_tensor_normalize(img), "gt": gt.astype(np.float32),
+                "targets": targ, "st_size": np.float32(st_size)}
+
+    @staticmethod
+    def collate(samples):
+        out = {"img1": np.stack([s["img1"] for s in samples])}
+        out.update(pad_points([s["gt"] for s in samples], [s["targets"] for s in samples]))
+        out["st_sizes"] = np.asarray([s["st_size"] for s in samples], np.float32)
+        return out

@@ -5,7 +5,7 @@ differs: images come from ``{root}/domains/{domain_label}_{train|val}.txt``
 (test reuses the val list, reference jhu_domain_dataset.py:44-48).
 ``domain_type`` / ``domain`` are accepted for YAML compatibility and
 unused (the reference's dataframe filtering is commented out; the txt
-lists are authoritative). ``jhu_domain_bay`` waits with ``bay``.
+lists are authoritative).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 
 from dgvcc_tpu_torch.core.registry import DATASETS
-from dgvcc_tpu_torch.data.datasets import DenClsDataset, DensityMapDataset, _not_ported
+from dgvcc_tpu_torch.data.datasets import BayesianDataset, DenClsDataset, DensityMapDataset
 
 
 class _DomainListing:
@@ -38,4 +38,4 @@ def _make(name, base):
 
 JHUDomainDataset = _make("jhu_domain", DensityMapDataset)
 JHUDomainClsDataset = _make("jhu_domain_cls", DenClsDataset)
-_not_ported("jhu_domain_bay")
+JHUDomainBayesianDataset = _make("jhu_domain_bay", BayesianDataset)

@@ -21,7 +21,7 @@ tensor in any case: samples are numpy, built by PIL and numpy only. It
 goes back to the default SIGTERM and ignores SIGINT, so ``close()`` (also
 called by ``__del__`` and at the end of the trainer's runs) can end it
 whatever handler the trainer installed. The JAX package's multi-host
-sampler belongs to parallelism (ROADMAP.md, Queue 1 item 3).
+sampler belongs to parallelism (ROADMAP.md, Queue 1 item 1).
 """
 
 from __future__ import annotations

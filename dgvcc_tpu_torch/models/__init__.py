@@ -1,3 +1,3 @@
 """Model families of the port; importing registers them in MODELS."""
 
-from dgvcc_tpu_torch.models import dg, regressors, whitening  # noqa: F401
+from dgvcc_tpu_torch.models import baselines, dg, regressors, whitening  # noqa: F401

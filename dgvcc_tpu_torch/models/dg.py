@@ -349,7 +349,7 @@ class DGModel(nn.Module):
 
 # the model params of the reference YAML configs; `pretrained` (a
 # weight-loading flag, read by the trainer) and `tp_axis` (tensor
-# parallelism, ROADMAP.md Queue 1 item 3) are not taken
+# parallelism, ROADMAP.md Queue 1 item 1) are not taken
 _PARAM_NAMES = ("mem_size", "mem_dim", "den_dropout", "cls_dropout",
                 "cls_thrs", "err_thrs", "has_err_loss", "fused_mem",
                 "fused_mem_train", "batched_two_view", "remat", "vgg_cfg",

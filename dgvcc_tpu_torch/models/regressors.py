@@ -1,6 +1,12 @@
-"""The U-Net density regressors (NCHW), counterpart of the regressor half of
+"""The U-Net density regressors and the generators (NCHW), counterpart of
 dgvcc_tpu/models/regressors.py (the reference's models/models2.py):
 
+  * ``gen`` (Generator): a VGG19[:26] encoder (no batch norm) and a
+    ConvBlock decoder with three x2 upsamples, tanh out: an image-to-image
+    translator (modes generation and joint). ``vgg_cfg`` / ``enc_stop``
+    shrink the encoder for tests, as the JAX model's knobs do;
+  * ``gen0`` (Generator0): the skip variant, VGG19 ``enc1-3`` ([:9],
+    [9:18], [18:26]) and a U-Net decoder;
   * ``dgnet`` (DensityRegressorBase): VGG16-BN U-Net, a 1x1 density
     decoder with channel dropout, a 1x1 head, x4 upsample;
   * ``dgnet_cls`` (DensityRegressorBaseCls): + a foreground classifier at
@@ -32,7 +38,6 @@ DGModel's. Dropout draws from the ``torch.Generator`` a forward is given.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Optional
 
 import torch
@@ -41,10 +46,88 @@ from torch import nn
 
 from dgvcc_tpu_torch.core.registry import MODELS
 from dgvcc_tpu_torch.models.dg import MemoryBank, _run
-from dgvcc_tpu_torch.nn.layers import ConvBlock, Dropout2d, dropout2d, instance_norm, upsample
-from dgvcc_tpu_torch.nn.vgg import VGG16_CFG, VGGFeatures, feature_layout
+from dgvcc_tpu_torch.nn.layers import (ConvBlock, Dropout2d, dropout2d, he_normal_,
+                                       instance_norm, upsample)
+from dgvcc_tpu_torch.nn.vgg import VGG16_CFG, VGG19_CFG, VGGFeatures, feature_layout
 
 DEC_WIDTHS = ((1024, 512), (512, 256), (256, 128))
+
+
+def _up2():
+    return nn.Upsample(scale_factor=2, mode="bilinear", align_corners=False)
+
+
+@MODELS.register("gen")
+class Generator(nn.Module):
+    """VGG19[:26] encoder + tanh decoder (models2.py:29-56). Keys: ``enc.{i}``
+    (torchvision indices) and ``dec.{i}``, the reference's Sequential with
+    its weightless upsamples at 2, 7 and 10 (``generator_checkpoint_to_flax``
+    reads this layout)."""
+
+    flax_layout = "generator"
+
+    def __init__(self, pretrained: bool = True, vgg_cfg: Any = None, enc_stop: int = 26,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.vgg_cfg = tuple(VGG19_CFG if vgg_cfg is None else vgg_cfg)
+        self.enc = VGGFeatures(self.vgg_cfg, False, 0, enc_stop, dtype)
+        c = self.enc.out_channels
+
+        def block(cin, cout):
+            return ConvBlock(cin, cout, bn=True, dtype=dtype)
+
+        self.dec = nn.Sequential(
+            block(c, 512), block(512, 256), _up2(),
+            block(256, 256), block(256, 256), block(256, 256), block(256, 128), _up2(),
+            block(128, 128), block(128, 64), _up2(),
+            block(64, 64), ConvBlock(64, 3, kernel_size=1, padding=0, relu=False, dtype=dtype),
+            nn.Tanh())
+        self.reset_parameters()
+
+    def forward(self, x):
+        return self.dec(self.enc(x))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        he_normal_(self, generator)
+
+
+@MODELS.register("gen0")
+class Generator0(nn.Module):
+    """The skip-connection generator (models2.py:58-103): VGG19 ``enc1-3``
+    (local indices) and ``dec{3,2,1}.{0,1}``, ``head.{0,1}``. The JAX
+    package reads no reference checkpoint of it; the decoder's names follow
+    the U-Net regressors' convention."""
+
+    flax_layout = "generator0"
+
+    def __init__(self, pretrained: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = tuple(VGG19_CFG)
+        self.enc1 = VGGFeatures(cfg, False, 0, 9, dtype)
+        self.enc2 = VGGFeatures(cfg, False, 9, 18, dtype)
+        self.enc3 = VGGFeatures(cfg, False, 18, 26, dtype)
+
+        def block(cin, cout):
+            return ConvBlock(cin, cout, bn=True, dtype=dtype)
+
+        c1, c2, c3 = (e.out_channels for e in (self.enc1, self.enc2, self.enc3))
+        self.dec3 = nn.Sequential(block(c3, 512), block(512, 256))
+        self.dec2 = nn.Sequential(block(256 + c2, 256), block(256, 128))
+        self.dec1 = nn.Sequential(block(128 + c1, 128), block(128, 64))
+        self.head = nn.Sequential(block(64, 64), ConvBlock(64, 3, kernel_size=1, padding=0,
+                                                           relu=False, dtype=dtype))
+        self.reset_parameters()
+
+    def forward(self, x):
+        x1 = self.enc1(x)
+        x2 = self.enc2(x1)
+        y = self.dec3(self.enc3(x2))
+        y = self.dec2(torch.cat([upsample(y, 2), x2], dim=1))
+        y = self.dec1(torch.cat([upsample(y, 2), x1], dim=1))
+        return torch.tanh(self.head(upsample(y, 2)))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        he_normal_(self, generator)
 
 
 def kl_div_batchmean(log_p: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -129,19 +212,11 @@ class _VGGUNet(nn.Module):
         return torch.cat([y1, y2_up, upsample(y3, 4)], dim=1), x3
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """He-normal convolutions (fan_in, ReLU gain), zero biases, unit BN,
-        a standard-normal bank; seeded from ``generator``."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Conv2d):
-                    fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                    w = torch.randn(m.weight.shape, generator=generator)
-                    m.weight.copy_(w * math.sqrt(2.0 / fan_in))
-                    if m.bias is not None:
-                        m.bias.zero_()
-                elif isinstance(m, nn.BatchNorm2d):
-                    m.reset_parameters()
-            if isinstance(getattr(self, "mem", None), nn.Parameter):
+        """He-normal convolutions, zero biases, unit BN, a standard-normal
+        bank; seeded from ``generator``."""
+        he_normal_(self, generator)
+        if isinstance(getattr(self, "mem", None), nn.Parameter):
+            with torch.no_grad():
                 self.mem.copy_(torch.randn(self.mem.shape, generator=generator))
 
 

@@ -32,16 +32,25 @@ counters (``models/whitening.py``): the inverse of the JAX package's
 ``sw_counter_checkpoint_to_flax``, ``ibn_counter_checkpoint_to_flax``,
 ``isw_counter_checkpoint_to_flax`` and ``sw_vgg_checkpoint_to_flax``
 (reference torch layout), and for the DenseNet counters the torchvision
-names that ``densenet_to_flax`` reads. ``state_dict_from_flax`` picks the
-converter by the model's layout.
+names that ``densenet_to_flax`` reads. The generators and the classic
+baselines map by module path (``_LAYOUT_PATHS``), each the inverse of the
+JAX package's reader of that family: ``generator_checkpoint_to_flax``
+(``gen``), ``csrnet_``, ``mcnn_``, ``bl_`` (both BN layouts), ``sasnet_``,
+``cctrans_`` and ``dssinet_checkpoint_to_flax``; ``gen0``, which the JAX
+package does not read, by the regressors' convention.
+``state_dict_from_flax`` picks the converter by the model's
+``flax_layout``.
 
 ``install_pretrained`` puts a torchvision state_dict into a model, as the
 JAX package's ``nn/torch_io.py::load_pretrained_backbone`` does:
-``vgg16_bn`` into a DGModel's ``enc1/enc2/enc3`` and a regressor's
-``stage1/2/3``; ``resnet50`` into the
+``vgg16_bn`` into a DGModel's ``enc1/enc2/enc3``, a regressor's
+``stage1/2/3`` and SASNet's ``features1-5``; ``resnet50`` into the
 trunk of ``sw``, ``ibn`` and ``isw``, ``densenet121`` into the trunk of
-the DenseNet counters (both non-strict: what has no site of the same
-shape keeps its init), ``vgg19`` into ``sw_vgg``'s 16 convolutions.
+the DenseNet counters and ``alt_gvt`` into CCTrans's transformer (all
+non-strict: what has no site of the same shape keeps its init); ``vgg19``
+into ``sw_vgg``'s 16 convolutions, the generators' encoders and ``bl``'s
+features (``vgg19_bn`` for ``bl(batch_norm=True)``), ``vgg16``'s first ten
+convolutions into CSRNet's front end and DSSINet's stages.
 """
 
 from __future__ import annotations
@@ -168,8 +177,9 @@ def _modules(tree: Mapping, prefix=()):
 
 def _put(sd, prefix: str, leaves: Mapping):
     """One module's flax leaves -> its torch entries: kernels transposed
-    (conv HWIO -> OIHW, dense (in, out) -> (out, in)), BN scale / mean /
-    var renamed, SwitchWhiten and IN leaves verbatim."""
+    (conv HWIO -> OIHW, dense (in, out) -> (out, in)), BN and LayerNorm
+    scale / mean / var and PReLU alpha renamed, SwitchWhiten and IN leaves
+    verbatim."""
     for name, a in leaves.items():
         a = np.asarray(a)
         if name == "kernel":
@@ -181,6 +191,8 @@ def _put(sd, prefix: str, leaves: Mapping):
             sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
         elif name == "var":
             sd[f"{prefix}.running_var"] = _t(a)
+        elif name == "alpha":  # a PReLU's slope
+            sd[f"{prefix}.weight"] = _t(a)
         else:  # bias; SwitchWhiten's sw_*_weight, weight, running_mean / _cov
             sd[f"{prefix}.{name}"] = _t(a)
 
@@ -244,6 +256,16 @@ def _flax_path_to_torch(layout: str, path, leaves) -> str:
                         lambda k: f"backbone.{3 + k}")
 
 
+def _by_path(to_torch, params: Mapping, batch_stats: Optional[Mapping]):
+    """Every module of the params (and batch statistics) trees through
+    ``to_torch(flax module path, leaves) -> torch prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats or {}):
+        for path, leaves in _modules(tree):
+            _put(sd, to_torch(path, leaves), leaves)
+    return sd
+
+
 def whitening_state_dict_from_flax(layout: str, params: Mapping,
                                    batch_stats: Optional[Mapping]) -> Dict[str, torch.Tensor]:
     """JAX whitening-counter variables -> the port's state_dict.
@@ -252,22 +274,161 @@ def whitening_state_dict_from_flax(layout: str, params: Mapping,
     models' ``flax_layout``). With ``batch_stats=None``, ``params`` may be
     any tree of the params' layout (a gradient): the result then holds the
     parameters' keys only."""
-    sd: Dict[str, torch.Tensor] = {}
-    for tree in (params, batch_stats or {}):
-        for path, leaves in _modules(tree):
-            _put(sd, _flax_path_to_torch(layout, path, leaves), leaves)
-    return sd
+    return _by_path(lambda path, leaves: _flax_path_to_torch(layout, path, leaves),
+                    params, batch_stats)
+
+
+# ---- the generators and the classic baselines: flax module path -> the
+# reference torch name (each the inverse of dgvcc_tpu/nn/torch_io.py's
+# reader of that family)
+
+# the reference Generator's dec Sequential index of each flax block
+# (torch_io.py::_GEN_DEC_MAP; upsamples at 2, 7, 10)
+_GEN_DEC = {"dec0": 0, "dec1": 1, "dec2_0": 3, "dec2_1": 4, "dec2_2": 5, "dec2_3": 6,
+            "dec3_0": 8, "dec3_1": 9, "dec4": 11, "out": 12}
+_CONVBLOCK = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+
+
+def _vgg_index(name: str, lo: int = 0) -> str:
+    """``conv{i}`` / ``bn{i}`` (torchvision index) -> the local index."""
+    return str(int(re.fullmatch(r"(?:conv|bn)(\d+)", name).group(1)) - lo)
+
+
+def _generator_path(path, leaves) -> str:
+    if path[0] == "enc":
+        return f"enc.{_vgg_index(path[1])}"
+    return f"dec.{_GEN_DEC[path[0]]}.{_CONVBLOCK[path[1]]}"
+
+
+def _generator0_path(path, leaves) -> str:
+    if path[0] in ("enc1", "enc2", "enc3"):
+        lo = {"enc1": 0, "enc2": 9, "enc3": 18}[path[0]]
+        return f"{path[0]}.{_vgg_index(path[1], lo)}"
+    m = re.fullmatch(r"(dec\d|head)_?(\d)", path[0])
+    return f"{m.group(1)}.{m.group(2)}.{_CONVBLOCK[path[1]]}"
+
+
+def _stack_index(cfg, k: int) -> int:
+    """The Sequential index of the k-th conv of a make_layers stack (conv and
+    ReLU per entry, one pool per 'M')."""
+    seq = 0
+    for v in cfg:
+        if v == "M":
+            seq += 1
+        elif k == 0:
+            return seq
+        else:
+            seq, k = seq + 2, k - 1
+    raise IndexError(k)
+
+
+def _csrnet_path(path, leaves) -> str:
+    from dgvcc_tpu_torch.models.baselines.csrnet import BACKEND, FRONTEND
+
+    if path[0] == "output_layer":
+        return "output_layer"
+    cfg = FRONTEND if path[0] == "frontend" else BACKEND
+    return f"{path[0]}.{_stack_index(cfg, int(path[1][4:]))}"
+
+
+def _mcnn_path(path, leaves) -> str:
+    if path[0] == "fuse":
+        return "fuse.0"
+    return f"{path[0]}.{(0, 3, 6, 8)[int(path[1][4:])]}"
+
+
+def _bl_path(path, leaves) -> str:
+    if path[0] == "features":
+        return f"features.{_vgg_index(path[1])}"
+    return f"reg_layer.{2 * (int(path[0][3:]) - 1)}"
+
+
+_SASNET_BRANCHES = ("branch1x1", "branch1x1_1", "branch3x3_1", "branch3x3_2",
+                    "branch3x3dbl_1", "branch3x3dbl_2")
+
+
+def _sasnet_path(path, leaves) -> str:
+    """torch_io.py::sasnet_checkpoint_to_flax's order contracts, inverted:
+    ConvRelu_0-9 are de_pred5..1 (two each), ConvRelu_{10+2i, 11+2i} scale
+    i's confidence head, MultiBranch_i / Conv_i its density head."""
+    from dgvcc_tpu_torch.models.baselines.sasnet import SPLITS
+
+    head, sub = path[0], path[1:]
+    if head.startswith("features"):
+        return f"{head}.{_vgg_index(sub[0], SPLITS[int(head[-1]) - 1][0])}"
+    kind, i = re.fullmatch(r"(ConvRelu|MultiBranch|Conv)_(\d+)", head).groups()
+    i = int(i)
+    if kind == "Conv":
+        return f"density_head{5 - i}.1.conv"
+    if kind == "MultiBranch":
+        b = int(sub[0].rsplit("_", 1)[1])
+        return f"density_head{5 - i}.0.{_SASNET_BRANCHES[b]}.{_CONVBLOCK[sub[1]]}"
+    if i < 10:
+        return f"de_pred{5 - i // 2}.{i % 2}.conv"
+    return f"confidence_head{5 - (i - 10) // 2}.{(i - 10) % 2}.conv"
+
+
+# the reference Regression head's conv index of each flax name
+# (torch_io.py::_CCTRANS_REG_MAP; v2 / v3 lead with an upsample)
+_CCTRANS_REG = {"v1": 0, "v2": 1, "v3": 1, "stage1": 0, "stage2": 0, "stage3": 0,
+                "stage4": 0, "res1": 0}
+
+
+def _cctrans_path(path, leaves) -> str:
+    head, sub = path[0], path[1:]
+    m = re.fullmatch(r"(patch_embed|pos_block)(\d+)", head)
+    if m:
+        if m.group(1) == "pos_block":
+            return f"pos_block.{m.group(2)}.proj.0"
+        return f"patch_embeds.{m.group(2)}.{sub[0]}"
+    m = re.fullmatch(r"block(\d+)_(\d+)", head)
+    if m:
+        return ".".join(("blocks", m.group(1), m.group(2)) + tuple(sub))
+    name = sub[0]  # regression/{v1,...}_{conv,bn}, res2
+    if name == "res2":
+        return "regression.res.3"
+    stage, kind = name.rsplit("_", 1)
+    ci = _CCTRANS_REG[stage] + (kind == "bn")
+    return f"regression.{'res' if stage == 'res1' else stage}.{ci}"
+
+
+def _dssinet_path(path, leaves) -> str:
+    from dgvcc_tpu_torch.models.baselines.dssinet import STAGES
+
+    head, sub = path[0], path[1:]
+    fe = "front_end.features"
+    if re.fullmatch(r"stage\d", head):
+        kind, i = re.fullmatch(r"(conv|prelu)(\d+)", sub[0]).groups()
+        convs, prelus = STAGES[int(head[-1]) - 1]
+        return f"{fe}.{(convs if kind == 'conv' else prelus)[int(i)]}"
+    if head in ("stage1_act", "stage4_act"):
+        return f"{fe}.{'relu3' if head == 'stage1_act' else 'relu22'}"
+    if head == "out_prelu":
+        return "prelu"
+    if head.startswith("passing"):
+        return f"{head}.prelu" if sub[0] == "prelu" else f"{head}.{sub[0]}.0.conv"
+    if head.startswith("decoder"):
+        return f"{head}.{int(sub[0][1:]) - 1}.conv"
+    return f"passing_weight{head[2:]}.conv"  # pw{k}
+
+
+_LAYOUT_PATHS = {"generator": _generator_path, "generator0": _generator0_path,
+                 "csrnet": _csrnet_path, "mcnn": _mcnn_path, "bl": _bl_path,
+                 "sasnet": _sasnet_path, "cctrans": _cctrans_path, "dssinet": _dssinet_path}
 
 
 def state_dict_from_flax(model: torch.nn.Module, params: Mapping,
                          batch_stats: Optional[Mapping]) -> Dict[str, torch.Tensor]:
-    """JAX variables of ``model``'s family -> its state_dict."""
+    """JAX variables of ``model``'s family -> its state_dict (with
+    ``batch_stats=None``, ``params`` may be a gradient tree)."""
     layout = getattr(model, "flax_layout", None)
     splits = getattr(model, "stage_splits", (0, 23, 33, 43))
     if layout is None:
         return dg_state_dict_from_flax(params, batch_stats, splits)
     if layout == "regressor":
         return regressor_state_dict_from_flax(params, batch_stats, splits)
+    if layout in _LAYOUT_PATHS:
+        return _by_path(_LAYOUT_PATHS[layout], params, batch_stats)
     return whitening_state_dict_from_flax(layout, params, batch_stats)
 
 
@@ -294,30 +455,57 @@ UNET_FAMILY = ("dgnet", "dgnet_cls", "reg", "reg_mem")
 VGG16_BN_STAGES = ((0, 23), (23, 33), (33, 43))
 
 
-def vgg16_bn_to_dg(tv: Mapping[str, torch.Tensor],
-                   stages=("enc1", "enc2", "enc3")) -> Dict[str, torch.Tensor]:
-    """torchvision ``vgg16_bn`` keys ``features.{i}.*`` -> the DGModel's
-    ``enc{1,2,3}.{i - lo}.*`` (a regressor's: ``stage{1,2,3}``): conv weight
-    and bias, BN weight, bias and running statistics."""
+def vgg_to_stages(tv: Mapping[str, torch.Tensor], cfg, batch_norm: bool,
+                  stages) -> Dict[str, torch.Tensor]:
+    """torchvision VGG keys ``features.{i}.*`` -> ``{prefix}.{i - lo}.*`` for
+    each (prefix, lo, hi) of ``stages``: conv weight and bias, BN weight,
+    bias and running statistics."""
     sd: Dict[str, torch.Tensor] = {}
     fields = {"conv": ("weight", "bias"),
               "bn": ("weight", "bias", "running_mean", "running_var")}
-    for enc, (lo, hi) in zip(stages, VGG16_BN_STAGES):
-        for kind, idx, _ in feature_layout(VGG16_CFG, True):
+    for prefix, lo, hi in stages:
+        for kind, idx, _ in feature_layout(cfg, batch_norm):
             if lo <= idx < hi and kind in fields:
                 for f in fields[kind]:
-                    sd[f"{enc}.{idx - lo}.{f}"] = tv[f"features.{idx}.{f}"].float()
+                    sd[f"{prefix}.{idx - lo}.{f}"] = tv[f"features.{idx}.{f}"].float()
     return sd
 
 
+def vgg16_bn_to_dg(tv: Mapping[str, torch.Tensor],
+                   stages=("enc1", "enc2", "enc3")) -> Dict[str, torch.Tensor]:
+    """torchvision ``vgg16_bn`` -> the DGModel's ``enc{1,2,3}.{i - lo}.*``
+    (a regressor's: ``stage{1,2,3}``)."""
+    return vgg_to_stages(tv, VGG16_CFG, True,
+                         [(e, lo, hi) for e, (lo, hi) in zip(stages, VGG16_BN_STAGES)])
+
+
+def vgg_convs_to(tv: Mapping[str, torch.Tensor], cfg, names) -> Dict[str, torch.Tensor]:
+    """The k-th conv of a torchvision VGG (plain, ``cfg``) -> ``names[k]``,
+    for as many as ``names`` holds (CSRNet's front end, DSSINet's stages)."""
+    convs = [idx for kind, idx, _ in feature_layout(cfg, False) if kind == "conv"]
+    return {f"{name}.{f}": tv[f"features.{idx}.{f}"].float()
+            for name, idx in zip(names, convs) for f in ("weight", "bias")}
+
+
+def _install_strict(model: torch.nn.Module, sd: Mapping[str, torch.Tensor], what: str):
+    """Copy ``sd`` into ``model``; raises unless every key exists with its shape."""
+    current = model.state_dict()
+    bad = sorted(k for k, v in sd.items()
+                 if k not in current or tuple(v.shape) != tuple(current[k].shape))
+    if bad:
+        raise ValueError(f"{what}: {bad[:3]}")
+    with torch.no_grad():
+        model.load_state_dict(sd, strict=False)
+
+
 def _site_fields(mod: torch.nn.Module):
-    """What a torchvision conv or BN entry may set at a site, as the JAX
-    merge (``_merge_into_backbone``: same leaf name and shape) sets it: a
+    """What a pretrained conv, linear, norm or BN entry may set at a site, as
+    the JAX merge (``_merge_into_backbone``: same leaf name and shape) sets it: a
     SwitchWhiten has no BN ``scale``, so only its bias is taken; an IBN
     site has no leaf of a BN's names, so nothing."""
     if isinstance(mod, SwitchWhiten):
         return ("bias",)
-    if isinstance(mod, (nn.Conv2d, InstanceNorm)):
+    if isinstance(mod, (nn.Conv2d, nn.Linear, nn.LayerNorm, InstanceNorm)):
         return ("weight", "bias")
     if isinstance(mod, nn.BatchNorm2d):
         return ("weight", "bias", "running_mean", "running_var")
@@ -393,13 +581,55 @@ def vgg19_to_sw_vgg(tv: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+# the pretrained mappings of the generators and the classic baselines:
+# (model, torchvision weights) -> (description, its state_dict for the model)
+_VGG19_GEN0 = (("enc1", 0, 9), ("enc2", 9, 18), ("enc3", 18, 26))
+
+
+def _csrnet_frontend(tv):
+    """vgg16's first ten convs -> CSRNet's front end, positionally."""
+    from dgvcc_tpu_torch.models.baselines.csrnet import FRONTEND
+
+    return vgg_convs_to(tv, VGG16_CFG, [f"frontend.{_stack_index(FRONTEND, k)}"
+                                        for k in range(10)])
+
+
+def _dssinet_stages(tv):
+    """vgg16's first ten convs -> DSSINet's front-end stages, positionally."""
+    from dgvcc_tpu_torch.models.baselines.dssinet import STAGES
+
+    return vgg_convs_to(tv, VGG16_CFG, [f"front_end.features.{name}"
+                                        for convs, _ in STAGES for name in convs])
+
+
+def _sasnet_features(tv):
+    """vgg16_bn -> SASNet's features1-5 (local indices)."""
+    from dgvcc_tpu_torch.models.baselines.sasnet import SPLITS
+
+    return vgg_to_stages(tv, VGG16_CFG, True, [(f"features{k}", lo, hi)
+                                               for k, (lo, hi) in enumerate(SPLITS, 1)])
+
+
+_BASELINE_PRETRAINED = {
+    ("gen", "vgg19"): ("vgg19 → enc",
+                       lambda tv: vgg_to_stages(tv, VGG19_CFG, False, (("enc", 0, 26),))),
+    ("gen0", "vgg19"): ("vgg19 → enc1-3",
+                        lambda tv: vgg_to_stages(tv, VGG19_CFG, False, _VGG19_GEN0)),
+    ("csrnet", "vgg16"): ("vgg16 → frontend", _csrnet_frontend),
+    ("dssinet", "vgg16"): ("vgg16 → stage1-4", _dssinet_stages),
+    ("sasnet", "vgg16_bn"): ("vgg16_bn → features1-5", _sasnet_features),
+}
+# CCTrans's backbone keys; the regression head trains from scratch
+_ALTGVT_PREFIXES = ("patch_embeds.", "pos_block.", "blocks.")
+
+
 def install_pretrained(model: torch.nn.Module, model_name: str,
                        weights: Mapping[str, str]) -> str:
     """Install the pretrained backbone of ``weights`` ({name: .pth path})
     that ``model_name`` has a mapping for; returns what was installed, or
-    "no pretrained mapping". A vgg16_bn or vgg19 checkpoint of other
-    widths raises; the resnet50 and densenet121 mappings are non-strict,
-    as the JAX package's."""
+    "no pretrained mapping" (with the reason where ``bl`` was given the
+    other vgg19). A VGG checkpoint of other widths raises; the resnet50,
+    densenet121 and alt_gvt mappings are non-strict, as the JAX package's."""
     if model_name in ("sw", "ibn", "isw") and "resnet50" in weights:
         _install_nonstrict(model, resnet50_to_port(load_reference_pth(weights["resnet50"]),
                                                    model_name))
@@ -409,23 +639,35 @@ def install_pretrained(model: torch.nn.Module, model_name: str,
         return "densenet121 → backbone (non-strict)"
     if model_name == "sw_vgg" and "vgg19" in weights:
         sd = vgg19_to_sw_vgg(load_reference_pth(weights["vgg19"]))
-        current = model.state_dict()
-        bad = [k for k, v in sd.items() if tuple(v.shape) != tuple(current[k].shape)]
-        if bad:
-            raise ValueError(f"sw_vgg's convolutions are not vgg19's: {bad[:3]}")
-        with torch.no_grad():
-            model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=False)
+        _install_strict(model, sd, "sw_vgg's convolutions are not vgg19's")
         return "vgg19 → conv sites (SW idx remap)"
     if model_name in DG_FAMILY + UNET_FAMILY and "vgg16_bn" in weights:
         unet = model_name in UNET_FAMILY
         sd = vgg16_bn_to_dg(load_reference_pth(weights["vgg16_bn"]),
                             ("stage1", "stage2", "stage3") if unet else ("enc1", "enc2", "enc3"))
-        current = model.state_dict()
-        bad = sorted(k for k, v in sd.items()
-                     if k not in current or tuple(v.shape) != tuple(current[k].shape))
-        if bad:
-            raise ValueError(f"{model_name}'s encoder is not vgg16_bn's layout: {bad[:3]}")
-        with torch.no_grad():
-            model.load_state_dict(sd, strict=False)
+        _install_strict(model, sd, f"{model_name}'s encoder is not vgg16_bn's layout")
         return "vgg16_bn → fe/stage1-3" if unet else "vgg16_bn → enc1/2/3"
+    if model_name == "bl":
+        # the layout follows the model's batch_norm flag: the other one would
+        # land its first conv only
+        key = "vgg19_bn" if model.batch_norm else "vgg19"
+        if key in weights:
+            sd = vgg_to_stages(load_reference_pth(weights[key]), VGG19_CFG, model.batch_norm,
+                               (("features", 0, 10_000),))
+            _install_strict(model, sd, f"bl's features are not {key}'s layout")
+            return f"{key} → features"
+        wrong = "vgg19" if model.batch_norm else "vgg19_bn"
+        if wrong in weights:
+            return (f"no pretrained mapping: bl(batch_norm={model.batch_norm}) needs "
+                    f"'{key}' weights but only '{wrong}' was provided")
+    if model_name == "cctrans" and "alt_gvt" in weights:
+        tv = load_reference_pth(weights["alt_gvt"])
+        _install_nonstrict(model, {k: v for k, v in tv.items()
+                                   if k.startswith(_ALTGVT_PREFIXES)})
+        return "alt_gvt → transformer backbone (non-strict)"
+    for (name, key), (desc, mapping) in _BASELINE_PRETRAINED.items():
+        if model_name == name and key in weights:
+            sd = mapping(load_reference_pth(weights[key]))
+            _install_strict(model, sd, f"{model_name} does not take {key}'s layout")
+            return desc
     return "no pretrained mapping"

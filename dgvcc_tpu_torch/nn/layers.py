@@ -17,6 +17,7 @@ each convolution casts to bf16 on the way in, as a flax ``Conv`` with
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -43,15 +44,59 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, w, b)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the dtype it was built in, as ``Conv2d``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, dtype=dtype, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis in float32, returning the input's
+    dtype (flax's LayerNorm reduces in float32 and casts back)."""
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+class PReLU(nn.PReLU):
+    """``nn.PReLU()`` (one slope, 0.25 at init) in the input's dtype."""
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+def he_normal_(model: nn.Module, generator: Optional[torch.Generator] = None):
+    """He-normal convolution and linear weights (fan_in, ReLU gain), zero
+    biases, the norms and PReLUs at their init; seeded from ``generator``."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                w = torch.randn(m.weight.shape, generator=generator)
+                m.weight.copy_(w * math.sqrt(2.0 / m.weight[0].numel()))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.PReLU)):
+                m.reset_parameters()
+
+
 class ConvBlock(nn.Module):
-    """conv (no bias) → optional BN (eps 1e-5) → optional ReLU."""
+    """conv (no bias unless asked) → optional BN (eps 1e-5) → optional ReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  padding: int = 1, bn: bool = False, relu: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bias: bool = False):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, kernel_size, padding=padding,
-                           bias=False, dtype=dtype)
+                           bias=bias, dtype=dtype)
         self.bn = nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1) if bn else None
         self.relu = relu
 
@@ -76,6 +121,15 @@ def upsample(x: torch.Tensor, scale_factor: int = 2,
         return F.interpolate(x, scale_factor=scale_factor, mode="nearest")
     return F.interpolate(x, scale_factor=scale_factor, mode="bilinear",
                          align_corners=False)
+
+
+def resize_bilinear_ac(x: torch.Tensor, hw) -> torch.Tensor:
+    """Bilinear resize of NCHW ``x`` to ``hw`` with align_corners=True
+    (``F.upsample_bilinear``, ``nn.UpsamplingBilinear2d``): the JAX
+    package's ``resize_bilinear_ac``."""
+    if tuple(x.shape[2:]) == tuple(hw):
+        return x
+    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=True)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

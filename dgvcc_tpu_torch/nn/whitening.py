@@ -22,7 +22,7 @@ input), and the output is cast back to it. Their products must not use
 TF32 (it changes the whitening matrix), so a forward on CUDA raises if
 TF32 matmuls are allowed. The batch statistics are those of this
 device's batch: the all-reduced variant across devices is ROADMAP.md,
-Queue 1 item 3.
+Queue 1 item 1.
 """
 
 from __future__ import annotations

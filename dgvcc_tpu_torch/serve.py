@@ -12,9 +12,11 @@ Usage:
         ...
 
 Only the full-precision path is ported: a device mesh (``mesh`` /
-``shard``) raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 3), as
-do int8 (``quantize``), ``auto_threshold`` and ``from_artifact`` (item 4).
-It serves the DG family, the whitening counters and the regressors. For
+``shard``) raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 1), as
+do int8 (``quantize``), ``auto_threshold`` and ``from_artifact`` (item 2).
+It serves every counting family of the port: the DG family, the whitening
+counters, the regressors and the classic baselines (a model that predicts
+at a coarser stride is masked at its own grid). For
 the HTTP server (``serve_http.py``) a counter keeps ``quantized`` (None:
 no int8 graph) and ``dispatches``, its batches by precision.
 """
@@ -32,8 +34,8 @@ import torch
 from dgvcc_tpu_torch.core.registry import MODELS
 
 _NOT_PORTED = "is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1"
-_PARALLEL = f"{_NOT_PORTED} item 3"
-_INT8 = f"{_NOT_PORTED} item 4"
+_PARALLEL = f"{_NOT_PORTED} item 1"
+_INT8 = f"{_NOT_PORTED} item 2"
 
 
 def resolve_device(device="cuda") -> torch.device:

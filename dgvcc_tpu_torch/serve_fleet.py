@@ -23,7 +23,7 @@ card). The proxy:
   new port, with exponential backoff.
 
 The JAX fleet's ``--aot``, ``--artifact`` and ``--quantize`` (int8 and AOT
-replicas) are not ported (ROADMAP.md, Queue 1 item 4): they are refused
+replicas) are not ported (ROADMAP.md, Queue 1 item 2): they are refused
 here, before any replica starts.
 """
 
@@ -46,7 +46,7 @@ from dgvcc_tpu_torch.serve_http import Server
 from dgvcc_tpu_torch.utils.devices import chip_env
 
 _STAT_KEYS = ("frames", "batches", "device_s", "dispatch_fp", "dispatch_int8")
-_NOT_PORTED = ("is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 4 "
+_NOT_PORTED = ("is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 2 "
                "(use python -m dgvcc_tpu.serve_fleet for it)")
 
 
@@ -390,12 +390,12 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt", default=None, help="checkpoint passed to every replica")
     ap.add_argument("--restart", action="store_true", help="respawn dead replicas")
     ap.add_argument("--probe-s", type=float, default=2.0)
-    ap.add_argument("--aot", default=None, help="not ported (ROADMAP.md, Queue 1 item 4)")
+    ap.add_argument("--aot", default=None, help="not ported (ROADMAP.md, Queue 1 item 2)")
     ap.add_argument("--artifact", default=None,
-                    help="not ported (ROADMAP.md, Queue 1 item 4)")
+                    help="not ported (ROADMAP.md, Queue 1 item 2)")
     ap.add_argument("--quantize", nargs="?", const=True, default=False,
                     choices=[True, False, "auto"], metavar="auto",
-                    help="not ported (ROADMAP.md, Queue 1 item 4)")
+                    help="not ported (ROADMAP.md, Queue 1 item 2)")
     args = ap.parse_args(argv)
     try:
         fleet = FleetServer(

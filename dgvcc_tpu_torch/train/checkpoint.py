@@ -83,19 +83,23 @@ def _payload(state, extra: Optional[Dict[str, Any]], clone: bool):
     return weights, train
 
 
-def _write(path: str, weights, train) -> None:
-    """Both files staged on the host before either rename."""
-    side = sidecar_path(path)
-    for p, obj in ((path, weights), (side, train)):
-        torch.save(_map_tensors(obj, lambda t: t.cpu()), p + ".tmp")
-    os.replace(path + ".tmp", path)
-    os.replace(side + ".tmp", side)
+def _write(*items) -> None:
+    """Each (path, weights, training state) as the checkpoint and its
+    sidecar: every file staged on the host before any rename, so a crash
+    leaves the previous set whole (a [gen, reg] pair never mixes epochs)."""
+    staged = []
+    for path, weights, train in items:
+        for p, obj in ((path, weights), (sidecar_path(path), train)):
+            torch.save(_map_tensors(obj, lambda t: t.cpu()), p + ".tmp")
+            staged.append(p)
+    for p in staged:
+        os.replace(p + ".tmp", p)
 
 
 def save_checkpoint(path: str, state, extra: Optional[Dict[str, Any]] = None) -> None:
     """Write ``state``'s model weights to ``path`` and the rest of it and
     ``extra`` to the sidecar."""
-    _write(path, *_payload(state, extra, clone=False))
+    _write((path, *_payload(state, extra, clone=False)))
 
 
 def _merge(state, loaded: Dict[str, torch.Tensor], warnings: List[str]):
@@ -252,7 +256,9 @@ class AsyncWriter:
 
 class CheckpointRotator:
     """The reference's rolling last / best files (trainer.py:106-115) under
-    a log dir; with a ``writer`` the saves are deferred to it."""
+    a log dir, single or as [gen, reg] pairs (``last_gen`` / ``last_reg``,
+    ``best_{epoch}_{crit}_gen`` / ``_reg``: dgtrainer.py:43-48, as the JAX
+    package names them); with a ``writer`` the saves are deferred to it."""
 
     def __init__(self, log_dir: str, writer: Optional[AsyncWriter] = None):
         self.log_dir = log_dir
@@ -261,31 +267,33 @@ class CheckpointRotator:
     def _path(self, stem: str) -> str:
         return os.path.join(self.log_dir, stem + SUFFIX)
 
-    def _purge(self, pattern: str, keep: str):
+    def _purge(self, pattern: str, keep):
         for old in glob(os.path.join(self.log_dir, pattern + SUFFIX)):
-            if old != keep:
+            if old not in keep:
                 os.remove(old)
                 if os.path.exists(sidecar_path(old)):
                     os.remove(sidecar_path(old))
 
-    def _save(self, stem: str, state, extra, purge: Optional[str] = None):
-        """One save, then the rotation purge: purging first would open a
-        window in which the previous checkpoint is gone and the new one
-        not yet written. Async: the state is cloned now, on its device,
-        and written, then purged, on the writer's thread."""
-        path = self._path(stem)
+    def _save(self, entries, extra, purge: Optional[str] = None):
+        """One save of (stem, state) entries, then the rotation purge: purging
+        first would open a window in which the previous checkpoint is gone
+        and the new one not yet written. Async: the states are cloned now,
+        on their device, and written, then purged, on the writer's thread.
+        Returns the first path."""
+        paths = [self._path(stem) for stem, _ in entries]
 
-        def job(payload):
-            _write(path, *payload)
+        def job(payloads):
+            _write(*((p, *payload) for p, payload in zip(paths, payloads)))
             if purge:
-                self._purge(purge, keep=path)
+                self._purge(purge, keep=set(paths))
 
-        if self.writer is None:
-            job(_payload(state, extra, clone=False))
+        clone = self.writer is not None
+        payloads = [_payload(state, extra, clone=clone) for _, state in entries]
+        if clone:
+            self.writer.submit(lambda: job(payloads))
         else:
-            payload = _payload(state, extra, clone=True)
-            self.writer.submit(lambda: job(payload))
-        return path
+            job(payloads)
+        return paths[0]
 
     def flush(self):
         """Wait until every deferred save is on disk (no-op when sync)."""
@@ -293,10 +301,19 @@ class CheckpointRotator:
             self.writer.flush()
 
     def save_last(self, state, extra=None):
-        return self._save("last", state, extra, purge="last*")
+        return self._save([("last", state)], extra, purge="last*")
 
     def save_best(self, state, epoch: int, criterion: float, extra=None):
-        return self._save(f"best_{epoch}_{criterion:.4f}", state, extra, purge="best*")
+        return self._save([(f"best_{epoch}_{criterion:.4f}", state)], extra, purge="best*")
 
     def save_test(self, state, mae: float, extra=None):
-        return self._save(f"test_{mae}", state, extra)
+        return self._save([(f"test_{mae}", state)], extra)
+
+    def save_last_pair(self, gen_state, reg_state, extra=None):
+        return self._save([("last_gen", gen_state), ("last_reg", reg_state)], extra,
+                          purge="last*")
+
+    def save_best_pair(self, gen_state, reg_state, epoch: int, criterion: float, extra=None):
+        stem = f"best_{epoch}_{criterion:.4f}"
+        return self._save([(stem + "_gen", gen_state), (stem + "_reg", reg_state)], extra,
+                          purge="best*")

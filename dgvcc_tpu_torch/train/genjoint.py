@@ -1,8 +1,18 @@
-"""The regressors' reconstructed training modes, counterpart of
-dgvcc_tpu/train/genjoint.py (the reference ships their configs,
-sta_reg.yml and sta_dis.yml, but not their trainers; the JAX package
-reconstructs them from the shipped models and losses):
+"""The reconstructed training modes of the regressors and the generator,
+counterpart of dgvcc_tpu/train/genjoint.py (the reference ships their
+configs, sta_gen.yml, sta_joint.yml, sta_reg.yml and sta_dis.yml, but not
+their trainers; the JAX package reconstructs them from the shipped models
+and losses):
 
+  generation     — the generator maps the photometric view img2 back to
+                   the clean view img1: pixel L1 + MSE;
+  joint          — the generator and ``reg_mem`` in one step, in the JAX
+                   step's order: the generator's forward, its loss (L1 to
+                   img1 + 1e-6 * ortho_loss of the per-sample-centred
+                   pixels) and its update; then the regressor's
+                   ``forward_train`` on (img1, the generator's output of
+                   that forward, detached) and its update
+                   (``build_joint_step``);
   regression     — ``reg_mem.forward_train`` on the two views: the count
                    loss on both densities + 10 * BCE(cls) + 10 * true_jsd;
   discrimination — the count loss of both views (batch-norm statistics
@@ -16,9 +26,8 @@ reconstructs them from the shipped models and losses):
                    (``traced_running_statistics``), which moves the trunk's
                    gradients by several percent.
 
-Each build_* function returns loss_fn(batch, generator, epoch=0) -> (total,
-metrics), as ``train/steps.py::build_loss_fn``. The generator's modes
-(generation, joint) are ROADMAP.md, Queue 1 item 1.
+Each build_*_loss function returns loss_fn(batch, generator, epoch=0) ->
+(total, metrics), as ``train/steps.py::build_loss_fn``.
 """
 
 from __future__ import annotations
@@ -28,8 +37,58 @@ import contextlib
 import torch
 from torch import nn
 
-from dgvcc_tpu_torch.losses.misc import triplet_loss
+from dgvcc_tpu_torch.losses.misc import ortho_loss, triplet_loss
 from dgvcc_tpu_torch.train.steps import _count_loss, _first, bce
+
+
+def build_generation_loss(model):
+    """mode 'generation': the de-augmentation reconstruction, L1 + MSE of
+    gen(img2) against img1, in float32."""
+
+    def loss_fn(batch, generator, epoch: int = 0):
+        model.train()
+        out = model(batch["img2"]).float()
+        target = batch["img1"].float()
+        loss_rec = (out - target).abs().mean() + (out - target).square().mean()
+        return loss_rec, {"loss_total": loss_rec, "loss_rec": loss_rec}
+
+    return loss_fn
+
+
+def build_joint_step(gen_model, reg_model, loss, log_para: float):
+    """mode 'joint': returns step(gen_state, reg_state, batch, generator,
+    epoch=0) -> (gen_state, reg_state, metrics). The regressor's dropout
+    draws from ``generator`` (the JAX step's second key; the generator has
+    no dropout). Both states are updated in place and returned; the metrics
+    are detached device tensors."""
+    reg_loss = build_regression_loss(reg_model, loss, log_para)
+
+    def step(gen_state, reg_state, batch, generator, epoch: int = 0):
+        gen_state.optimizer.zero_grad(set_to_none=True)
+        gen_model.train()
+        fake = gen_model(batch["img2"])
+        target = batch["img1"].float()
+        loss_rec = (fake.float() - target).abs().mean()
+        # the style-diversity regulariser: no cross-sample correlation between
+        # the generated and the clean pixels, so the generator does not
+        # collapse onto the identity
+        x = fake.float().reshape(fake.shape[0], -1)
+        y = target.reshape(target.shape[0], -1)
+        loss_ortho = ortho_loss(x - x.mean(dim=1, keepdim=True),
+                                y - y.mean(dim=1, keepdim=True)) * 1e-6
+        gtotal = loss_rec + loss_ortho
+        gtotal.backward()
+        gen_state.apply_gradients()
+
+        reg_state.optimizer.zero_grad(set_to_none=True)
+        rtotal, rmetrics = reg_loss(dict(batch, img2=fake.detach()), generator, epoch)
+        rtotal.backward()
+        reg_state.apply_gradients()
+        metrics = {"loss_total": rtotal + gtotal, "loss_gen": gtotal, "loss_rec": loss_rec,
+                   **{k: rmetrics[k] for k in ("loss_den", "loss_kl", "loss_cls")}}
+        return gen_state, reg_state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
 
 
 def build_regression_loss(model, loss, log_para: float):

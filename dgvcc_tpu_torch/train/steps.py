@@ -1,8 +1,9 @@
 """Per-mode train steps, counterpart of dgvcc_tpu/train/steps.py.
 
-Batches are dicts of NCHW tensors on the model's device:
-    img1 (B,3,H,W), img2 (B,3,H,W)?, dmap (B,1,H,W), bmap (B,1,H/16,W/16)?,
-    isw_masks / isw_nums / isw_margins ({"m0": ..., ...})?
+Batches are dicts of tensors on the model's device, images NCHW:
+    img1 (B,3,H,W), img2 (B,3,H,W)?, dmap (B,1,H,W)?, bmap (B,1,H/16,W/16)?,
+    points (B,N,2)?, pt_mask (B,N)?, targets (B,N)?, st_sizes (B,)?
+    (the Bayesian loss's), isw_masks / isw_nums / isw_margins ({"m0": ...})?
 
 Modes (reference dgtrainer.py:149-204):
     simple  — one view, count loss (a DG model's tuple or a counter's map)
@@ -14,10 +15,12 @@ Modes (reference dgtrainer.py:149-204):
     isw     — the model returns [task_loss, wt_loss] (its own count loss
               and the whitening loss on the batch's masks); total = task +
               0.6 * wt from epoch 6 on
-    regression, discrimination — the reconstructed modes of the regressors
-              (``train/genjoint.py``)
-The modes generation and joint (ROADMAP.md, Queue 1 item 1) and the
-Bayesian loss (item 2) are not ported.
+    regression, discrimination, generation — the reconstructed modes of
+              the regressors and the generator (``train/genjoint.py``);
+              joint trains the generator and ``reg_mem`` together, a step of
+              its own (``genjoint.build_joint_step``)
+The count loss is the MSE on the density map or the Bayesian loss on the
+batch's points (``_count_loss``).
 """
 
 from __future__ import annotations
@@ -28,9 +31,8 @@ import torch
 
 from dgvcc_tpu_torch.train.state import TrainState
 
-MODES = ("simple", "base", "add", "cls", "final", "isw", "regression", "discrimination")
-# the generator's modes of dgvcc_tpu/train/genjoint.py
-UNPORTED = ("generation", "joint")
+MODES = ("simple", "base", "add", "cls", "final", "isw", "regression", "discrimination",
+         "generation", "joint")
 
 
 def bce(pred_prob: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
@@ -41,8 +43,11 @@ def bce(pred_prob: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> tor
 
 
 def _count_loss(loss, pred, batch, log_para):
-    """compute_count_loss (dgtrainer.py:50-69), MSE branch."""
-    return loss(pred, batch["dmap"], log_para=log_para)
+    """compute_count_loss (dgtrainer.py:50-69): the MSE on the density map,
+    or the Bayesian loss on the padded points."""
+    if getattr(loss, "kind", "mse") == "mse":
+        return loss(pred, batch["dmap"], log_para=log_para)
+    return loss(batch["points"], batch["pt_mask"], batch["targets"], batch["st_sizes"], pred)
 
 
 def _first(out):
@@ -59,17 +64,16 @@ def build_loss_fn(model: torch.nn.Module, loss, mode: str, log_para: float,
     con_weight: weight of the two-view consistency term in 'final' mode
     (10.0 in the reference, dgtrainer.py:189; the 'nocon' ablation sets it
     to 0)."""
-    if mode in UNPORTED:
-        raise NotImplementedError(f"mode {mode!r} is not ported to dgvcc_tpu_torch yet; "
-                                  "see ROADMAP.md, Queue 1 item 1")
     if mode not in MODES:
         raise ValueError(f"Unknown mode: {mode}")
-    if getattr(loss, "kind", "mse") != "mse":
-        raise NotImplementedError("only the 'mse' count loss is ported; the Bayesian "
-                                  "loss is ROADMAP.md, Queue 1 item 2")
-    if mode in ("regression", "discrimination"):
+    if mode == "joint":
+        raise ValueError("mode 'joint' updates two models a step: "
+                         "train/genjoint.py::build_joint_step")
+    if mode in ("regression", "discrimination", "generation"):
         from dgvcc_tpu_torch.train import genjoint
 
+        if mode == "generation":
+            return genjoint.build_generation_loss(model)
         build = (genjoint.build_regression_loss if mode == "regression"
                  else genjoint.build_discrimination_loss)
         return build(model, loss, log_para)

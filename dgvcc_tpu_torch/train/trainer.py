@@ -23,6 +23,16 @@ On the card:
     'isw' or 'irw' among the model params) whose masks ride in every train
     batch of an epoch; validation runs the covariance pass on each val
     sample's two views and selects the sensitive entries after it;
+  * mode ``generation`` trains the generator (``gen``, whatever model the
+    config names) and validates and tests it by the masked reconstruction
+    MSE of the padded image; mode ``joint`` trains ``gen`` and ``reg_mem``
+    together (``genjoint.build_joint_step``), counts with ``reg_mem``, and
+    saves and loads [gen, reg] checkpoint pairs (``last_gen`` /
+    ``last_reg``, ``best_*_gen`` / ``_reg``); both states take the config's
+    optimizer, accumulation and EMA and the scheduler's lr each epoch;
+    ``generate`` writes restyled train images with the generator;
+  * the Bayesian loss (``bl``) takes the batch's padded points, their mask,
+    targets and the crops' sizes, uploaded with the images;
   * the dropout draws of epoch e come from a generator seeded from (seed,
     e), so a resumed epoch draws what the uninterrupted run drew; so do
     the ``device_aug`` draws, from a stream of their own.
@@ -51,7 +61,7 @@ epochs finishes the epoch as usual; a stop inside one returns with
 the stopped epoch exactly.
 
 Config keys of modules not ported raise with a pointer to ROADMAP.md
-(``UNPORTED_KEYS``, ``UNPORTED_MODES``).
+(``UNPORTED_KEYS``, and ``mesh``).
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ import contextlib
 import csv
 import math
 import os
+import random
 import signal
 import time
 from typing import Optional
@@ -71,6 +82,7 @@ from dgvcc_tpu_torch.core.config import Config
 from dgvcc_tpu_torch.core.logging import RunLogger
 from dgvcc_tpu_torch.core.registry import DATASETS, LOSSES, MODELS
 from dgvcc_tpu_torch.core.tb import ScalarWriter
+from dgvcc_tpu_torch.data import transforms as T
 from dgvcc_tpu_torch.data.datasets import DensityMapDataset, RawCropDataset
 from dgvcc_tpu_torch.data.device_pipeline import augment_two_view_batch
 from dgvcc_tpu_torch.data.loader import build_loader
@@ -85,11 +97,7 @@ from dgvcc_tpu_torch.utils.misc import (AverageMeter, DictAvgMeter, denormalize,
 
 # extra keys of the JAX trainer whose modules are not ported, and where
 # ROADMAP.md lists them
-UNPORTED_KEYS = {"test_quantized": "Queue 1 item 4 (int8)"}
-# modes and model families not ported: their Queue 1 item in ROADMAP.md (a
-# family not listed is a classic baseline, item 2)
-UNPORTED_MODES = {"joint": 1, "generation": 1}
-FAMILY_ITEMS = dict.fromkeys(("gen", "gen0"), 1)
+UNPORTED_KEYS = {"test_quantized": "Queue 1 item 2 (int8)"}
 # models the reference drives through main_base.py / BaseTrainer
 # (main_base.py:36-52): they test after every epoch and tile evaluation at
 # 800 px whatever the config's patch_size (basetrainer.py:51-66, 149-173)
@@ -97,6 +105,8 @@ BASETRAINER_MODELS = frozenset({"csrnet", "mcnn", "sasnet", "dssinet", "cctrans"
                                 "dgnet", "dgnet_cls"})
 BASETRAINER_EVAL_PATCH = 800
 BATCH_KEYS = ("img1", "img2", "dmap", "bmap")
+# the Bayesian loss's keys: uploaded as they are
+POINT_KEYS = ("points", "pt_mask", "targets", "st_sizes")
 # the draws of device_aug: a stream apart from the dropout draws
 AUG_STREAM = 7_919_000_003
 
@@ -117,13 +127,9 @@ def check_ported(cfg: Config):
             raise NotImplementedError(f"config key {key!r} is not ported to "
                                       f"dgvcc_tpu_torch yet; see ROADMAP.md, {where}")
     if any(int(v) > 1 for v in (cfg.mesh or {}).values()):
-        raise NotImplementedError("config key 'mesh' (multi-device training) is not "
-                                  "ported to dgvcc_tpu_torch yet; see ROADMAP.md, "
-                                  "Queue 1 item 3")
-    if cfg.mode in UNPORTED_MODES:
-        raise NotImplementedError(f"mode {cfg.mode!r} is not ported to dgvcc_tpu_torch "
-                                  f"yet; see ROADMAP.md, Queue 1 item "
-                                  f"{UNPORTED_MODES[cfg.mode]}")
+        raise NotImplementedError("config key 'mesh' (multi-device training, mode joint's "
+                                  "too) is not ported to dgvcc_tpu_torch yet; see "
+                                  "ROADMAP.md, Queue 1 item 1")
 
 
 def eval_patch_size(cfg: Config) -> int:
@@ -184,6 +190,7 @@ class DGTrainer:
         self.mode = cfg.mode
         self.log_para = float(cfg.log_para)
         self.patch_size = cfg.patch_size
+        self.joint = self.mode == "joint"
         self._resume = None
         self._built = False
         self._preempted = False
@@ -207,19 +214,17 @@ class DGTrainer:
         import dgvcc_tpu_torch.losses  # noqa: F401
         import dgvcc_tpu_torch.models  # noqa: F401
 
-        if cfg.model["name"] not in MODELS:
-            item = FAMILY_ITEMS.get(cfg.model["name"], 2)
-            raise NotImplementedError(f"model {cfg.model['name']!r} is not ported to "
-                                      "dgvcc_tpu_torch yet (the DG, whitening and "
-                                      "regressor families are); see "
-                                      f"ROADMAP.md, Queue 1 item {item}")
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         params = dict(cfg.model.get("params", {}))
         if params.pop("tp_axis", None) is not None:
             raise ValueError("model params must not set tp_axis")
-        if self.mode == "regression" and cfg.model["name"] not in ("reg_mem", "reg"):
-            # the reference's sta_reg.yml names 'dgnet', but its regression
-            # trainer drove DensityRegressorM (dgvcc_tpu/train/trainer.py:269-272)
+        # the reference's configs name 'dgnet' for modes regression and joint,
+        # but their trainers drove the models2 pair, Generator and
+        # DensityRegressorM (dgvcc_tpu/train/trainer.py:262-286)
+        if self.mode == "generation" and cfg.model["name"] not in ("gen", "gen0"):
+            self.model = MODELS.build("gen", dtype=dtype)
+        elif self.joint or (self.mode == "regression"
+                            and cfg.model["name"] not in ("reg_mem", "reg")):
             self.model = MODELS.build("reg_mem", dtype=dtype)
         else:
             self.model = MODELS.build(cfg.model["name"], dtype=dtype, **params)
@@ -247,10 +252,17 @@ class DGTrainer:
             self.loaders[split].start()
 
         ema = float(cfg.extra.get("ema", 0) or 0)
+        accum = int(cfg.extra.get("accum_steps", 1) or 1)
         self.state = create_train_state(self.model, cfg.optimizer, cfg.scheduler,
-                                        device=self.device,
-                                        accum_steps=int(cfg.extra.get("accum_steps", 1) or 1),
-                                        ema=ema)
+                                        device=self.device, accum_steps=accum, ema=ema)
+        if self.joint:
+            # the generator takes the config's optimizer, accumulation and
+            # EMA; its lr is the scheduler's, set each epoch
+            self.gen_model = MODELS.build("gen", dtype=dtype)
+            self.gen_model.reset_parameters(torch.Generator().manual_seed(cfg.seed + 7))
+            self.gen_state = create_train_state(self.gen_model, cfg.optimizer, None,
+                                                device=self.device, accum_steps=accum,
+                                                ema=ema)
         if ema:
             self.log(f"EMA enabled: decay {ema} per optimizer update (validation, test "
                      "and vis use the averaged weights)")
@@ -263,8 +275,14 @@ class DGTrainer:
             self.log(f"Loaded pretrained backbone: {desc}")
         # the 'nocon' ablation zeroes the final-mode consistency weight
         con_weight = 0.0 if cfg.extra.get("no_consistency") else 10.0
-        self.train_step = build_train_step(self.model, self.loss, self.mode,
-                                           self.log_para, con_weight=con_weight)
+        if self.joint:
+            from dgvcc_tpu_torch.train.genjoint import build_joint_step
+
+            self.joint_step = build_joint_step(self.gen_model, self.model, self.loss,
+                                               self.log_para)
+        else:
+            self.train_step = build_train_step(self.model, self.loss, self.mode,
+                                               self.log_para, con_weight=con_weight)
         # the DGTrainer's models tile at the config's patch_size
         # (dgtrainer.py:71-84), the BaseTrainer's at 800 px
         self.eval_patch_size = eval_patch_size(cfg)
@@ -298,9 +316,12 @@ class DGTrainer:
         return t
 
     def _to_device(self, batch):
-        """NHWC numpy -> NCHW (channels-last) tensors on the device."""
-        return {k: self._upload(batch[k]).permute(0, 3, 1, 2) for k in BATCH_KEYS
-                if k in batch}
+        """NHWC numpy images -> NCHW (channels-last) tensors on the device;
+        the Bayesian loss's points as they are."""
+        out = {k: self._upload(batch[k]).permute(0, 3, 1, 2) for k in BATCH_KEYS
+               if k in batch}
+        out.update({k: self._upload(batch[k]) for k in POINT_KEYS if k in batch})
+        return out
 
     def _train_batch(self, batch, aug_generator):
         if self.device_aug:
@@ -313,27 +334,47 @@ class DGTrainer:
 
     def load_ckpt(self, path, strict: bool = False):
         """A port or reference ``.pth`` and its training-state sidecar when
-        there is one. ``strict`` raises on a missing, unexpected or
-        mis-shaped weight."""
+        there is one, or a JAX ``.ckpt``; or a [gen, reg] pair of them
+        (dgtrainer.py:35-41): a 1-list on a single-model trainer is its one
+        checkpoint, a 2-list on one that is not joint loads the regressor's
+        and ignores the generator's. ``strict`` raises on a missing,
+        unexpected or mis-shaped weight."""
         if path is None:
             return
+        gen_path = None
         if isinstance(path, (list, tuple)):
-            raise NotImplementedError(
-                "[gen_ckpt, reg_ckpt] checkpoint pairs belong to the joint and "
-                "generation modes, which are not ported to dgvcc_tpu_torch yet; see "
-                "ROADMAP.md, Queue 1 item 1")
-        self.log(f"Loading checkpoint from {path}")
-        extra, warnings = load_checkpoint(path, self.state, strict=strict)
-        for w in warnings[:10]:
-            self.log(f"  [ckpt] {w}")
+            if not 1 <= len(path) <= 2:
+                raise ValueError("pair checkpoint must be [gen_ckpt, reg_ckpt] or "
+                                 f"[gen_ckpt]; got {len(path)} entries: {path!r}")
+            if not self.joint:
+                if len(path) == 1:
+                    return self.load_ckpt(path[0], strict=strict)
+                self.log(f"[ckpt] non-joint config: loading {path[1]} into the model; "
+                         f"generator entry {path[0]} ignored")
+            else:
+                gen_path = path[0]
+            path = path[1] if len(path) > 1 else None
+        extra = {}
+        if gen_path:
+            self.log(f"Loading generator checkpoint from {gen_path}")
+            extra = self._load_into(gen_path, self.gen_state, strict)
+        if path:
+            self.log(f"Loading {'regressor ' if gen_path else ''}checkpoint from {path}")
+            extra = self._load_into(path, self.state, strict)
         # exact resume: epoch, best and the scheduler from the sidecar (or
-        # the JAX checkpoint's extra)
+        # the JAX checkpoint's extra); a pair's two carry the same
         self._resume = extra if "epoch" in extra else None
         if self._resume and self.scheduler is not None and "scheduler" in self._resume:
             self.scheduler.load_state_dict(self._resume["scheduler"])
-        last = os.path.join(self.log_dir, "last.pth")
-        if self._resume and os.path.exists(last) and os.path.samefile(path, last):
+        last = os.path.join(self.log_dir, "last_reg.pth" if self.joint else "last.pth")
+        if self._resume and path and os.path.exists(last) and os.path.samefile(path, last):
             self._last_epoch = int(self._resume["epoch"])
+
+    def _load_into(self, path, state, strict):
+        extra, warnings = load_checkpoint(path, state, strict=strict)
+        for w in warnings[:10]:
+            self.log(f"  [ckpt] {w}")
+        return extra
 
     def _ckpt_extra(self, epoch, best):
         extra = {"epoch": epoch, "best": best}
@@ -344,8 +385,19 @@ class DGTrainer:
     # ---- loops -------------------------------------------------------------
 
     def _save_last(self, epoch: int, best: float):
-        self.rotator.save_last(self.state, self._ckpt_extra(epoch, best))
+        extra = self._ckpt_extra(epoch, best)
+        if self.joint:
+            self.rotator.save_last_pair(self.gen_state, self.state, extra)
+        else:
+            self.rotator.save_last(self.state, extra)
         self._last_epoch = epoch
+
+    def _save_best(self, epoch: int, criterion: float):
+        if self.joint:
+            self.rotator.save_best_pair(self.gen_state, self.state, epoch, criterion,
+                                        self._ckpt_extra(epoch, criterion))
+        else:
+            self.rotator.save_best(self.state, epoch, criterion)
 
     def _stop_mid_epoch(self, epoch: int, steps: int, best: float):
         """A preemption seen before step ``steps`` of ``epoch``: ``last`` is
@@ -384,6 +436,8 @@ class DGTrainer:
         self._epoch = epoch
         if self.scheduler is not None:
             self.state.set_learning_rate(self.scheduler.current_lr)
+            if self.joint:
+                self.gen_state.set_learning_rate(self.scheduler.current_lr)
         generator = self._epoch_generator(epoch)
         aug_generator = self._epoch_generator(epoch, AUG_STREAM) if self.device_aug else None
         train_loader = self.loaders["train"]
@@ -398,7 +452,11 @@ class DGTrainer:
                     return best_criterion, best_epoch
                 batch = self._train_batch(batch, aug_generator)
                 batch.update(isw_extra)
-                self.state, metrics = self.train_step(self.state, batch, generator, epoch)
+                if self.joint:
+                    self.gen_state, self.state, metrics = self.joint_step(
+                        self.gen_state, self.state, batch, generator, epoch)
+                else:
+                    self.state, metrics = self.train_step(self.state, batch, generator, epoch)
         # the loss is read back once per epoch: a per-batch read would
         # wait for the card every step
         train_loss = float(metrics["loss_total"]) if metrics is not None else float("nan")
@@ -431,7 +489,7 @@ class DGTrainer:
             best_epoch = epoch
             self._save_last(epoch, best_criterion)
             self.log(f"Epoch {epoch}: saving best model...")
-            self.rotator.save_best(self.state, epoch, criterion)
+            self._save_best(epoch, criterion)
         else:
             self._save_last(epoch, best_criterion)
         return best_criterion, best_epoch
@@ -453,10 +511,31 @@ class DGTrainer:
                 stats = self.model.cov_stats(x2)
                 self.isw_tracker.add({k: v.cpu().numpy() for k, v in stats.items()})
 
+    def _reconstruction_mse(self, sample) -> float:
+        """The generator on img2 against img1, each padded whole to the
+        counter's bucket: the MSE over the image's pixels and channels
+        (the padding masked out; call inside ``counter.evaluating``)."""
+        up = self.counter._upload
+        img1, mask = self.counter._whole_image(up(sample["img1"]))
+        img2, _ = self.counter._whole_image(up(sample.get("img2", sample["img1"])))
+        out = self.counter.forward(img2).float().permute(0, 2, 3, 1)
+        err = ((out - img1.float()) ** 2 * mask).sum()
+        return float(err / (mask.sum() * img1.shape[-1]))
+
     def validate(self, epoch: int, best_criterion: float) -> float:
         crit = AverageMeter()
         extra = DictAvgMeter()
         start = time.time()
+        if self.mode == "generation":
+            # the generator's quality: the reconstruction error of the
+            # photometric view, masked to the real image
+            with self.state.ema_weights(), self.counter.evaluating():
+                for sample in self.loaders["val"]:
+                    crit.update(self._reconstruction_mse(sample))
+            self.log(f"Epoch {epoch}: Val criterion: {crit.avg:.4f}", end=" ")
+            self.log(f"best: {best_criterion:.4f}, time: {time.time() - start:.4f}")
+            self._last_val_extra = {}
+            return crit.avg
         with self.state.ema_weights():
             for sample in self._progress(self.loaders["val"],
                                          f"Epoch {epoch}: Validating..."):
@@ -561,6 +640,11 @@ class DGTrainer:
             self.rotator.flush()
 
     def _test(self, loader):
+        if self.mode == "generation":
+            # no density: the test is validation's reconstruction error
+            self.validate(-1, 1e10)
+            self.log(f"End testing at {get_current_datetime()}")
+            return {}
         meter = DictAvgMeter()
         rows = []
         with self.state.ema_weights():
@@ -680,6 +764,50 @@ class DGTrainer:
                 ax.imshow(d)
             fig.savefig(os.path.join(vis_dir, f"{name}.png"))
             plt.close(fig)
+
+    def generate(self, checkpoint=None) -> str:
+        """Restyled train images from the generator (its EMA shadow where the
+        run keeps one) as ``{log_dir}/gen/{name}_a.jpg`` (JPEG quality 95;
+        files that exist are kept): each image through the two-view
+        photometric transform, seeded ``gen:{seed}:{index}``, padded to
+        multiples of 16, then cropped back, denormalised and clipped. The
+        datasets alias such names to their source's points (gen_root)."""
+        self.build()
+        from PIL import Image
+
+        if self.mode != "generation" and not self.joint:
+            raise ValueError("generate requires mode 'generation' or 'joint'")
+        if checkpoint is not None:
+            self.load_ckpt(checkpoint)
+        gen_dir = os.path.join(self.log_dir, "gen")
+        os.makedirs(gen_dir, exist_ok=True)
+        model = self.gen_model if self.joint else self.model
+        state = self.gen_state if self.joint else self.state
+        ds = self.loaders["train"].dataset
+        base = getattr(ds, "base", ds)  # the dataset under a RawCropDataset
+        photo = T.TwoViewPhotometric()
+        was_training = model.training
+        model.eval()
+        try:
+            with state.ema_weights(), torch.inference_mode():
+                for idx, img_fn in enumerate(base.img_fns):
+                    name = os.path.basename(img_fn).rsplit(".", 1)[0]
+                    out_path = os.path.join(gen_dir, f"{name}_a.jpg")
+                    if os.path.exists(out_path):
+                        continue
+                    img, _ = base._load_img(img_fn)
+                    rng = random.Random(f"gen:{self.cfg.seed}:{idx}")
+                    w, h = img.size
+                    nw, nh = (w + 15) // 16 * 16, (h + 15) // 16 * 16
+                    img_p = T.pil_pad(photo(img, rng), (0, 0, nw - w, nh - h))
+                    x = self._upload(T.to_tensor_normalize(img_p)[None]).permute(0, 3, 1, 2)
+                    out = model(x)[0, :, :h, :w].float().permute(1, 2, 0).cpu().numpy()
+                    out = np.clip(denormalize(out), 0, 1)
+                    Image.fromarray((out * 255).astype(np.uint8)).save(out_path, quality=95)
+        finally:
+            model.train(was_training)
+        self.log(f"Generated images saved to {gen_dir}")
+        return gen_dir
 
     def _cls_map(self, img):
         """Whole-image classifier map (stride 16, sigmoid probabilities)."""

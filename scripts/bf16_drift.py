@@ -1,11 +1,16 @@
-"""bf16 against float32 drift of a regressor's counts, in the JAX package
-and in the port, with the same weights, on the CPU.
+"""bf16 against float32 drift of a regressor's or a classic baseline's
+counts, in the JAX package and in the port, with the same weights, on the
+CPU.
 
     JAX_PLATFORMS=cpu python scripts/bf16_drift.py reg --hw 768 1024 --frames 4
+    JAX_PLATFORMS=cpu python scripts/bf16_drift.py sasnet --hw 384 512 --frames 2
 
-Weights: He-normal convolutions (numpy seed 10), zero biases, unit batch
-norm and a standard-normal bank, as the port's ``reset_parameters`` draws
-them; the JAX variables reach the port through ``nn/convert.py``. Frames:
+Weights: He-normal convolutions and dense layers (numpy seed 10), zero
+biases, unit batch and layer norm, PReLU slopes 0.25 and a standard-normal
+bank, as the port's ``reset_parameters`` draws them; or, with ``--port-seed
+N``, the port model's own ``reset_parameters`` at torch seed N (the weights
+``chip_smoke.py`` serves), read into the JAX model by the JAX package's
+reference-checkpoint reader; the JAX variables reach the port through ``nn/convert.py``. Frames:
 uint8 from numpy seed 10, normalised as ``VideoCounter`` does. For each
 frame it prints |count(bf16) - count(f32)| over the map's mass
 sum(|d_f32|), for the served density (the first output) and, for ``reg``,
@@ -33,6 +38,8 @@ def _init(tree, rng):
             a = rng.normal(0, np.sqrt(2.0 / np.prod(shape[:-1])), shape)
         elif k in ("scale", "var"):
             a = np.ones(shape)
+        elif k == "alpha":
+            a = np.full(shape, 0.25)
         elif k == "mem":
             a = rng.normal(0, 1, shape)
         else:
@@ -43,9 +50,13 @@ def _init(tree, rng):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("family", choices=["dgnet", "dgnet_cls", "reg", "reg_mem"])
+    ap.add_argument("family", choices=["dgnet", "dgnet_cls", "reg", "reg_mem", "csrnet", "mcnn",
+                                       "bl", "sasnet", "dssinet", "cctrans"])
     ap.add_argument("--hw", type=int, nargs=2, default=(768, 1024))
     ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--port-seed", type=int, default=None,
+                    help="the port's reset_parameters at this seed (families the JAX "
+                         "package's reference reader takes)")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -68,6 +79,14 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(10)
     params = _init(unfreeze(shapes["params"]), rng)
     stats = _init(unfreeze(shapes.get("batch_stats", {})), rng)
+    if args.port_seed is not None:
+        from dgvcc_tpu.nn.torch_io import load_reference_checkpoint
+
+        pm = MODELS.build(name)
+        pm.reset_parameters(torch.Generator().manual_seed(args.port_seed))
+        sd = {k: v.numpy() for k, v in pm.state_dict().items()}
+        v = load_reference_checkpoint({"params": params, "batch_stats": stats}, sd, jm32)
+        params, stats = unfreeze(v["params"]), unfreeze(v.get("batch_stats", {}))
     frames = np.random.default_rng(10).integers(0, 256, (args.frames, h, w, 3), dtype=np.uint8)
     x = (frames.astype(np.float32) / 255.0 - 0.5) / 0.5
     outputs = [0, 1] if name == "reg" else [0]

@@ -67,7 +67,7 @@ def test_cli_serve_prints_name_count_lines(served, capsys, via):
 def test_cli_refuses_unported_tasks_and_missing_frames(served):
     root, _, _, _ = served
     with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--config", _config(root, "cpu"), "--task", "generate"])
+        main(["--config", _config(root, "cpu"), "--task", "export"])
     with pytest.raises(SystemExit, match="--frames"):
         main(["--config", _config(root, "cpu"), "--task", "serve"])
 

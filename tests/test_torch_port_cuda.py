@@ -17,7 +17,10 @@ gradients 0.05 / 0.02 and dM to 0.02 in relative norm
 in relative norm (the kernel rounds dl to bf16, the plain version does
 not). The gradients of the consistency loss alone: relative norm 1e-4 in
 f32, 1e-2 in bf16. The density-map kernel: atol 1e-5 / rtol 1e-4 against
-its plain version and the numpy golden (f32, other summation order).
+its plain version and the numpy golden (f32, other summation order). The
+paths without a kernel of their own, in bf16 on the card against f32 on the
+CPU: the joint step's loss parts 2e-2, the classic baselines' served counts
+2e-2 of the map's mass; the Bayesian loss on the same values 1e-4.
 """
 
 import pytest
@@ -514,3 +517,117 @@ def test_accumulation_ema_and_async_save_on_the_card(cuda, tmp_path):
         flat_y = y if "optimizer" not in y else {**y["ema"], **y["accum"]["acc_grads"]}
         for k in flat_x:
             assert torch.equal(flat_x[k], flat_y[k]), k
+
+
+# ---- the generator's joint step, the classic baselines, the Bayesian loss:
+# the card in bf16 (f32 AdamW master weights) against the CPU in f32, at the
+# bf16 tolerances of chip_smoke.py phase 11
+
+def _seeded_dropout(monkeypatch):
+    """Both devices' dropout2d keep the channels of seeded mask i at their
+    i-th call (a torch.Generator draws other numbers on each device)."""
+    import numpy as np
+
+    from dgvcc_tpu_torch.models import regressors as preg
+    from dgvcc_tpu_torch.nn import layers as players
+
+    orig = players.dropout2d
+    calls = [0]
+
+    def drop(x, rate, generator=None, mask=None):
+        if rate == 0.0:
+            return x
+        m = np.random.default_rng(5000 + calls[0] % 4).random((x.shape[0], x.shape[1]))
+        calls[0] += 1
+        return orig(x, rate, mask=torch.from_numpy(m < 1.0 - rate))
+
+    for mod in (players, preg):
+        monkeypatch.setattr(mod, "dropout2d", drop)
+
+
+def test_joint_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One joint step (tiny gen and reg_mem, B=2 of 64^2): each loss part
+    within 2e-2 of the CPU's f32 step from the same weights."""
+    from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+    from dgvcc_tpu_torch.train.genjoint import build_joint_step
+    from dgvcc_tpu_torch.train.state import create_train_state
+
+    _seeded_dropout(monkeypatch)
+    tiny_vgg19 = (8, "M", 8, "M", 16, "M")
+    tiny_vgg = (8, "M", 8, "M", 16, "M", 16, "M")
+    kw = {"gen": dict(vgg_cfg=tiny_vgg19, enc_stop=9),
+          "reg_mem": dict(vgg_cfg=tiny_vgg, stage_splits=(0, 8, 12, 16), part_num=16,
+                          dec_widths=((16, 16), (16, 16), (16, 8)), final_dim=16)}
+    g = torch.Generator().manual_seed(0)
+    batch = {"img1": torch.tanh(torch.randn(2, 3, 64, 64, generator=g)),
+             "img2": torch.tanh(torch.randn(2, 3, 64, 64, generator=g)),
+             "dmap": torch.rand(2, 1, 64, 64, generator=g) * 2e-3,
+             "bmap": (torch.rand(2, 1, 4, 4, generator=g) < 0.6).float()}
+    out = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        models = []
+        for name in ("gen", "reg_mem"):
+            m = MODELS.build(name, dtype=dtype, **kw[name])
+            m.reset_parameters(torch.Generator().manual_seed(3))
+            models.append(m)
+        states = [create_train_state(m, {"name": "adamw"}, device=dev) for m in models]
+        step = build_joint_step(*models, LOSSES.build("mse"), 1000.0)
+        _, _, metrics = step(*states, {k: v.to(dev) for k, v in batch.items()}, None)
+        out[dev] = {k: float(v) for k, v in metrics.items()}
+    for k, want in out["cpu"].items():
+        assert abs(out["cuda"][k] - want) <= 2e-2 * abs(want), (k, out["cuda"][k], want)
+
+
+@pytest.mark.parametrize("name,params", [
+    ("csrnet", {}), ("mcnn", {}), ("bl", {}), ("sasnet", {}), ("dssinet", {}),
+    ("cctrans", dict(embed_dims=(32, 64, 128, 256), num_heads=(2, 4, 8, 16),
+                     depths=(1, 1, 2, 1), wss=(4, 4, 4, 4), sr_ratios=(8, 4, 2, 1)))])
+def test_baseline_serving_on_the_card_matches_the_cpu(cuda, name, params):
+    """count_frames of two 128x160 frames: bf16 on the card within 2e-2 of
+    the map's mass of the same seeded weights in f32 on the CPU."""
+    import numpy as np
+
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    frames = np.random.default_rng(6).integers(0, 256, (2, 128, 160, 3), dtype=np.uint8)
+    card = VideoCounter.from_checkpoint(name, None, dtype=torch.bfloat16, seed=4, **params)
+    host = VideoCounter.from_checkpoint(name, None, dtype=torch.float32, device="cpu", seed=4,
+                                        **params)
+    got, want = card.count_frames(frames), host.count_frames(frames)
+    mass = VideoCounter(_Abs(host.model), dtype=torch.float32, device="cpu").count_frames(frames)
+    assert np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 2e-2 * max(float(mass.max()), 1.0), (got, want)
+
+
+class _Abs(torch.nn.Module):
+    """A model's density map, |.|: its count is the map's mass."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return self.model(x).abs()
+
+
+def test_bayesian_loss_on_the_card_matches_the_cpu(cuda):
+    """The bl loss and its gradient on a stride-8 prediction rounded to bf16
+    (B=8, 40x40, up to 320 points), the card against the CPU on the same
+    values: 1e-4."""
+    from dgvcc_tpu_torch.losses.bayesian import BayesianLoss
+
+    g = torch.Generator().manual_seed(7)
+    pts = torch.rand(8, 320, 2, generator=g) * 360 - 20
+    msk = torch.arange(320)[None] < torch.tensor([0, 1, 5, 40, 100, 200, 300, 320])[:, None]
+    tgt = torch.rand(8, 320, generator=g) * msk
+    st = 320 + torch.rand(8, generator=g) * 300
+    pred = (torch.rand(8, 1, 40, 40, generator=g) * 0.05).to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = pred.float().to(dev).requires_grad_()
+        loss = BayesianLoss(sigma=8.0, c_size=320)(pts.to(dev), msk.to(dev), tgt.to(dev),
+                                                   st.to(dev), p)
+        loss.backward()
+        out[dev] = (loss.detach().cpu(), p.grad.float().cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=1e-6)

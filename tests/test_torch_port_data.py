@@ -109,11 +109,15 @@ def test_loaders_yield_the_jax_batches_bit_for_bit(data_root, name, split):
 
 
 def test_unported_datasets_and_worker_mode_point_to_the_roadmap(data_root):
-    """The Bayesian-loss datasets point to ROADMAP.md; a worker_mode other
-    than thread or process raises rather than falling back to threads."""
-    for name in ("bay", "jhu_domain_bay"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DATASETS.build(name, method="train", **_params(data_root, "den"))
+    """Every dataset of the JAX package is registered now (the Bayesian-loss
+    datasets since they were ported; tests/test_torch_port_bayesian.py holds
+    them); a worker_mode other than thread or process raises rather than
+    falling back to threads."""
+    import dgvcc_tpu.data  # noqa: F401
+    from dgvcc_tpu.core.registry import DATASETS as JAX_DATASETS
+
+    assert all(name in DATASETS for name in JAX_DATASETS._fns)
+    assert len(DATASETS.build("bay", method="train", **_params(data_root, "den"))) > 0
     ds = DATASETS.build("den", method="train", **_params(data_root, "den"))
     with pytest.raises(ValueError, match="worker_mode 'processes'"):
         build_loader(ds, {"batch_size": 2, "worker_mode": "processes"})

@@ -135,22 +135,19 @@ def test_every_queue_1_item_the_port_cites_exists():
     from dgvcc_tpu_torch.train import trainer
 
     items = _queue1_items()
-    assert items == set(range(1, len(items) + 1)) and len(items) >= 5
+    assert items == set(range(1, len(items) + 1)) and len(items) >= 3
     cited = {}
     for f in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for n in re.findall(r"Queue 1 items? (\d+)", f.read_text()):
             cited.setdefault(int(n), []).append(str(f.relative_to(REPO)))
-    for table in (trainer.UNPORTED_MODES, trainer.FAMILY_ITEMS):
-        for n in table.values():
-            cited.setdefault(n, []).append("train/trainer.py table")
     for where in trainer.UNPORTED_KEYS.values():
         cited.setdefault(int(re.search(r"item (\d+)", where).group(1)), []).append(where)
     assert cited and not {n: w for n, w in cited.items() if n not in items}
 
 
 def _runs_in_the_port(path):
-    """Whether the config names only ported pieces: no refused key, mode,
-    model family, loss or dataset."""
+    """Whether the config names only ported pieces: no refused key, and a
+    registered mode, model family, loss and dataset."""
     import dgvcc_tpu_torch.data  # noqa: F401
     import dgvcc_tpu_torch.losses  # noqa: F401
     import dgvcc_tpu_torch.models  # noqa: F401
@@ -167,8 +164,7 @@ def _runs_in_the_port(path):
     specs = [getattr(cfg, f"{s}_dataset") for s in ("train", "val", "test")]
     return (cfg.model.get("name") in MODELS and cfg.mode in MODES
             and cfg.loss.get("name") in LOSSES
-            and all(s is None or (s["name"] in DATASETS and "bay" not in s["name"])
-                    for s in specs))
+            and all(s is None or s["name"] in DATASETS for s in specs))
 
 
 WHITENING_BASELINES = sorted(
@@ -181,19 +177,49 @@ REGRESSOR_CONFIGS = ["configs/mall_base.yml", "configs/sta_dis.yml", "configs/st
                      "configs/stb_reg_base.yml"]
 
 
-def test_the_port_runs_47_of_the_59_configs():
+GENERATOR_CONFIGS = ["configs/sta_gen.yml", "configs/sta_joint.yml", "configs/stb_gen.yml",
+                     "configs/stb_joint.yml"]
+CLASSIC_BASELINES = ["configs/baselines/jhu_fog2snow_bl.yml", "configs/baselines/sta_bl.yml",
+                     "configs/baselines/sta_cctrans.yml", "configs/baselines/sta_csrnet.yml",
+                     "configs/baselines/sta_dssinet.yml", "configs/baselines/sta_mcnn.yml",
+                     "configs/baselines/sta_sasnet.yml"]
+
+
+def test_the_port_runs_58_of_the_59_configs():
     """23 until the whitening family was ported, then 41 (the 18
-    configs/baselines/*_{sw,ibn,isw}.yml), 47 since the regressors: dgnet in
-    modes simple and discrimination, reg_mem in mode regression."""
+    configs/baselines/*_{sw,ibn,isw}.yml), 47 with the regressors (dgnet in
+    modes simple and discrimination, reg_mem in mode regression), 58 with
+    the generator (modes generation and joint) and the seven classic
+    baseline configs (csrnet, mcnn, sasnet, dssinet, cctrans, and bl with
+    the Bayesian loss on bay / jhu_domain_bay). The one left asks for a
+    spatial mesh (parallelism)."""
     paths = sorted((REPO / "configs").rglob("*.yml"))
     ported = [str(p.relative_to(REPO)) for p in paths if _runs_in_the_port(p)]
     assert len(paths) == 59
-    assert len(ported) == 47, ported
+    assert len(ported) == 58, ported
     assert set(REGRESSOR_CONFIGS) <= set(ported)
-    for gen in ("sta_gen", "stb_gen", "sta_joint", "stb_joint"):
-        assert f"configs/{gen}.yml" not in ported
+    assert set(GENERATOR_CONFIGS) <= set(ported)
+    assert set(CLASSIC_BASELINES) <= set(ported)
     assert len(WHITENING_BASELINES) == 18
     assert set(WHITENING_BASELINES) <= set(ported)
     assert "configs/tpu/sta_final_bigcrop.yml" in ported
     assert "configs/tpu/sta_final_spatial.yml" not in ported  # mesh: spatial
     assert sum(p.startswith("configs/ablation/") for p in ported) == 14
+
+
+def test_generator_and_baselines_default_to_cuda_and_raise_without_it(tmp_path):
+    """The generator's modes in the trainer, and the classic baselines in
+    serving and in the trainer, never fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour where CUDA is absent")
+    from dgvcc_tpu_torch.core.config import Config
+    from dgvcc_tpu_torch.serve import VideoCounter
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    cfg = {"device": "tpu", "log_dir": str(tmp_path / "logs")}
+    for name in ("csrnet", "mcnn", "bl", "sasnet", "dssinet", "cctrans"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            VideoCounter.from_checkpoint(name, None)
+    for mode, name in (("generation", "gen"), ("joint", "dgnet"), ("simple", "bl")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DGTrainer(Config.from_dict(dict(cfg, mode=mode, model={"name": name})))

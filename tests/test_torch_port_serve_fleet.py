@@ -185,10 +185,10 @@ def test_deploy_flags_are_refused_before_any_replica(kw, flag, monkeypatch):
     spawned = []
     monkeypatch.setattr("dgvcc_tpu_torch.serve_fleet.subprocess.Popen",
                         lambda *a, **k: spawned.append(a))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         FleetServer("cfg.yml", replicas=2, port=0, **kw)
     argv = ["--config", "cfg.yml", "--replicas", "2", flag] + (
         [] if flag == "--quantize" else ["x"])
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
+    with pytest.raises(SystemExit, match="Queue 1 item 2"):
         main(argv)
     assert spawned == []

@@ -247,7 +247,7 @@ def test_cli_serves_http_without_blocking(tmp_path):
 def test_cli_refuses_the_deploy_flags(tmp_path, flag):
     from dgvcc_tpu_torch.cli.main import main
 
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
+    with pytest.raises(SystemExit, match="Queue 1 item 2"):
         main(["--config", _config(tmp_path), "--task", "serve", "--http", "0", *flag])
 
 

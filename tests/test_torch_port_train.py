@@ -271,12 +271,13 @@ def test_loss_fn_and_gradients_match_jax(mode):
 
 
 def test_isw_mode_points_to_the_roadmap():
-    """Mode isw is ported (tests/test_torch_port_whitening_models.py holds it
-    to the JAX step); the modes still refused point at their Queue 1 item."""
-    build_loss_fn(torch.nn.Identity(), LOSSES.build("mse"), "isw", 1000.0)
-    for mode in ("joint", "generation"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            build_loss_fn(torch.nn.Identity(), LOSSES.build("mse"), mode, 1000.0)
+    """Every mode is ported: isw (tests/test_torch_port_whitening_models.py)
+    and generation (tests/test_torch_port_generator.py) have a loss_fn;
+    joint, which updates two models a step, points to its own step."""
+    for mode in ("isw", "generation"):
+        build_loss_fn(torch.nn.Identity(), LOSSES.build("mse"), mode, 1000.0)
+    with pytest.raises(ValueError, match="build_joint_step"):
+        build_loss_fn(torch.nn.Identity(), LOSSES.build("mse"), "joint", 1000.0)
 
 
 # ------------------------------------------------------------ step, lr

@@ -246,14 +246,13 @@ def test_checkpoint_load_is_nonstrict_unless_asked(root, tmp_path):
         t.load_ckpt(path, strict=True)
     with pytest.raises(ValueError, match="not a .pth, .pt or .ckpt"):
         t.load_ckpt(str(tmp_path / "last.msgpack"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        t.load_ckpt([path, path])
+    with pytest.raises(ValueError, match="pair checkpoint must be"):
+        t.load_ckpt([path, path, path])
 
 
 @pytest.mark.parametrize("key,value", [
     *((k, 1 if k != "ema" else 0.999) for k in ptrainer.UNPORTED_KEYS),
-    ("mesh", {"data": 2}), ("mesh", {"model": 2}),
-    *(("mode", m) for m in ptrainer.UNPORTED_MODES)])
+    ("mesh", {"data": 2}), ("mesh", {"model": 2})])
 def test_unported_config_keys_raise(root, tmp_path, key, value):
     cfg = _cfg(root, tmp_path, "x")
     cfg[key] = value
@@ -262,9 +261,16 @@ def test_unported_config_keys_raise(root, tmp_path, key, value):
 
 
 def test_unported_model_family_raises(root, tmp_path):
+    """Every family of the JAX package is registered now: a model name the
+    registry lacks raises with the registered names."""
+    import dgvcc_tpu.models  # noqa: F401
+    from dgvcc_tpu.core.registry import MODELS as JAX_MODELS
+    from dgvcc_tpu_torch.core.registry import MODELS
+
+    assert all(name in MODELS for name in JAX_MODELS._fns)
     cfg = _cfg(root, tmp_path, "x")
-    cfg["model"] = {"name": "csrnet", "params": {}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    cfg["model"] = {"name": "no_such_model", "params": {}}
+    with pytest.raises(ValueError, match="Unknown model 'no_such_model'"):
         DGTrainer(Config.from_dict(cfg), device="cpu").build()
 
 

@@ -136,7 +136,27 @@ Phases, each of which exits non-zero on failure:
    the command line writes one ``_a.jpg`` per train image; sta_joint.yml for
    1 epoch (``last_gen`` / ``last_reg``), then ``--task test`` from that pair
    (the command line's ``main``, in process) launches #1 once per test
-   image.
+   image;
+12. data parallel (``dgvcc_tpu_torch/parallel/``; no kernel of its own,
+   #1, #2 and #3 on every rank): 2 ranks started by ``parallel/launch.py``,
+   NCCL with a card a rank where 2 or more cards are visible, else gloo on
+   cuda:0, and a 1-rank NCCL group on card 0. Full-width `final`
+   (sta_final.yml, bf16, f32 AdamW, the OneCycle lr of epoch 0), a global
+   batch of 16 two-view 320^2 crops, 8 a rank: step 1 against the two
+   halves run one after the other without communication in a fresh process
+   of its own, then averaged (loss parts 1e-3, gradients 1e-2 in relative
+   norm, BN running statistics 1e-3); ten more steps: finite, falling, the
+   ranks' parameter checksums equal; #2 / #3 once a step on each rank;
+   ms/step and the gradient all-reduce alone. `sw` (sta_sw.yml, B=16)
+   against one process's step in f32 (TF32 off; 1e-4, 5e-2, 1e-3) and in
+   bf16 (1e-2, and 1.5 times one process's bf16-vs-f32 distance). Then
+   ``torchrun --nproc_per_node=2 chip_smoke.py --cli-rank DIR`` (the command
+   line's ``main`` on each rank, which writes its launches) runs
+   sta_final.yml with ``mesh: {data: 2}`` for 1 epoch on phase 6's files
+   (``--dist-backend gloo`` on one card): log.txt written once with the
+   ``Data parallel over 2 devices`` line, #1 once per rank per validation
+   and test image, the test MAE within 1e-4 of one process's ``--task
+   test`` of the same ``last.pth``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -2504,6 +2524,434 @@ def generator_baselines_phase(ma, mt, tmp, gpu):
     return res, out
 
 
+# ---- phase 12: data parallel --------------------------------------------------
+DP_RANKS = 2                        # the ranks the smoke starts
+DP_B = 16                           # the global batch (`final`: two-view 320^2 crops), 8 a rank
+DP_STEPS = 10                       # `final` steps after step 1
+DP_TIMED = 5                        # steps (and gradient all-reduces) timed
+DP_SEED = 12
+# `final` step 1 against its two halves run in turn in this process, then
+# averaged (the JAX per-shard rule without communication): loss parts,
+# relative; gradients in relative norm (a bf16 convolution's backward is not
+# bit-reproducible across processes); the averaged running statistics,
+# relative to the largest
+TOL_DP_LOSS, TOL_DP_GRAD, TOL_DP_STATS = 1e-3, 1e-2, 1e-3
+# `sw` step 1 against the one-process B=16 step (statistics all-reduced in
+# the forward): loss, gradients (relative norm), running mean and covariance
+# (relative to the largest). In float32 (TF32 off) the two are the same
+# sums in another order; the gradients' bound is the whitening family's
+# (a ReLU input within rounding of 0 takes either side; tests/
+# test_torch_port_whitening.py). In bf16 the rounding of B=8 and B=16
+# convolutions alone moves an untrained `sw`'s gradients by a third: one
+# process's bf16 step is 0.38 from its f32 step in relative norm (PERF.md
+# §2). Two bf16 steps that round apart are about sqrt(2) times that far from
+# each other, so bf16 is held to 1.5 times the one-process step's distance
+# from f32 (and at least to the bounds below)
+TOL_DP_SW = {torch.float32: (1e-4, 5e-2, 1e-3), torch.bfloat16: (1e-2, 5e-2, 1e-2)}
+DP_SW_DTYPES = (torch.float32, torch.bfloat16)
+TOL_DP_MAE = 1e-4                   # 2-rank --task test vs one process's, same `last`
+
+
+def dp_batch(device, b=DP_B):
+    """``synthetic_batch`` drawn on the host, so every card gets the same
+    global batch."""
+    g = torch.Generator().manual_seed(DP_SEED)
+    shape = (b, 3, TRAIN_CROP, TRAIN_CROP)
+    img1 = torch.randn(shape, generator=g)
+    img2 = img1 + 0.25 * torch.randn(shape, generator=g)
+    heads = (torch.rand(b, 1, TRAIN_CROP, TRAIN_CROP, generator=g) < 2e-4).float()
+    dmap = torch.nn.functional.avg_pool2d(heads, 9, stride=1, padding=4)
+    bmap = (torch.nn.functional.avg_pool2d(dmap, 16) > 0).float()
+    return {k: v.to(device) for k, v in
+            {"img1": img1, "img2": img2, "dmap": dmap, "bmap": bmap}.items()}
+
+
+def dp_final(device, group=None):
+    """Full-width `final` from sta_final.yml, seeded, bf16 compute, f32
+    AdamW with the OneCycle lr of epoch 0, on ``device``; its loss_fn and
+    (with a group) its data-parallel step."""
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.config import load_config
+    from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+    from dgvcc_tpu_torch.parallel.mesh import build_parallel_train_step
+    from dgvcc_tpu_torch.train.state import create_train_state
+    from dgvcc_tpu_torch.train.steps import build_loss_fn
+
+    cfg = load_config(os.path.join(ROOT, "configs", "sta_final.yml"))
+    model = MODELS.build("final", dtype=torch.bfloat16, **cfg.model.get("params", {}))
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    state = create_train_state(model, cfg.optimizer, cfg.scheduler, device=device)
+    loss = LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
+    step = (build_parallel_train_step(model, loss, cfg.mode, cfg.log_para, group)
+            if group is not None else None)
+    return state, build_loss_fn(model, loss, cfg.mode, cfg.log_para), step
+
+
+def dp_sw(device, dtype, group=None):
+    """sta_sw.yml's counter at full width, seeded, computing in ``dtype``,
+    on ``device``; with a group built with it (statistics all-reduced in the
+    forward) and its data-parallel step, else the one-process step."""
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+    from dgvcc_tpu_torch.parallel.mesh import build_parallel_train_step
+    from dgvcc_tpu_torch.train.state import create_train_state
+    from dgvcc_tpu_torch.train.steps import build_train_step
+
+    cfg = whitening_config("sw")
+    params = dict(cfg.model.get("params", {}))
+    if group is not None:
+        params["process_group"] = group
+    model = MODELS.build("sw", dtype=dtype, **params)
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    state = create_train_state(model, cfg.optimizer, cfg.scheduler, device=device)
+    loss = LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
+    if group is None:
+        return state, build_train_step(model, loss, cfg.mode, cfg.log_para)
+    return state, build_parallel_train_step(model, loss, cfg.mode, cfg.log_para, group)
+
+
+def _grads(model):
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+            for n, p in model.named_parameters()}
+
+
+def _stats(model):
+    return {n: b.float().cpu() for n, b in model.named_buffers()
+            if n.rsplit(".", 1)[-1].startswith("running_") and b.is_floating_point()}
+
+
+def dp_rank(rank, workdir, global_b, with_sw):
+    """Phase 12 on one rank: `final` step 1 (its averaged metrics, its
+    all-reduced gradients and averaged running statistics), 10 more steps,
+    the parameters' checksum, the training kernels' launches, ms/step and
+    the gradient all-reduce's ms; then `sw` step 1. Writes
+    ``workdir/rank{rank}.pt``."""
+    import torch.distributed as dist
+
+    from dgvcc_tpu_torch.ops import mem_attention_train as mt
+    from dgvcc_tpu_torch.parallel import mesh
+
+    world = dist.get_world_size()
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    group = mesh.make_mesh(world)
+    out = {"device": str(device), "backend": str(dist.get_backend())}
+    state, _, step = dp_final(device, group)
+    batch = mesh.shard_batch(dp_batch(device, global_b), rank, world)
+    gen = torch.Generator(device=device).manual_seed(DP_SEED + rank)
+
+    def run():
+        return {k: float(v) for k, v in
+                mesh.average_metrics(step(state, batch, gen, 0)[1], group).items()}
+
+    # ---- the main path: counts set to 0 just before
+    mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    out["metrics"] = run()
+    if rank == 0:
+        out["grads"], out["stats"] = _grads(state.model), _stats(state.model)
+    out["losses"] = [out["metrics"]["loss_total"]] + [run()["loss_total"]
+                                                      for _ in range(DP_STEPS)]
+    out["launches"] = (mt.FWD_LAUNCHES, mt.BWD_LAUNCHES)
+    out["checksum"] = float(sum(p.detach().double().sum() for p in state.model.parameters()))
+
+    # ---- ms/step, and the gradient all-reduce alone on the same gradients
+    grads = [p.grad for p in state.model.parameters()]
+    for label, fn in (("step", run), ("allreduce", lambda: mesh.mean_in_place(grads, group))):
+        fn()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{label}_ms"] = 1e3 * (time.perf_counter() - t0) / DP_TIMED
+    del state, step, grads
+    torch.cuda.empty_cache()
+    if with_sw:
+        # TF32 off: the f32 step is held to one process's tightly
+        torch.backends.cudnn.allow_tf32 = False
+        for dtype in DP_SW_DTYPES:
+            state, step = dp_sw(device, dtype, group)
+            _, metrics = step(state, {k: batch[k] for k in ("img1", "dmap")}, gen, 0)
+            out[f"sw_{dtype}"] = {"loss": float(mesh.average_metrics(metrics, group)
+                                                ["loss_total"])}
+            if rank == 0:
+                out[f"sw_{dtype}"].update(grads=_grads(state.model), stats=_stats(state.model))
+            del state, step
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def rel_norm_all(got, want):
+    """||got - want|| / ||want|| over every tensor of two dicts, and the
+    worst tensor's own."""
+    num = sum(float((got[k] - want[k]).double().norm() ** 2) for k in want)
+    den = sum(float(want[k].double().norm() ** 2) for k in want)
+    worst = max(want, key=lambda k: float((got[k] - want[k]).norm())
+                / max(float(want[k].norm()), 1e-12))
+    return math.sqrt(num / max(den, 1e-30)), worst
+
+
+def dp_reference(rank, workdir):
+    """`final` step 1 without communication: each rank's half from the same
+    weights and buffers, with that rank's dropout generator, one after the
+    other; the halves' loss parts, gradients and running statistics
+    averaged. And `sw`'s one-process B=16 step. It runs in a fresh process
+    of its own (a group of one rank), as the ranks do: after phases 1-11 this
+    process's cuDNN chose other bf16 convolution algorithms, enough to flip
+    `final`'s 0.5 thresholds (PERF.md §6). Writes ``workdir/reference.pt``."""
+    device = torch.device("cuda", 0)
+    state, loss_fn, _ = dp_final(device)
+    batch = dp_batch(device)
+    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    halves = []
+    for r in range(DP_RANKS):
+        state.model.load_state_dict(start)
+        state.model.zero_grad(set_to_none=True)
+        half = {k: v[r * DP_B // DP_RANKS:(r + 1) * DP_B // DP_RANKS] for k, v in batch.items()}
+        gen = torch.Generator(device=device).manual_seed(DP_SEED + r)
+        total, metrics = loss_fn(half, gen, 0)
+        total.backward()
+        halves.append(({k: float(v.detach()) for k, v in metrics.items()}, _grads(state.model),
+                       _stats(state.model)))
+    ref = {"metrics": {k: sum(h[0][k] for h in halves) / DP_RANKS for k in halves[0][0]},
+           "grads": {k: sum(h[1][k] for h in halves) / DP_RANKS for k in halves[0][1]},
+           "stats": {k: sum(h[2][k] for h in halves) / DP_RANKS for k in halves[0][2]}}
+    del state, loss_fn
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False  # as the ranks' sw steps
+    for dtype in DP_SW_DTYPES:
+        state, step = dp_sw(device, dtype)
+        _, metrics = step(state, {k: batch[k] for k in ("img1", "dmap")}, None, 0)
+        ref[f"sw_{dtype}"] = {"loss": float(metrics["loss_total"]),
+                              "grads": _grads(state.model), "stats": _stats(state.model)}
+        del state, step
+        torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(workdir, "reference.pt"))
+
+
+def cli_rank(outdir, argv):
+    """A torchrun rank of the command line (``python -m dgvcc_tpu_torch``'s
+    ``main``) that writes its kernels' launches to ``outdir``."""
+    sys.path.insert(0, ROOT)
+    from dgvcc_tpu_torch.cli.main import main as cli_main
+    from dgvcc_tpu_torch.ops import mem_attention as ma
+    from dgvcc_tpu_torch.ops import mem_attention_train as mt
+
+    ma.LAUNCHES = mt.FWD_LAUNCHES = mt.BWD_LAUNCHES = 0
+    cli_main(argv)
+    with open(os.path.join(outdir, f"rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump({"memory_attention_fused": ma.LAUNCHES,
+                   "memory_attention_train_fwd": mt.FWD_LAUNCHES,
+                   "memory_attention_train_bwd": mt.BWD_LAUNCHES}, f)
+    return 0
+
+
+def dp_files_run(tmp, gpu, nccl):
+    """sta_final.yml with mesh: {data: 2} for 1 epoch on phase 6's files
+    through torchrun and the command line; then one process's --task test
+    of the same `last`. Returns the launches summed over the ranks."""
+    import yaml
+
+    from dgvcc_tpu_torch.cli.main import main as cli_main
+
+    with open(os.path.join(ROOT, "configs", "sta_final.yml")) as f:
+        raw = yaml.safe_load(f)
+    root = os.path.join(tmp, "data")
+    for split in ("train", "val", "test"):
+        raw[f"{split}_dataset"] = dict(raw[f"{split}_dataset"], params=dict(
+            raw[f"{split}_dataset"]["params"], root=root))
+    raw.update(num_epochs=1, log_dir=os.path.join(tmp, "logs12"), mesh={"data": DP_RANKS})
+    cfg_path = os.path.join(tmp, "sta_final_dp.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    outdir = os.path.join(tmp, "dp_ranks")
+    os.makedirs(outdir)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={DP_RANKS}", os.path.abspath(__file__), "--cli-rank", outdir,
+           "--config", cfg_path, "--task", "train_test"]
+    if not nccl:
+        cmd += ["--dist-backend", "gloo"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    wall = time.perf_counter() - t0
+    if out.returncode:
+        fail(f"torchrun train_test exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+             f"{out.stderr[-4000:]}")
+    per_rank = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            per_rank.append(json.load(f))
+    log_dir = os.path.join(raw["log_dir"], raw["version"])
+    text = open(os.path.join(log_dir, "log.txt")).read()
+    n_val, n_test = 4, 4
+    steps = 32 // DP_B
+    log(f"data parallel from files: torchrun --nproc_per_node={DP_RANKS} -m dgvcc_tpu_torch "
+        f"--task train_test{'' if nccl else ' --dist-backend gloo'} (sta_final.yml, "
+        f"mesh: {{data: {DP_RANKS}}}, 1 epoch x {steps} steps of B={DP_B}): {wall:.1f} s "
+        f"with start-up; launches per rank {per_rank}")
+    for line in ("Data parallel over 2 devices", "Start training and testing at"):
+        if text.count(line) != 1:
+            fail(f"data parallel log.txt has {text.count(line)} {line!r} lines, not 1")
+    for line in text.splitlines():
+        if line != "Data parallel over 2 devices" and not any(
+                p.fullmatch(line) for p in LOG_LINES):
+            fail(f"data parallel log.txt line not of the JAX trainer's shapes: {line!r}")
+    for r, n in enumerate(per_rank):
+        if n["memory_attention_fused"] != n_val + n_test:
+            fail(f"rank {r} launched kernel #1 {n['memory_attention_fused']} times for "
+                 f"{n_val} val and {n_test} test images")
+        if (n["memory_attention_train_fwd"], n["memory_attention_train_bwd"]) != (steps, steps):
+            fail(f"rank {r}: {steps} steps launched the training kernels "
+                 f"{n['memory_attention_train_fwd']} / {n['memory_attention_train_bwd']} times")
+    got = float(re.findall(r"Testing results: mae: (\S+)", text)[-1])
+    one = dict(raw, version="one")
+    one.pop("mesh")
+    one_path = os.path.join(tmp, "sta_final_one.yml")
+    with open(one_path, "w") as f:
+        yaml.safe_dump(one, f)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(["--config", one_path, "--task", "test", "--ckpt",
+                  os.path.join(log_dir, "last.pth")])
+    want = float(re.findall(r"Testing results: mae: (\S+)", buf.getvalue())[-1])
+    log(f"data parallel test MAE {got:.4f} (2 ranks), one process's --task test of the same "
+        f"last.pth {want:.4f} (tol {TOL_DP_MAE} + the printed 4 decimals)")
+    if abs(got - want) > TOL_DP_MAE * max(abs(want), 1.0) + 1e-4:
+        fail("the 2-rank test MAE disagrees with one process's")
+    return {k: sum(n[k] for n in per_rank) for k in per_rank[0]}
+
+
+def dp_phase(mt, tmp, gpu):
+    """Phase 12: data parallel. Returns what it measured and the kernels'
+    launches of its ranks."""
+    from dgvcc_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    nccl = torch.cuda.device_count() >= DP_RANKS
+    backend = "nccl" if nccl else "gloo"
+    where = (f"NCCL, one card a rank ({DP_RANKS} of {torch.cuda.device_count()} cards)"
+             if nccl else f"gloo, {DP_RANKS} ranks on cuda:0 (one card visible)")
+    log(f"data parallel: {DP_RANKS} ranks over {where}; a 1-rank NCCL group on card 0")
+    # the ranks choose cuDNN's algorithms as the command line does (phase 3
+    # turned its benchmark on in this process)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        return _dp_phase(mt, tmp, gpu, t0, nccl, backend)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+
+
+def _dp_phase(mt, tmp, gpu, t0, nccl, backend):
+    from dgvcc_tpu_torch.parallel.launch import run_ranks
+
+    work = tempfile.mkdtemp(prefix="dp_ref_", dir=tmp)
+    run_ranks(dp_reference, 1, (work,), init_file=os.path.join(work, "init"), timeout=600,
+              threads=4)
+    ref = torch.load(os.path.join(work, "reference.pt"), weights_only=False)
+    res, launches = {}, {"memory_attention_train_fwd": 0, "memory_attention_train_bwd": 0}
+    runs = (("two ranks", DP_RANKS, backend, DP_B, True), ("one rank", 1, "nccl", DP_B // 2,
+                                                           False))
+    for label, world, be, global_b, full in runs:
+        work = tempfile.mkdtemp(prefix="dp_", dir=tmp)
+        run_ranks(dp_rank, world, (work, global_b, full), init_file=os.path.join(work, "init"),
+                  backend=be, timeout=600, threads=4)
+        outs = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+        res[label] = outs
+        for o in outs:
+            launches["memory_attention_train_fwd"] += o["launches"][0]
+            launches["memory_attention_train_bwd"] += o["launches"][1]
+            if o["launches"] != (DP_STEPS + 1, DP_STEPS + 1):
+                fail(f"{label}: {DP_STEPS + 1} steps launched the training kernels "
+                     f"{o['launches']} times on {o['device']}")
+            losses = o["losses"]
+            if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+                fail(f"{label}: the loss is not finite or did not fall: {losses}")
+        log(f"data parallel {label} ({outs[0]['backend']}, {[o['device'] for o in outs]}), "
+            f"`final` B={global_b}: losses {[round(x, 4) for x in outs[0]['losses']]}; "
+            f"parameter checksums {[o['checksum'] for o in outs]}")
+        if len({o["checksum"] for o in outs}) != 1:
+            fail(f"{label}: the ranks' parameters differ after {DP_STEPS + 1} steps")
+
+    # ---- step 1 of the two ranks against the halves run in turn
+    two = res["two ranks"]
+    for k, want in ref["metrics"].items():
+        got = two[0]["metrics"][k]
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        log(f"data parallel `final` step 1 {k}: ranks {got:.6g}, halves in turn {want:.6g}, "
+            f"rel diff {rel:.3e} (tol {TOL_DP_LOSS})")
+        if not rel <= TOL_DP_LOSS and abs(got - want) > 1e-12:
+            fail(f"data parallel step 1: {k} disagrees with the halves run in turn")
+    rel, worst = rel_norm_all(two[0]["grads"], ref["grads"])
+    log(f"data parallel `final` step 1 gradients: rel norm diff {rel:.3e} over every "
+        f"parameter (tol {TOL_DP_GRAD}); the worst tensor {worst}")
+    if not rel <= TOL_DP_GRAD:
+        fail("data parallel step 1: the all-reduced gradients disagree with the halves'")
+    err = max(float((two[0]["stats"][k] - v).abs().max()) / max(float(v.abs().max()), 1e-12)
+              for k, v in ref["stats"].items())
+    log(f"data parallel `final` step 1 averaged BN running statistics: max rel diff {err:.3e} "
+        f"over {len(ref['stats'])} buffers (tol {TOL_DP_STATS})")
+    if not err <= TOL_DP_STATS:
+        fail("data parallel step 1: the averaged running statistics disagree")
+
+    # ---- sw: statistics all-reduced in the forward, against one process's B=16
+    def sw_distance(got, want):
+        rel_loss = abs(got["loss"] - want["loss"]) / max(abs(want["loss"]), 1e-12)
+        rel_g, worst = rel_norm_all(got["grads"], want["grads"])
+        err = max(float((got["stats"][k] - v).abs().max()) / max(float(v.abs().max()), 1e-12)
+                  for k, v in want["stats"].items())
+        return rel_loss, rel_g, err, worst
+
+    bf, f32 = ref[f"sw_{torch.bfloat16}"], ref[f"sw_{torch.float32}"]
+    floor = sw_distance(bf, f32)
+    log(f"`sw` one process B={DP_B}, bf16 against f32: loss rel {floor[0]:.3e}, gradients rel "
+        f"norm {floor[1]:.3e} (the worst tensor {floor[3]}), running statistics max rel "
+        f"{floor[2]:.3e}")
+    for dtype in DP_SW_DTYPES:
+        dist_ = sw_distance(two[0][f"sw_{dtype}"], ref[f"sw_{dtype}"])
+        tol = TOL_DP_SW[dtype]
+        if dtype == torch.bfloat16:
+            tol = (tol[0], max(tol[1], 1.5 * floor[1]), max(tol[2], 1.5 * floor[2]))
+        log(f"data parallel `sw` (sta_sw.yml) {dtype} step 1, 2 ranks x {DP_B // DP_RANKS} "
+            f"against one process's B={DP_B}: loss rel {dist_[0]:.3e} (tol {tol[0]:.3g}); "
+            f"gradients rel norm {dist_[1]:.3e} (tol {tol[1]:.3g}; the worst tensor "
+            f"{dist_[3]}); running mean and covariance max rel {dist_[2]:.3e} (tol "
+            f"{tol[2]:.3g})")
+        if not all(d <= t for d, t in zip(dist_[:3], tol)):
+            fail(f"data parallel sw {dtype}: the synced statistics' step disagrees with one "
+                 "process's")
+
+    # ---- times
+    step_ms, ar_ms = two[0]["step_ms"], two[0]["allreduce_ms"]
+    one_ms = res["one rank"][0]["step_ms"]
+    kind = ("two cards, NCCL" if nccl else
+            "two ranks on one card, gloo: not a scaling figure")
+    log(f"data parallel `final` step, {DP_RANKS} ranks x B={DP_B // DP_RANKS} ({kind}): "
+        f"{step_ms:.3f} ms/step; the gradient all-reduce alone {ar_ms:.3f} ms = "
+        f"{ar_ms / step_ms:.3f} of the step [{gpu}]")
+    log(f"data parallel `final` step, 1 rank x B={DP_B // DP_RANKS} (NCCL, card 0): "
+        f"{one_ms:.3f} ms/step; its all-reduce (one rank) "
+        f"{res['one rank'][0]['allreduce_ms']:.3f} ms [{gpu}]")
+    if nccl:
+        log(f"data parallel scaling: {DP_B} samples in {step_ms:.3f} ms on 2 cards against "
+            f"{DP_B // 2} in {one_ms:.3f} ms on one: {2 * one_ms / step_ms:.3f}x the "
+            f"throughput [{gpu}]")
+
+    # ---- from files, through torchrun and the command line
+    files = dp_files_run(tmp, gpu, nccl)
+    for k, v in files.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 12 (data parallel): {time.perf_counter() - t0:.1f}s; kernel launches over "
+        f"its ranks {launches}")
+    return {"step_ms": step_ms, "allreduce_ms": ar_ms, "one_rank_ms": one_ms,
+            "backend": backend}, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("[chip_smoke] CUDA is not available: this script runs on an "
@@ -2697,6 +3145,9 @@ def main():
 
         # ---- 11. the generator (generation, joint) and the classic baselines --
         _, generator_launches = generator_baselines_phase(ma, mt, tmp, gpu)
+
+        # ---- 12. data parallel: ranks over torch.distributed -----------------
+        _, dp_launches = dp_phase(mt, tmp, gpu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f}s")
@@ -2712,7 +3163,8 @@ def main():
                "whitening family (phase 8)": whiten_launches,
                "http serving (phase 9)": {"memory_attention_fused": http_launches},
                "regressors (phase 10)": regressor_launches,
-               "generator and baselines (phase 11)": generator_launches}
+               "generator and baselines (phase 11)": generator_launches,
+               "data parallel ranks (phase 12)": dp_launches}
 
     def total(name):
         return sum(n.get(name, 0) for n in by_path.values())
@@ -2772,4 +3224,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:  # phase 12's torchrun ranks
+        sys.exit(cli_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -3,6 +3,8 @@
     python -m dgvcc_tpu_torch --config configs/X.yml \
         --task {train,test,vis,train_test,generate,serve} [--ckpt x.pth]
         [--device cpu] [--frames DIR | --http PORT] [--batch N]
+    torchrun --nproc_per_node=N -m dgvcc_tpu_torch --config X.yml \
+        --task {train,test,train_test} [--dist-backend gloo]
 
 Reads the JAX package's YAML configs (core/config.py). ``train``, ``test``,
 ``vis``, ``train_test`` and ``generate`` drive
@@ -15,9 +17,17 @@ images and prints one ``name count`` line per frame and a throughput
 summary; ``--task serve --http PORT`` answers ``POST /count`` with image
 bytes (``serve_http.py``), ``--batch`` bounding its micro-batch. The
 device is ``cuda`` unless ``--device`` or the config's ``device:`` key
-starts with ``cpu``. The other tasks of ``python -m dgvcc_tpu`` are not
-ported yet: ``quantize``, ``aot`` and ``export``, and serving's
-``--quantize``, ``--artifact`` and ``--aot``, are ROADMAP.md Queue 1 item 2.
+starts with ``cpu``.
+
+A config with ``mesh: {data: N}`` trains, validates and tests data parallel
+under ``torchrun --nproc_per_node=N`` (``parallel/``): rank r takes
+``cuda:{LOCAL_RANK}`` and NCCL; ``--device cpu`` takes gloo, and
+``--dist-backend gloo`` lets ranks share a card (NCCL with more local ranks
+than cards raises). Outside torchrun, or with another number of ranks, it
+raises; ``vis``, ``generate`` and ``serve`` run in one process and refuse
+a mesh. The other tasks of ``python -m dgvcc_tpu`` are not ported yet:
+``quantize``, ``aot`` and ``export``, and serving's ``--quantize``,
+``--artifact`` and ``--aot``, are ROADMAP.md Queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -119,8 +129,9 @@ def _trainer_task(cfg, config_path: str, task: str, device: str):
     from dgvcc_tpu_torch.train.trainer import DGTrainer
 
     trainer = DGTrainer(cfg, device=device)
-    # snapshot the config into the log dir (reference main.py:151)
-    shutil.copy(config_path, os.path.join(trainer.log_dir, os.path.basename(config_path)))
+    if trainer.main:
+        # snapshot the config into the log dir (reference main.py:151)
+        shutil.copy(config_path, os.path.join(trainer.log_dir, os.path.basename(config_path)))
     if task == "train":
         trainer.train()
     elif task == "test":
@@ -138,11 +149,29 @@ def _trainer_task(cfg, config_path: str, task: str, device: str):
         trainer.train_and_test()
 
 
+def _data_parallel_task(cfg, config_path: str, task: str, device: str, backend):
+    """A torchrun job's rank: join the process group (the trainer checks its
+    size against the mesh), run the task, and leave the group if it joined
+    it here."""
+    import torch.distributed as dist
+
+    from dgvcc_tpu_torch.parallel.multihost import initialize_distributed
+
+    owned = not dist.is_initialized()
+    initialize_distributed(backend, device)
+    try:
+        return _trainer_task(cfg, config_path, task, device)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         ckpt: str = None, device: str = None, http: int = None,
-        quantize=False, artifact: str = None, aot: str = None, block: bool = True):
+        quantize=False, artifact: str = None, aot: str = None, block: bool = True,
+        dist_backend: str = None):
     from dgvcc_tpu_torch.core.config import load_config
-    from dgvcc_tpu_torch.train.trainer import config_device
+    from dgvcc_tpu_torch.train.trainer import config_device, mesh_size
 
     if task not in ("train", "test", "vis", "train_test", "generate", "serve"):
         raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
@@ -156,7 +185,16 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
     if ckpt is not None:
         # a comma pair is a joint run's [gen, reg] checkpoint
         cfg.checkpoint = ckpt.split(",") if "," in ckpt else ckpt
+    dp = mesh_size(cfg, "data")
+    if dp > 1 and task in ("vis", "generate", "serve"):
+        where = ("serving on a mesh (mesh / serve_shard) is ROADMAP.md, Queue 1 item 1"
+                 if task == "serve" else "it runs in one process on one card")
+        raise SystemExit(f"--task {task} with mesh: {{data: {dp}}}: {where}; drop the "
+                         "mesh key for it")
     if task != "serve":
+        if dp > 1:
+            return _data_parallel_task(cfg, config_path, task, config_device(cfg, device),
+                                       dist_backend)
         return _trainer_task(cfg, config_path, task, config_device(cfg, device))
     if isinstance(cfg.checkpoint, (list, tuple)):
         raise SystemExit("--task serve takes a single checkpoint path")
@@ -192,6 +230,10 @@ def build_parser():
                              "joint run's pair)")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda[:N] or cpu; overrides the config's device:")
+    parser.add_argument("--dist-backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="mesh: {data: N} under torchrun: the process group's backend "
+                             "(default nccl on the card, gloo on the CPU; gloo lets ranks "
+                             "share a card)")
     return parser
 
 
@@ -199,7 +241,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     run(args.config, args.task, frames=args.frames, batch=args.batch,
         ckpt=args.ckpt, device=args.device, http=args.http, quantize=args.quantize,
-        artifact=args.artifact, aot=args.aot)
+        artifact=args.artifact, aot=args.aot, dist_backend=args.dist_backend)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ frameworks.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -180,13 +180,20 @@ def apply_augmentation(frames_u8: torch.Tensor, dmaps: torch.Tensor,
 
 
 def augment_two_view_batch(frames_u8: torch.Tensor, dmaps: torch.Tensor,
-                           generator: torch.Generator, crop: int,
-                           block: int = 16) -> Dict[str, torch.Tensor]:
+                           generator: torch.Generator, crop: int, block: int = 16,
+                           shard: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """The batched ``den_cls`` train transform on the frames' device, with
-    draws from ``generator`` (which must live on that device)."""
+    draws from ``generator`` (which must live on that device). ``shard=(i,
+    n)``: the frames are share i of n of a batch (a data-parallel rank's
+    rows); the draws are those of the whole batch, from the same generator
+    on every rank, and each share applies its own rows' draws, so its rows
+    are the ones one process would make."""
     if generator.device.type != frames_u8.device.type:
         raise ValueError(f"the generator is on {generator.device}, the frames on "
                          f"{frames_u8.device}")
     b, h, w, _ = frames_u8.shape
-    return apply_augmentation(frames_u8, dmaps, draw_augmentation(b, h, w, crop, generator),
+    i, n = shard or (0, 1)
+    draws = draw_augmentation(b * n, h, w, crop, generator)
+    rows = slice(i * b, (i + 1) * b)
+    return apply_augmentation(frames_u8, dmaps, {k: v[rows] for k, v in draws.items()},
                               crop, block)

@@ -20,8 +20,15 @@ small and has no CUDA context yet. A worker touches no CUDA and no
 tensor in any case: samples are numpy, built by PIL and numpy only. It
 goes back to the default SIGTERM and ignores SIGINT, so ``close()`` (also
 called by ``__del__`` and at the end of the trainer's runs) can end it
-whatever handler the trainer installed. The JAX package's multi-host
-sampler belongs to parallelism (ROADMAP.md, Queue 1 item 1).
+whatever handler the trainer installed.
+
+Data parallel (``mesh: {data: N}``): ``shard=(i, n)`` makes the loader
+yield share i of n of each batch, the contiguous rows [i B/n, (i+1) B/n)
+of the batch the loader would yield without it, and fetch only those rows:
+each rank decodes its own rows of the one-process batch, bit for bit. On
+several nodes a ``sampler`` (``parallel/multihost.py::DistributedSampler``)
+gives the node its own indices of each epoch, batch_size being per node
+(the JAX pod's loader).
 """
 
 from __future__ import annotations
@@ -30,9 +37,11 @@ import multiprocessing as mp
 import random
 import signal
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from dgvcc_tpu_torch.parallel.mesh import shard_rows
 
 WORKER_MODES = ("thread", "process")
 
@@ -56,10 +65,18 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 0, drop_last: Optional[bool] = None,
                  seed: int = 0, collate=None, prefetch: int = 2,
-                 worker_mode: str = "thread"):
+                 worker_mode: str = "thread", shard: Optional[Tuple[int, int]] = None,
+                 sampler=None):
         self._pool = None
         if worker_mode not in WORKER_MODES:
             raise ValueError(f"worker_mode {worker_mode!r}: not one of {WORKER_MODES}")
+        if shard is not None and batch_size % shard[1]:
+            raise ValueError(f"batch_size {batch_size} does not split over {shard[1]} ranks")
+        if sampler is not None and sampler.batch_size != batch_size:
+            raise ValueError(f"sampler.batch_size={sampler.batch_size} != loader "
+                             f"batch_size={batch_size}; they must match")
+        self.shard = shard
+        self.sampler = sampler
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -72,6 +89,8 @@ class DataLoader:
         self.epoch = 0
 
     def __len__(self):
+        if self.sampler is not None:
+            return len(self.sampler)
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
@@ -81,6 +100,8 @@ class DataLoader:
         self.epoch = epoch
 
     def _indices(self):
+        if self.sampler is not None:  # wrap-padded to whole batches already
+            return self.sampler.epoch_indices(self.epoch)
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             rs = np.random.RandomState((self.seed * 1_000_003 + self.epoch) % (2**31))
@@ -115,6 +136,9 @@ class DataLoader:
         idx = self._indices()
         batches = [idx[b * self.batch_size : (b + 1) * self.batch_size]
                    for b in range(len(self))]
+        if self.shard is not None:
+            i, n = self.shard
+            batches = [b[shard_rows(len(b), i, n)] for b in batches]
         if self.num_workers <= 0:
             for b in batches:
                 yield self._assemble([self._fetch(i) for i in b])
@@ -147,10 +171,21 @@ class DataLoader:
         return self.collate(samples)
 
 
-def build_loader(dataset, spec: dict, seed: int = 0, collate=None) -> DataLoader:
+def build_loader(dataset, spec: dict, seed: int = 0, collate=None,
+                 layout=None) -> DataLoader:
     """``spec`` is the reference's {train,val,test}_loader YAML block;
     ``pin_memory`` is accepted and unused (the trainer pins what it
-    uploads)."""
+    uploads). ``layout`` (``parallel/multihost.py::NodeLayout``, data
+    parallel): a shuffled loader yields this rank's rows, of the node's own
+    sampler on several nodes; the others stay whole on every rank."""
+    shard = sampler = None
+    if layout is not None and spec.get("shuffle", False):
+        shard = (layout.local_rank, layout.local_world)
+        if layout.nodes > 1:
+            from dgvcc_tpu_torch.parallel.multihost import DistributedSampler
+
+            sampler = DistributedSampler(len(dataset), spec.get("batch_size", 1), seed=seed,
+                                         rank=layout.node, world_size=layout.nodes)
     return DataLoader(
         dataset,
         batch_size=spec.get("batch_size", 1),
@@ -161,4 +196,6 @@ def build_loader(dataset, spec: dict, seed: int = 0, collate=None) -> DataLoader
         collate=collate,
         prefetch=spec.get("prefetch", 2),
         worker_mode=spec.get("worker_mode", "thread"),
+        shard=shard,
+        sampler=sampler,
     )

@@ -23,6 +23,11 @@ ISW's protocol (ISW/__init__.py:70-122):
       ``IswCovTracker`` accumulates them during validation and selects the
       sensitive entries on the host (numpy, as the JAX trackers);
   (c) without gts, the density map.
+
+The six counters take ``process_group`` (the JAX models' ``axis_name``):
+under ``mesh: {data: N}`` the trainer builds them with the data group, and
+their batch norms and SwitchWhitens average the batch statistics over the
+ranks in the training forward (``nn/layers.py::sync_statistics``).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from torch import nn
 
 from dgvcc_tpu_torch.core.registry import MODELS
 from dgvcc_tpu_torch.nn.densenet import DENSENET_CONFIGS, DenseNetTrunk
-from dgvcc_tpu_torch.nn.layers import Conv2d
+from dgvcc_tpu_torch.nn.layers import Conv2d, sync_statistics
 from dgvcc_tpu_torch.nn.resnet import RESNET_BLOCK, RESNET_LAYERS, ResNetTrunk, resnet_forward
 from dgvcc_tpu_torch.nn.vgg import VGG19_CFG
 from dgvcc_tpu_torch.nn.whitening import (InstanceNorm, SwitchWhiten, get_covariance_matrix,
@@ -94,7 +99,8 @@ class SWCounterResNet(_Counter):
     the block counts (tiny nets in tests)."""
 
     def __init__(self, pretrained: bool = True, depth: int = 50,
-                 layers: Optional[Sequence[int]] = None, dtype: torch.dtype = torch.float32):
+                 layers: Optional[Sequence[int]] = None, dtype: torch.dtype = torch.float32,
+                 process_group=None):
         super().__init__()
         block = RESNET_BLOCK[depth]
         self.backbone = ResNetTrunk(layers=layers or RESNET_LAYERS[depth], block=block,
@@ -102,6 +108,7 @@ class SWCounterResNet(_Counter):
                                     stage_sw=(True, True, True, False), sw_kwargs=SW_KW,
                                     dtype=dtype)
         self.head = CountingHead(_head_channels(block), dtype)
+        sync_statistics(self, process_group)
 
     def forward(self, x, generator=None):
         return self.head(self.backbone(x)[0])
@@ -116,7 +123,8 @@ class IBNCounterResNet(_Counter):
 
     def __init__(self, pretrained: bool = True, depth: int = 50, ibn_cfg: str = "b",
                  groups: int = 1, base_width: int = 64, se: bool = False,
-                 layers: Optional[Sequence[int]] = None, dtype: torch.dtype = torch.float32):
+                 layers: Optional[Sequence[int]] = None, dtype: torch.dtype = torch.float32,
+                 process_group=None):
         super().__init__()
         if ibn_cfg == "b":
             spec = dict(stem_norm="in_affine", stage_post=("in", "in", None, None))
@@ -127,6 +135,7 @@ class IBNCounterResNet(_Counter):
                                     num_stages=3, groups=groups, base_width=base_width,
                                     se=se, dtype=dtype, **spec)
         self.head = CountingHead(_head_channels(block), dtype)
+        sync_statistics(self, process_group)
 
     def forward(self, x, generator=None):
         return self.head(self.backbone(x)[0])
@@ -135,7 +144,7 @@ class IBNCounterResNet(_Counter):
 class _DenseNetCounter(_Counter):
     flax_layout = "densenet"
 
-    def __init__(self, norm1_mode: str, depth: int, block_config, dtype):
+    def __init__(self, norm1_mode: str, depth: int, block_config, dtype, process_group):
         super().__init__()
         cfg = dict(DENSENET_CONFIGS[depth])
         if block_config is not None:
@@ -144,6 +153,7 @@ class _DenseNetCounter(_Counter):
                                       stage_with=(True, True, True, False),
                                       sw_kwargs=SW_KW, dtype=dtype, **cfg)
         self.head = CountingHead(self.backbone.out_channels, dtype)
+        sync_statistics(self, process_group)
 
     def forward(self, x, generator=None):
         return self.head(self.backbone(x))
@@ -156,8 +166,8 @@ class SWCounterDenseNet(_DenseNetCounter):
 
     def __init__(self, pretrained: bool = True, depth: int = 121,
                  block_config: Optional[Sequence[int]] = None,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__("sw", depth, block_config, dtype)
+                 dtype: torch.dtype = torch.float32, process_group=None):
+        super().__init__("sw", depth, block_config, dtype, process_group)
 
 
 @MODELS.register("ibn_densenet")
@@ -167,8 +177,8 @@ class IBNCounterDenseNet(_DenseNetCounter):
 
     def __init__(self, pretrained: bool = True, depth: int = 121,
                  block_config: Optional[Sequence[int]] = None,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__("ibn", depth, block_config, dtype)
+                 dtype: torch.dtype = torch.float32, process_group=None):
+        super().__init__("ibn", depth, block_config, dtype, process_group)
 
 
 class _SWVGG(nn.Module):
@@ -202,9 +212,11 @@ class SWCounterVGG(_Counter):
 
     flax_layout = "sw_vgg"
 
-    def __init__(self, pretrained: bool = True, dtype: torch.dtype = torch.float32):
+    def __init__(self, pretrained: bool = True, dtype: torch.dtype = torch.float32,
+                 process_group=None):
         super().__init__()
         self.vgg = _SWVGG(dtype)
+        sync_statistics(self, process_group)
 
     def forward(self, x, generator=None):
         return _upsample_ac(self.vgg(x), 8)
@@ -227,13 +239,14 @@ class ISWCounterResNet(_Counter):
 
     def __init__(self, pretrained: bool = True, relax_denom: float = 2.0, clusters: int = 3,
                  layers: Sequence[int] = (3, 4, 6, 3), wt_type: str = "isw",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, process_group=None):
         super().__init__()
         trunk = ResNetTrunk(layers=layers, num_stages=3, stem_norm="iw",
                             stage_post=("iw", "iw", None, None), dtype=dtype)
         self.layer0 = nn.Sequential(*list(trunk)[:4])
         self.layer1, self.layer2, self.layer3 = trunk[4], trunk[5], trunk[6]
         self.head = CountingHead(1024, dtype)
+        sync_statistics(self, process_group)
 
     def _trunk(self, x, num_stages=None):
         mods = [*self.layer0, self.layer1, self.layer2, self.layer3]

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dgvcc_tpu_torch.nn.layers import Conv2d
+from dgvcc_tpu_torch.nn.layers import BatchNorm2d, Conv2d
 from dgvcc_tpu_torch.nn.whitening import IBN, SwitchWhiten
 
 # torchvision block configs (SW/backbones/densenet.py:21-75)
@@ -41,7 +41,7 @@ DENSENET_CONFIGS = {
 
 
 def _bn(ch):
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
 class _DenseLayer(nn.Module):

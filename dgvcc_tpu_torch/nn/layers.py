@@ -2,11 +2,13 @@
 
 ``ConvBlock`` keeps the reference DGVCC key layout (``.conv`` /
 ``.bn``) so a reference ``.pth`` loads with a strict ``load_state_dict``.
-Batch norm is ``nn.BatchNorm2d`` kept in float32 whatever the module
-dtype: given a bfloat16 input it normalizes in float32 and returns
-bfloat16, which is the JAX ``BatchNorm`` rule (compute in f32, cast back
-to the module dtype), and it stores the unbiased running variance as
-the JAX ``BatchNorm`` does.
+Batch norm is ``BatchNorm2d``, an ``nn.BatchNorm2d`` kept in float32
+whatever the module dtype: given a bfloat16 input it normalizes in float32
+and returns bfloat16, which is the JAX ``BatchNorm`` rule (compute in f32,
+cast back to the module dtype), and it stores the unbiased running variance
+as the JAX ``BatchNorm`` does. With a ``process_group`` its training
+forward averages the batch statistics over the group's ranks, as the JAX
+``BatchNorm`` with ``axis_name`` does (``sync_statistics``).
 
 Precision: ``Conv2d`` computes in the dtype the model was built with. A
 model built in bf16 holds bf16 weights and casts nothing (serving); a
@@ -23,6 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dgvcc_tpu_torch.parallel.mesh import mean_over_ranks
 
 
 class Conv2d(nn.Conv2d):
@@ -42,6 +46,53 @@ class Conv2d(nn.Conv2d):
         if x.dtype != dt:
             x = x.to(dt)
         return self._conv_forward(x, w, b)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (the same state_dict keys) whose training forward,
+    once ``process_group`` is set, computes the mean and the mean of squares
+    in float32, averages them over the group's ranks (the gradient flows
+    through the mean), takes var = E[x^2] - E[x]^2 and stores the running
+    variance unbiased with the global count: dgvcc_tpu/nn/layers.py:58-76.
+    Without a group, or in eval mode, it is ``nn.BatchNorm2d``.
+    ``nn.SyncBatchNorm`` is not used: it refuses CPU tensors, calls
+    ``all_gather`` (which gloo does not run on CUDA tensors) and computes
+    another formula."""
+
+    process_group = None
+
+    def forward(self, x):
+        if self.process_group is None or not self.training:
+            return super().forward(x)
+        group = self.process_group
+        xf = x.float()
+        stats = torch.stack([xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))])
+        mean, mean2 = mean_over_ranks(stats, group).unbind()
+        var = mean2 - mean.square()
+        n = (x.numel() // x.shape[1]) * torch.distributed.get_world_size(group)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1 - m).add_(var.detach() * (n / max(n - 1, 1)), alpha=m)
+            self.num_batches_tracked.add_(1)
+        mul = (self.weight * torch.rsqrt(var + self.eps))[:, None, None]
+        y = (xf - mean[:, None, None]) * mul + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def sync_statistics(model: nn.Module, group) -> nn.Module:
+    """Build-time switch of the six whitening models (the JAX models with an
+    ``axis_name`` field): every batch norm and SwitchWhiten of ``model``
+    averages its batch statistics over ``group``'s ranks in training (None:
+    each rank its own). Returns the model."""
+    from dgvcc_tpu_torch.nn.whitening import SwitchWhiten
+
+    for m in model.modules():
+        if isinstance(m, (BatchNorm2d, SwitchWhiten)):
+            m.process_group = group
+        elif group is not None and isinstance(m, nn.modules.batchnorm._NormBase):
+            raise TypeError(f"{type(m).__name__} cannot average its statistics over ranks")
+    return model
 
 
 class Linear(nn.Linear):
@@ -97,7 +148,7 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, kernel_size, padding=padding,
                            bias=bias, dtype=dtype)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1) if bn else None
+        self.bn = BatchNorm2d(out_ch, eps=1e-5, momentum=0.1) if bn else None
         self.relu = relu
 
     def forward(self, x):

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dgvcc_tpu_torch.nn.layers import Conv2d
+from dgvcc_tpu_torch.nn.layers import BatchNorm2d, Conv2d
 from dgvcc_tpu_torch.nn.whitening import (IBN, InstanceNorm, InstanceWhitening, SELayer,
                                           SwitchWhiten)
 
@@ -38,7 +38,7 @@ RESNET_BLOCK = {18: "basic", 34: "basic", 50: "bottleneck",
 
 
 def _bn(ch):
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
 def _post(kind: Optional[str], ch: int):

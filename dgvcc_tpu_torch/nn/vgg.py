@@ -14,7 +14,7 @@ from typing import Any, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from dgvcc_tpu_torch.nn.layers import Conv2d
+from dgvcc_tpu_torch.nn.layers import BatchNorm2d, Conv2d
 
 # torchvision cfgs: 'M' = 2x2/2 max pool
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512, "M"]
@@ -69,7 +69,7 @@ class VGGFeatures(nn.Sequential):
                                      dtype=dtype))
                 ch = arg
             elif kind == "bn":
-                layers.append(nn.BatchNorm2d(arg, eps=1e-5, momentum=0.1))
+                layers.append(BatchNorm2d(arg, eps=1e-5, momentum=0.1))
             elif kind == "relu":
                 layers.append(nn.ReLU(inplace=True))
             else:

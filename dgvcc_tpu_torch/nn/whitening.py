@@ -20,9 +20,12 @@ Precision: the statistics, the Newton-Schulz steps and the whitening
 product run in float32 whatever the input dtype (float64 for a float64
 input), and the output is cast back to it. Their products must not use
 TF32 (it changes the whitening matrix), so a forward on CUDA raises if
-TF32 matmuls are allowed. The batch statistics are those of this
-device's batch: the all-reduced variant across devices is ROADMAP.md,
-Queue 1 item 1.
+TF32 matmuls are allowed. With a ``process_group`` (set by
+``nn/layers.py::sync_statistics`` on the six whitening models under
+``mesh: {data: N}``), SwitchWhiten's training forward averages its batch
+mean and then its batch covariance over the group's ranks, and IBN's batch
+norm its statistics (dgvcc_tpu/nn/whitening.py:110-117); the gradient flows
+through both averages. Without one, the batch statistics are this rank's.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dgvcc_tpu_torch.nn.layers import BatchNorm2d
+from dgvcc_tpu_torch.parallel.mesh import mean_over_ranks
 
 
 def _check_full_f32(x: torch.Tensor):
@@ -60,7 +66,10 @@ class SwitchWhiten(nn.Module):
     """Switchable Whitening over NCHW inputs. Running mean (g, c, 1) and
     covariance (g, c, c) start at zero and move as ``m * running + (1 - m)
     * batch`` in training (the JAX convention: ``momentum`` is the weight
-    of the old value)."""
+    of the old value). ``process_group``: the ranks whose batch statistics
+    are averaged (None: this rank's alone)."""
+
+    process_group = None
 
     def __init__(self, num_features: int, num_pergroup: int = 16, sw_type: int = 2,
                  T: int = 5, tie_weight: bool = False, eps: float = 1e-5,
@@ -102,8 +111,12 @@ class SwitchWhiten(nn.Module):
         data = xf.reshape(n, g, c, hw)
         if self.training:
             mean_bn = data.mean(dim=(0, 3))[..., None]  # (g, c, 1)
+            if self.process_group is not None:
+                mean_bn = mean_over_ranks(mean_bn, self.process_group)
             centered = data - mean_bn
             cov_bn = torch.einsum("ngcp,ngdp->gcd", centered, centered) / (n * hw)
+            if self.process_group is not None:
+                cov_bn = mean_over_ranks(cov_bn, self.process_group)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean_bn.detach())
@@ -215,7 +228,7 @@ class IBN(nn.Module):
         self.half = int(planes * (1 - ratio)) if bn_first else int(planes * ratio)
         n_in = planes - self.half if bn_first else self.half
         self.IN = InstanceNorm(n_in, affine=True)
-        self.BN = nn.BatchNorm2d(planes - n_in, eps=1e-5, momentum=0.1)
+        self.BN = BatchNorm2d(planes - n_in, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
         x1, x2 = x[:, :self.half], x[:, self.half:]

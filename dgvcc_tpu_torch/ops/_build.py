@@ -8,14 +8,20 @@ it, so that a library that is up to date still has its report. A library
 is rebuilt when its source, or a header under ``csrc/``, is newer. Nothing is
 built when this module is imported: the first call that needs a kernel
 builds it, and ``build_all`` builds every stale library at once, one
-``nvcc`` process per source, all started together.
+``nvcc`` process per source, all started together. The build holds an
+exclusive ``flock`` on ``build/torch_ext/build.lock``, so the ranks of a
+data-parallel job that find a library stale build it once: the first
+builds, the others wait and find it up to date. The operating system
+releases the lock of a process that dies mid-build.
 
 A failed build raises ``RuntimeError`` carrying nvcc's output.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import re
 import shutil
@@ -72,11 +78,26 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < max(f.stat().st_mtime for f in inputs)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=None) -> Dict[str, str]:
     """Compile every stale library in parallel; returns nvcc's log per
-    library built (its ``-Xptxas -v`` register and shared-memory report)."""
-    names = list(SOURCES if names is None else names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    library built (its ``-Xptxas -v`` register and shared-memory report).
+    One process builds at a time (``_build_lock``)."""
+    with _build_lock():
+        return _build_stale(list(SOURCES if names is None else names))
+
+
+def _build_stale(names) -> Dict[str, str]:
     procs = {}
     for name in names:
         if not _stale(name):

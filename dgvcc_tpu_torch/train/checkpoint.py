@@ -258,11 +258,15 @@ class CheckpointRotator:
     """The reference's rolling last / best files (trainer.py:106-115) under
     a log dir, single or as [gen, reg] pairs (``last_gen`` / ``last_reg``,
     ``best_{epoch}_{crit}_gen`` / ``_reg``: dgtrainer.py:43-48, as the JAX
-    package names them); with a ``writer`` the saves are deferred to it."""
+    package names them); with a ``writer`` the saves are deferred to it.
+    ``write=False`` (a data-parallel rank other than 0) saves nothing: rank
+    0 alone writes, whose parameters and statistics are every rank's."""
 
-    def __init__(self, log_dir: str, writer: Optional[AsyncWriter] = None):
+    def __init__(self, log_dir: str, writer: Optional[AsyncWriter] = None,
+                 write: bool = True):
         self.log_dir = log_dir
         self.writer = writer
+        self.write = write
 
     def _path(self, stem: str) -> str:
         return os.path.join(self.log_dir, stem + SUFFIX)
@@ -281,6 +285,8 @@ class CheckpointRotator:
         on their device, and written, then purged, on the writer's thread.
         Returns the first path."""
         paths = [self._path(stem) for stem, _ in entries]
+        if not self.write:
+            return paths[0]
 
         def job(payloads):
             _write(*((p, *payload) for p, payload in zip(paths, payloads)))
@@ -317,3 +323,11 @@ class CheckpointRotator:
         stem = f"best_{epoch}_{criterion:.4f}"
         return self._save([(stem + "_gen", gen_state), (stem + "_reg", reg_state)], extra,
                           purge="best*")
+
+
+def wait_for_rank0(rotator: CheckpointRotator, group=None) -> None:
+    """Before a data-parallel rank reads a file that rank 0 may have just
+    saved: rank 0's deferred saves reach the disk, then every rank waits
+    at a barrier of ``group``."""
+    rotator.flush()
+    torch.distributed.barrier(group=group)

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from dgvcc_tpu_torch.losses.misc import ortho_loss, triplet_loss
-from dgvcc_tpu_torch.train.steps import _count_loss, _first, bce
+from dgvcc_tpu_torch.train.steps import _count_loss, _first, apply_update, bce
 
 
 def build_generation_loss(model):
@@ -55,12 +55,14 @@ def build_generation_loss(model):
     return loss_fn
 
 
-def build_joint_step(gen_model, reg_model, loss, log_para: float):
+def build_joint_step(gen_model, reg_model, loss, log_para: float, gen_sync=None,
+                     reg_sync=None):
     """mode 'joint': returns step(gen_state, reg_state, batch, generator,
     epoch=0) -> (gen_state, reg_state, metrics). The regressor's dropout
     draws from ``generator`` (the JAX step's second key; the generator has
     no dropout). Both states are updated in place and returned; the metrics
-    are detached device tensors."""
+    are detached device tensors. ``gen_sync`` / ``reg_sync`` make each
+    update data-parallel (``train/steps.py::apply_update``)."""
     reg_loss = build_regression_loss(reg_model, loss, log_para)
 
     def step(gen_state, reg_state, batch, generator, epoch: int = 0):
@@ -78,12 +80,12 @@ def build_joint_step(gen_model, reg_model, loss, log_para: float):
                                 y - y.mean(dim=1, keepdim=True)) * 1e-6
         gtotal = loss_rec + loss_ortho
         gtotal.backward()
-        gen_state.apply_gradients()
+        apply_update(gen_state, gen_sync)
 
         reg_state.optimizer.zero_grad(set_to_none=True)
         rtotal, rmetrics = reg_loss(dict(batch, img2=fake.detach()), generator, epoch)
         rtotal.backward()
-        reg_state.apply_gradients()
+        apply_update(reg_state, reg_sync)
         metrics = {"loss_total": rtotal + gtotal, "loss_gen": gtotal, "loss_rec": loss_rec,
                    **{k: rmetrics[k] for k in ("loss_den", "loss_kl", "loss_cls")}}
         return gen_state, reg_state, {k: v.detach() for k, v in metrics.items()}

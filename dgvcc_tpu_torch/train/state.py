@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -57,9 +57,13 @@ class TrainState:
             group["lr"] = lr
         return self
 
-    def apply_gradients(self) -> "TrainState":
+    def apply_gradients(self, reduce: Optional[Callable[[List[torch.Tensor]], None]] = None
+                        ) -> "TrainState":
         """One micro step from the gradients in ``p.grad`` (None reads as
-        0): the optimizer update, or its share of the window, then the EMA."""
+        0): the optimizer update, or its share of the window, then the EMA.
+        ``reduce`` rewrites in place the gradients an update is about to
+        take (the data-parallel mean over ranks): every micro step's without
+        accumulation, the window's mean once per update with it."""
         params = list(self.model.parameters())
         if self.accum_steps > 1:
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
@@ -68,6 +72,8 @@ class TrainState:
             torch._foreach_add_(self.acc_grads, diff)
             self.mini_step = (self.mini_step + 1) % self.accum_steps
             if self.mini_step == 0:
+                if reduce is not None:
+                    reduce(self.acc_grads)
                 for p, acc in zip(params, self.acc_grads):
                     p.grad = acc
                 self.optimizer.step()
@@ -81,6 +87,8 @@ class TrainState:
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if reduce is not None:
+                reduce([p.grad for p in params])
             self.optimizer.step()
         if self.ema_params is not None:
             ema = list(self.ema_params.values())

@@ -138,20 +138,34 @@ def build_loss_fn(model: torch.nn.Module, loss, mode: str, log_para: float,
 
 def build_train_step(model: torch.nn.Module, loss, mode: str, log_para: float,
                      loss_fn: Optional[Callable] = None,
-                     con_weight: float = 10.0) -> Callable:
+                     con_weight: float = 10.0, sync=None) -> Callable:
     """Returns step(state, batch, generator, epoch=0) -> (state, metrics):
     gradients of the mode's loss, then ``state.apply_gradients()``: one
     optimizer update, or one micro step of an accumulation window, and
     the EMA (the state is updated in place and returned). The metrics are
     detached device tensors, so a step never waits for the card; read
-    them when needed (the trainer reads the loss once per epoch)."""
+    them when needed (the trainer reads the loss once per epoch).
+
+    ``sync`` (``parallel/mesh.py::DataParallel``) makes it a data-parallel
+    step: the gradients of an update are averaged over the ranks before the
+    optimizer steps, and ``sync.after_update()`` runs after it."""
     loss_fn = loss_fn or build_loss_fn(model, loss, mode, log_para, con_weight)
 
     def step(state: TrainState, batch: Dict[str, Any], generator, epoch: int = 0):
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(batch, generator, epoch)
         total.backward()
-        state.apply_gradients()
+        apply_update(state, sync)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def apply_update(state: TrainState, sync=None) -> None:
+    """``state.apply_gradients()``, with ``sync``'s all-reduce of the
+    update's gradients and its step afterwards where there is one."""
+    if sync is None:
+        state.apply_gradients()
+        return
+    state.apply_gradients(reduce=sync.reduce_gradients)
+    sync.after_update()

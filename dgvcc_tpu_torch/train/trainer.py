@@ -1,4 +1,5 @@
-"""Experiment trainer on one device, counterpart of dgvcc_tpu/train/trainer.py.
+"""Experiment trainer, counterpart of dgvcc_tpu/train/trainer.py: on one
+device, or data parallel over the ranks of a torchrun job.
 
 The reference's protocol (trainers/trainer.py:20, trainers/dgtrainer.py:27):
 epoch loop -> per-epoch scheduler step -> per-image validation (MAE
@@ -60,14 +61,37 @@ epochs finishes the epoch as usual; a stop inside one returns with
 ``last`` at epoch - 1, as it was when that epoch ended, so a resume redoes
 the stopped epoch exactly.
 
-Config keys of modules not ported raise with a pointer to ROADMAP.md
-(``UNPORTED_KEYS``, and ``mesh``).
+``mesh: {data: N}`` trains, validates and tests data parallel, one process
+a card under ``torchrun --nproc_per_node=N`` (``parallel/``; the JAX
+trainer's ``:102-166``, ``:288-348``, ``:406-423``, ``:615-638``,
+``:755-770``):
+  * the six whitening models are built with the data group (their batch
+    norms and SwitchWhitens average the batch statistics over the ranks);
+    the others average their running statistics after each step; the
+    gradients are averaged over the ranks (``parallel/mesh.py``);
+  * each rank loads and decodes its own rows of the global batch (with
+    ``device_aug``, draws of the whole batch, its own rows applied), and
+    draws its dropout from its own generator;
+  * validation and test share each image's tiles over the ranks
+    (``parallel/eval.py::ShardedTiledCounter``); every rank walks the whole
+    set and gets the same counts, and the ISW tracker's statistics are
+    averaged before the masks are set;
+  * a SIGTERM / SIGINT on any rank stops every rank at the same step (an
+    all-reduce MAX of the flag once a step);
+  * rank 0 alone writes log.txt, TensorBoard and the checkpoints (the JAX
+    pod writes from every process: ROADMAP.md, Queue 3); every rank loads
+    the checkpoint it resumes from, after a barrier.
+Outside torchrun, or with another number of ranks, ``mesh: {data: N}``
+raises. The mesh's ``model`` and ``spatial`` axes, and the JAX package's
+other config keys not ported, raise with a pointer to ROADMAP.md
+(``check_ported``, ``UNPORTED_KEYS``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import inspect
 import math
 import os
 import random
@@ -88,8 +112,12 @@ from dgvcc_tpu_torch.data.device_pipeline import augment_two_view_batch
 from dgvcc_tpu_torch.data.loader import build_loader
 from dgvcc_tpu_torch.nn.convert import install_pretrained
 from dgvcc_tpu_torch.ops.tiling import TiledCounter, tile_image
+from dgvcc_tpu_torch.parallel import mesh as dp_mesh
+from dgvcc_tpu_torch.parallel.multihost import (allgather_mean, initialize_distributed,
+                                                node_layout, rank_card)
 from dgvcc_tpu_torch.serve import resolve_device
-from dgvcc_tpu_torch.train.checkpoint import AsyncWriter, CheckpointRotator, load_checkpoint
+from dgvcc_tpu_torch.train.checkpoint import (AsyncWriter, CheckpointRotator, load_checkpoint,
+                                              wait_for_rank0)
 from dgvcc_tpu_torch.train.state import create_train_state
 from dgvcc_tpu_torch.train.steps import build_train_step
 from dgvcc_tpu_torch.utils.misc import (AverageMeter, DictAvgMeter, denormalize,
@@ -109,6 +137,8 @@ BATCH_KEYS = ("img1", "img2", "dmap", "bmap")
 POINT_KEYS = ("points", "pt_mask", "targets", "st_sizes")
 # the draws of device_aug: a stream apart from the dropout draws
 AUG_STREAM = 7_919_000_003
+# data parallel: rank r's dropout draws come from stream r * RANK_STREAM
+RANK_STREAM = 104_729_000_017
 
 
 def config_device(cfg: Config, override: Optional[str] = None) -> str:
@@ -120,16 +150,29 @@ def config_device(cfg: Config, override: Optional[str] = None) -> str:
     return dev if dev.startswith("cuda") else "cuda"
 
 
+def mesh_size(cfg: Config, axis: str) -> int:
+    return int((cfg.mesh or {}).get(axis, 1))
+
+
 def check_ported(cfg: Config):
-    """Raise on what the config asks of modules the port does not have."""
+    """Raise on what the config asks of modules the port does not have, and
+    on the mesh combinations the JAX trainer refuses (its ``:115-148``)."""
     for key, where in UNPORTED_KEYS.items():
         if cfg.extra.get(key):
             raise NotImplementedError(f"config key {key!r} is not ported to "
                                       f"dgvcc_tpu_torch yet; see ROADMAP.md, {where}")
-    if any(int(v) > 1 for v in (cfg.mesh or {}).values()):
-        raise NotImplementedError("config key 'mesh' (multi-device training, mode joint's "
-                                  "too) is not ported to dgvcc_tpu_torch yet; see "
-                                  "ROADMAP.md, Queue 1 item 1")
+    dp, mp, sp = (mesh_size(cfg, a) for a in ("data", "model", "spatial"))
+    if sp > 1 and (dp > 1 or mp > 1):
+        raise ValueError("mesh: {spatial: N} does not compose with data/model axes — "
+                         "spatial is for samples too large for one chip")
+    for axis, n in (("spatial", sp), ("model", mp)):
+        if n > 1 and cfg.mode == "joint":
+            raise ValueError(f"mesh: {{{axis}: {n}}} is not supported for joint mode")
+    if mp > 1 or sp > 1:
+        raise NotImplementedError("config key 'mesh' with a model or spatial axis (the bank "
+                                  "sharded over a 2-D mesh, crop height sharding) is not "
+                                  "ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 "
+                                  "item 1")
 
 
 def eval_patch_size(cfg: Config) -> int:
@@ -175,18 +218,35 @@ class DGTrainer:
     def __init__(self, cfg: Config, device: Optional[str] = None):
         check_ported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device or config_device(cfg))
+        device = str(device or config_device(cfg))
+        # `mesh: {data: N}`: the data group of a torchrun job (joined here
+        # from torchrun's environment unless the caller joined it), and this
+        # rank's card; `host` carries the flags and numpy statistics
+        self.dp = mesh_size(cfg, "data")
+        self.group = self.host = self.layout = None
+        if self.dp > 1:
+            initialize_distributed(device=device)
+            self.group = dp_mesh.make_mesh(self.dp)
+            self.host = dp_mesh.host_group()
+            self.layout = node_layout()
+            if not device.startswith("cpu"):
+                device = f"cuda:{rank_card(self.layout.local_rank)}"
+        self.main = self.layout is None or self.layout.rank == 0
+        self.device = resolve_device(device)
         seed_everything(cfg.seed)
         self.log_dir = os.path.join(cfg.log_dir, cfg.version)
-        self.logger = RunLogger(self.log_dir)
+        self.logger = RunLogger(self.log_dir, write=self.main)
         # `async_save: true`: the epoch loop pays a clone on the card, a
         # background thread the host copy and the disk
-        self.ckpt_writer = AsyncWriter() if cfg.extra.get("async_save") else None
-        self.rotator = CheckpointRotator(self.log_dir, writer=self.ckpt_writer)
+        self.ckpt_writer = (AsyncWriter() if cfg.extra.get("async_save") and self.main
+                            else None)
+        self.rotator = CheckpointRotator(self.log_dir, writer=self.ckpt_writer,
+                                         write=self.main)
         # `tensorboard: true` adds TB scalars under {log_dir}/tb, additive to
         # log.txt; a no-op (and no extra readback) when off
         self.tb = ScalarWriter(os.path.join(self.log_dir, "tb"),
-                               enabled=bool(cfg.extra.get("tensorboard")), warn=self.log)
+                               enabled=bool(cfg.extra.get("tensorboard")) and self.main,
+                               warn=self.log)
         self.mode = cfg.mode
         self.log_para = float(cfg.log_para)
         self.patch_size = cfg.patch_size
@@ -227,6 +287,12 @@ class DGTrainer:
                             and cfg.model["name"] not in ("reg_mem", "reg")):
             self.model = MODELS.build("reg_mem", dtype=dtype)
         else:
+            # data parallel: the models with a `process_group` (the JAX
+            # models with an `axis_name` field: the six whitening models)
+            # average their batch statistics over the ranks in the forward
+            target = inspect.signature(MODELS.get(cfg.model["name"])).parameters
+            if self.group is not None and "process_group" in target:
+                params.setdefault("process_group", self.group)
             self.model = MODELS.build(cfg.model["name"], dtype=dtype, **params)
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
         self.loss = LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
@@ -247,7 +313,7 @@ class DGTrainer:
                 self._train_crop = int(spec.get("params", {}).get("crop_size", 320))
                 ds = RawCropDataset(ds, pre_crop=self._train_crop + 64)
             self.loaders[split] = build_loader(ds, getattr(cfg, f"{split}_loader") or {},
-                                               seed=cfg.seed)
+                                               seed=cfg.seed, layout=self.layout)
             # process workers fork before the model reaches the card
             self.loaders[split].start()
 
@@ -267,22 +333,32 @@ class DGTrainer:
             self.log(f"EMA enabled: decay {ema} per optimizer update (validation, test "
                      "and vis use the averaged weights)")
         self.scheduler = self.state.scheduler
+        # the 'nocon' ablation zeroes the final-mode consistency weight
+        con_weight = 0.0 if cfg.extra.get("no_consistency") else 10.0
+        if self.joint:
+            from dgvcc_tpu_torch.train.genjoint import build_joint_step
+
+            if self.group is not None:
+                self.joint_step = dp_mesh.build_parallel_joint_step(
+                    self.gen_model, self.model, self.loss, self.log_para, self.group)
+                self.log(f"Joint data parallel over {self.dp} devices")
+            else:
+                self.joint_step = build_joint_step(self.gen_model, self.model, self.loss,
+                                                   self.log_para)
+        elif self.group is not None:
+            self.train_step = dp_mesh.build_parallel_train_step(
+                self.model, self.loss, self.mode, self.log_para, self.group,
+                con_weight=con_weight)
+            self.log(f"Data parallel over {self.dp} devices")
+        else:
+            self.train_step = build_train_step(self.model, self.loss, self.mode,
+                                               self.log_para, con_weight=con_weight)
         # pretrained ImageNet backbones, `pretrained_weights: {vgg16_bn: path}`
         weights = cfg.extra.get("pretrained_weights")
         if weights and cfg.model.get("params", {}).get("pretrained", True):
             desc = install_pretrained(self.model, cfg.model["name"], weights)
             self.state.seed_ema()
             self.log(f"Loaded pretrained backbone: {desc}")
-        # the 'nocon' ablation zeroes the final-mode consistency weight
-        con_weight = 0.0 if cfg.extra.get("no_consistency") else 10.0
-        if self.joint:
-            from dgvcc_tpu_torch.train.genjoint import build_joint_step
-
-            self.joint_step = build_joint_step(self.gen_model, self.model, self.loss,
-                                               self.log_para)
-        else:
-            self.train_step = build_train_step(self.model, self.loss, self.mode,
-                                               self.log_para, con_weight=con_weight)
         # the DGTrainer's models tile at the config's patch_size
         # (dgtrainer.py:71-84), the BaseTrainer's at 800 px
         self.eval_patch_size = eval_patch_size(cfg)
@@ -290,8 +366,15 @@ class DGTrainer:
             # the console only: log.txt keeps the JAX trainer's lines
             print(f"[eval] validation and test on tiles of {self.eval_patch_size} px "
                   f"(patch_size {self.patch_size})", flush=True)
-        self.counter = TiledCounter(self.model, self.log_para, self.eval_patch_size,
-                                    device=self.device)
+        if self.group is not None:
+            from dgvcc_tpu_torch.parallel.eval import ShardedTiledCounter
+
+            self.counter = ShardedTiledCounter(self.model, self.log_para,
+                                               self.eval_patch_size, self.group,
+                                               device=self.device)
+        else:
+            self.counter = TiledCounter(self.model, self.log_para, self.eval_patch_size,
+                                        device=self.device)
         # ISW's two-pass covariance protocol (dgtrainer.py:86-102)
         self.isw_tracker = None
         if self.mode == "isw":
@@ -303,8 +386,9 @@ class DGTrainer:
         self._built = True
 
     def _epoch_generator(self, epoch: int, stream: int = 0) -> torch.Generator:
-        """Dropout draws (stream 0) or augmentation draws (AUG_STREAM) of
-        one epoch, seeded from (seed, epoch)."""
+        """Dropout draws (stream 0; data parallel, rank r's stream r *
+        RANK_STREAM) or augmentation draws (AUG_STREAM, the same on every
+        rank) of one epoch, seeded from (seed, epoch)."""
         g = torch.Generator(device=self.device)
         return g.manual_seed((self.cfg.seed * 1_000_003 + epoch + 1 + stream) % (2**63))
 
@@ -325,10 +409,18 @@ class DGTrainer:
 
     def _train_batch(self, batch, aug_generator):
         if self.device_aug:
+            shard = self.layout and (self.layout.local_rank, self.layout.local_world)
             return augment_two_view_batch(self._upload(batch["frames_u8"]),
                                           self._upload(batch["dmaps"]), aug_generator,
-                                          self._train_crop)
+                                          self._train_crop, shard=shard or None)
         return self._to_device(batch)
+
+    def _stop_requested(self) -> bool:
+        """The preemption flag; data parallel, set on any rank (every rank
+        then stops at the same step, none waits in a collective)."""
+        if self.host is not None:
+            self._preempted = dp_mesh.any_rank(self._preempted, self.host)
+        return self._preempted
 
     # ---- checkpoints -----------------------------------------------------
 
@@ -341,6 +433,9 @@ class DGTrainer:
         unexpected or mis-shaped weight."""
         if path is None:
             return
+        if self.host is not None:
+            # the file may be rank 0's newest save
+            wait_for_rank0(self.rotator, self.host)
         gen_path = None
         if isinstance(path, (list, tuple)):
             if not 1 <= len(path) <= 2:
@@ -416,7 +511,7 @@ class DGTrainer:
     @contextlib.contextmanager
     def _profiling(self, epoch: int):
         """`profile_epoch: N`: a torch.profiler trace of epoch N's train loop
-        under {log_dir}/trace."""
+        under {log_dir}/trace (data parallel: one a rank)."""
         target = self.cfg.extra.get("profile_epoch")
         if target is None or int(target) != epoch:
             yield
@@ -429,7 +524,8 @@ class DGTrainer:
         self.log(f"[profiler] tracing epoch {epoch} -> {trace_dir}")
         with torch.profiler.profile(activities=activities) as prof:
             yield
-        prof.export_chrome_trace(os.path.join(trace_dir, f"epoch{epoch}.pt.trace.json"))
+        rank = f".rank{self.layout.rank}" if self.layout else ""
+        prof.export_chrome_trace(os.path.join(trace_dir, f"epoch{epoch}{rank}.pt.trace.json"))
 
     def train_epoch(self, epoch: int, best_criterion: float, best_epoch: int):
         start = time.time()
@@ -438,7 +534,8 @@ class DGTrainer:
             self.state.set_learning_rate(self.scheduler.current_lr)
             if self.joint:
                 self.gen_state.set_learning_rate(self.scheduler.current_lr)
-        generator = self._epoch_generator(epoch)
+        rank = self.layout.rank if self.layout else 0
+        generator = self._epoch_generator(epoch, rank * RANK_STREAM)
         aug_generator = self._epoch_generator(epoch, AUG_STREAM) if self.device_aug else None
         train_loader = self.loaders["train"]
         train_loader.set_epoch(epoch)
@@ -447,7 +544,7 @@ class DGTrainer:
         with self._profiling(epoch):
             for i, batch in enumerate(self._progress(train_loader,
                                                      f"Epoch {epoch}: Training...")):
-                if self._preempted:
+                if self._stop_requested():
                     self._stop_mid_epoch(epoch, i, best_criterion)
                     return best_criterion, best_epoch
                 batch = self._train_batch(batch, aug_generator)
@@ -457,6 +554,8 @@ class DGTrainer:
                         self.gen_state, self.state, batch, generator, epoch)
                 else:
                     self.state, metrics = self.train_step(self.state, batch, generator, epoch)
+        if self.group is not None and metrics is not None:
+            metrics = dp_mesh.average_metrics(metrics, self.group)
         # the loss is read back once per epoch: a per-batch read would
         # wait for the card every step
         train_loss = float(metrics["loss_total"]) if metrics is not None else float("nan")
@@ -535,7 +634,7 @@ class DGTrainer:
             self.log(f"Epoch {epoch}: Val criterion: {crit.avg:.4f}", end=" ")
             self.log(f"best: {best_criterion:.4f}, time: {time.time() - start:.4f}")
             self._last_val_extra = {}
-            return crit.avg
+            return self._agreed(crit.avg)
         with self.state.ema_weights():
             for sample in self._progress(self.loaders["val"],
                                          f"Epoch {epoch}: Validating..."):
@@ -546,13 +645,31 @@ class DGTrainer:
                 crit.update(abs(pred - gt_count))
                 extra.update({"mse": (pred - gt_count) ** 2})
         if self.isw_tracker is not None and self.isw_tracker.has_stats():
+            if self.host is not None:
+                # every rank gathered the whole set: the mean gives every
+                # rank the same bits, hence the same masks
+                merged = allgather_mean({"var": self.isw_tracker.var,
+                                         "count": np.float64(self.isw_tracker.count)},
+                                        self.host)
+                self.isw_tracker.var = list(merged["var"])
+                self.isw_tracker.count = float(merged["count"])
             self.isw_tracker.set_mask_matrix()
         self.log(f"Epoch {epoch}: Val criterion: {crit.avg:.4f}", end=" ")
         for k, v in extra.avg.items():
             self.log(f"{k}: {v:.4f}", end=" ")
         self.log(f"best: {best_criterion:.4f}, time: {time.time() - start:.4f}")
         self._last_val_extra = dict(extra.avg)
-        return crit.avg
+        return self._agreed(crit.avg)
+
+    def _agreed(self, value: float) -> float:
+        """Rank 0's value on every rank (data parallel), so that the best
+        epoch, the test after it and the early stop agree."""
+        return value if self.host is None else dp_mesh.broadcast_float(value, self.host)
+
+    def _one_process(self, task: str):
+        if self.group is not None:
+            raise NotImplementedError(f"{task} runs in one process on one card: drop mesh: "
+                                      f"{{data: {self.dp}}} from the config for it")
 
     def _early_stop(self, epoch: int, best_epoch: int, best_criterion: float) -> bool:
         """`early_stop: N`: stop when the val criterion has not improved for
@@ -585,7 +702,7 @@ class DGTrainer:
                 for epoch in range(start_epoch, num_epochs or self.cfg.num_epochs):
                     best_criterion, best_epoch = self.train_epoch(epoch, best_criterion,
                                                                   best_epoch)
-                    if self._preempted:
+                    if self._stop_requested():
                         self.log(f"Preemption: stopped in or after epoch {epoch}; "
                                  "resume from last.pth")
                         break
@@ -653,7 +770,7 @@ class DGTrainer:
                 gt_count = float(len(sample["gt"]))
                 meter.update({"mae": abs(pred - gt_count), "mse": (pred - gt_count) ** 2})
                 rows.append((str(sample.get("name", i)), gt_count, pred))
-        if self.cfg.extra.get("test_report"):
+        if self.cfg.extra.get("test_report") and self.main:
             self._test_report(rows)
         self.log("Testing results:", end=" ")
         for k, v in meter.avg.items():
@@ -716,6 +833,7 @@ class DGTrainer:
         """Per test image: the image, its density map and count for both
         views (and the classifier maps of a cls model), as PNGs under
         {log_dir}/vis."""
+        self._one_process("--task vis")
         self.build()
         import matplotlib
 
@@ -772,6 +890,7 @@ class DGTrainer:
         photometric transform, seeded ``gen:{seed}:{index}``, padded to
         multiples of 16, then cropped back, denormalised and clipped. The
         datasets alias such names to their source's points (gen_root)."""
+        self._one_process("--task generate")
         self.build()
         from PIL import Image
 

@@ -631,3 +631,125 @@ def test_bayesian_loss_on_the_card_matches_the_cpu(cuda):
         out[dev] = (loss.detach().cpu(), p.grad.float().cpu())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=0)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=1e-6)
+
+
+# ---- data parallel on the card: ranks spawned by parallel/launch.py (gloo
+# on cuda:0 with one card, NCCL with a card a rank on two or more), held at
+# chip_smoke.py phase 12's tolerances: loss 1e-3, gradients 1e-2 in relative
+# norm, statistics 1e-3
+
+DP_TINY = dict(vgg_cfg=(8, "M", 8, "M", 16, "M", 16, "M"), stage_splits=(0, 8, 12, 16),
+               dec_widths=((16, 16), (16, 16), (16, 8)), mem_size=16, mem_dim=16,
+               den_dropout=0.0, cls_dropout=0.0, err_thrs=1e9, cls_thrs=-1.0)
+DP_SGD = {"name": "sgd", "params": {"lr": 0.01}}
+
+
+def _dp_model(device):
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.registry import MODELS
+    from dgvcc_tpu_torch.train.state import create_train_state
+
+    m = MODELS.build("final", **DP_TINY)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    return create_train_state(m, DP_SGD, device=device)
+
+
+def _dp_inputs():
+    g = torch.Generator().manual_seed(5)
+    img1 = torch.randn(4, 3, 64, 64, generator=g)
+    return {"x": torch.randn(4, 8, 6, 6, generator=g) + 0.3,
+            "w": torch.randn(4, 8, 6, 6, generator=g),
+            "batch": {"img1": img1, "img2": img1 + 0.1 * torch.randn(4, 3, 64, 64, generator=g),
+                      "dmap": torch.rand(4, 1, 64, 64, generator=g) * 2e-3,
+                      "bmap": (torch.rand(4, 1, 4, 4, generator=g) > 0.5).float()}}
+
+
+def _dp_card_rank(rank, workdir):
+    import os
+
+    import torch.distributed as dist
+
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    from dgvcc_tpu_torch.core.registry import LOSSES
+    from dgvcc_tpu_torch.nn.layers import BatchNorm2d
+    from dgvcc_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    world = dist.get_world_size()
+    group = mesh.make_mesh(world)
+    inp = _dp_inputs()
+    rows = mesh.shard_rows(4, rank, world)
+    bn = BatchNorm2d(8).to(dev)
+    bn.process_group = group
+    x = inp["x"][rows].to(dev).requires_grad_()
+    y = bn(x)
+    (y * inp["w"][rows].to(dev)).sum().backward()
+    out = {"bn": (y.detach().cpu(), x.grad.cpu(), bn.running_mean.cpu(), bn.running_var.cpu())}
+    state = _dp_model(dev)
+    step = mesh.build_parallel_train_step(state.model, LOSSES.build("mse"), "final", 1000.0,
+                                          group)
+    before = mt.FWD_LAUNCHES, mt.BWD_LAUNCHES
+    batch = mesh.shard_batch({k: v.to(dev) for k, v in inp["batch"].items()}, rank, world)
+    _, metrics = step(state, batch, None, 0)
+    out["launches"] = (mt.FWD_LAUNCHES - before[0], mt.BWD_LAUNCHES - before[1])
+    out["metrics"] = {k: float(v) for k, v in mesh.average_metrics(metrics, group).items()}
+    out["grads"] = {n: p.grad.float().cpu() for n, p in state.model.named_parameters()}
+    out["stats"] = {n: b.float().cpu() for n, b in state.model.named_buffers()
+                    if "running" in n}
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def test_data_parallel_on_two_ranks_matches_the_full_batch_and_the_halves(cuda, tmp_path):
+    """2 ranks: the synced BatchNorm2d against nn.BatchNorm2d on the whole
+    batch; a tiny `final`'s DP step (kernels #2, #3 on each rank) against
+    its two halves run in turn here from the same weights, averaged."""
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    from dgvcc_tpu_torch.core.registry import LOSSES
+    from dgvcc_tpu_torch.parallel.launch import run_ranks
+    from dgvcc_tpu_torch.train.steps import build_loss_fn
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    run_ranks(_dp_card_rank, 2, (str(tmp_path),), init_file=str(tmp_path / "init"),
+              backend=backend, timeout=300)
+    got = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    inp = _dp_inputs()
+    bn = torch.nn.BatchNorm2d(8).to(cuda)
+    x = inp["x"].to(cuda).requires_grad_()
+    y = bn(x)
+    (y * inp["w"].to(cuda)).sum().backward()
+    y_dp = torch.cat([g["bn"][0] for g in got])
+    dx_dp = torch.cat([g["bn"][1] for g in got])
+    for a, b in ((y_dp, y), (dx_dp, x.grad), (got[0]["bn"][2], bn.running_mean),
+                 (got[0]["bn"][3], bn.running_var)):
+        assert (a - b.detach().cpu()).abs().max() <= 1e-3 * b.abs().max()
+
+    state = _dp_model(cuda)
+    loss_fn = build_loss_fn(state.model, LOSSES.build("mse"), "final", 1000.0)
+    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    halves = []
+    for r in range(2):
+        state.model.load_state_dict(start)
+        state.model.zero_grad(set_to_none=True)
+        total, metrics = loss_fn({k: v[2 * r:2 * r + 2].to(cuda)
+                                  for k, v in inp["batch"].items()}, None, 0)
+        total.backward()
+        halves.append(({k: float(v.detach()) for k, v in metrics.items()},
+                       {n: p.grad.float().cpu() for n, p in state.model.named_parameters()},
+                       {n: b.float().cpu() for n, b in state.model.named_buffers()
+                        if "running" in n}))
+    for g in got:
+        assert g["launches"] == (1, 1)
+    for k, v in got[0]["metrics"].items():
+        want = (halves[0][0][k] + halves[1][0][k]) / 2
+        assert abs(v - want) <= 1e-3 * max(abs(want), 1e-6), k
+    num = sum(float((got[0]["grads"][n] - (halves[0][1][n] + halves[1][1][n]) / 2).norm() ** 2)
+              for n in halves[0][1])
+    den = sum(float(((halves[0][1][n] + halves[1][1][n]) / 2).norm() ** 2) for n in halves[0][1])
+    assert (num / den) ** 0.5 <= 1e-2
+    for n, b in got[0]["stats"].items():
+        want = (halves[0][2][n] + halves[1][2][n]) / 2
+        assert (b - want).abs().max() <= 1e-3 * want.abs().max(), n
+        assert torch.equal(b, got[1]["stats"][n])

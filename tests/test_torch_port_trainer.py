@@ -252,7 +252,7 @@ def test_checkpoint_load_is_nonstrict_unless_asked(root, tmp_path):
 
 @pytest.mark.parametrize("key,value", [
     *((k, 1 if k != "ema" else 0.999) for k in ptrainer.UNPORTED_KEYS),
-    ("mesh", {"data": 2}), ("mesh", {"model": 2})])
+    ("mesh", {"spatial": 2}), ("mesh", {"model": 2})])
 def test_unported_config_keys_raise(root, tmp_path, key, value):
     cfg = _cfg(root, tmp_path, "x")
     cfg[key] = value

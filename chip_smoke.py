@@ -32,9 +32,9 @@ Phases, each of which exits non-zero on failure:
    frames by count_frames (B=4) and stream (4 batches of 16), a
    1080x1920 batch through bucket padding and through 2x3 tiles of 768.
    Every path must launch the kernel and agree with the same counter on
-   the einsum path (fused_mem=False). Then the command line,
-   ``python -m dgvcc_tpu_torch --task serve`` with configs/sta_final.yml,
-   counts four JPEG frames;
+   the einsum path (fused_mem=False). Then the command line's ``main``
+   (``python -m dgvcc_tpu_torch --task serve``, in process) with
+   configs/sta_final.yml counts four JPEG frames;
    The density-map kernel (#4) against its plain version, and a second
    call bit for bit, at DMAP_CHECKS: 768x1024 with 1024 points uniform and
    with points on every border, outside the image, in (-1, 0) and masked
@@ -90,8 +90,8 @@ Phases, each of which exits non-zero on failure:
    ``DGTrainer.train_and_test`` with configs/baselines/sta_isw.yml on phase
    6's files for 2 epochs: masks after epoch 0's validation, the JAX
    trainer's log lines, ``last`` / ``best_*``, ``--task test`` from best_*
-   on the command line against the in-process MAE, and VideoCounter
-   serving best_*;
+   through the command line's ``main`` in process against the in-process
+   MAE, and VideoCounter serving best_*;
 9. HTTP serving and the fleet (``final``, bf16): a CountingServer over
    phase 3's counter (max batch 16, window 5 ms) takes 64 distinct
    768x1024 JPEGs (quality 90) from 1, 4 and 16 concurrent clients
@@ -114,9 +114,9 @@ Phases, each of which exits non-zero on failure:
    twin), frames/s, and reg_mem's bank through kernel #1 against the
    einsum path (2e-2), once per forward; then DGTrainer.train_and_test on
    phase 6's files: sta_reg_base.yml for 2 epochs (800-px tiles, a test
-   after each epoch, ``--task test`` on the command line within 1e-3 of the
-   in-process MAE) and sta_reg.yml for 1 epoch (finite losses, #1 in every
-   validation and test forward);
+   after each epoch, ``--task test`` through the command line's ``main`` in
+   process within 1e-3 of the trainer's MAE) and sta_reg.yml for 1 epoch
+   (finite losses, #1 in every validation and test forward);
 11. the generator and the classic baselines (no kernel of their own; #1
    runs in the joint run's evaluation): at full width, seeded, bf16 with f32
    AdamW, on a repeated batch of 320^2 crops, ten steps of each of gen in
@@ -131,9 +131,10 @@ Phases, each of which exits non-zero on failure:
    2e-2 of the map's mass, 5e-2 for dssinet, whose untrained bf16 drifts so
    in the JAX package too), frames/s; then on phase 6's files:
    sta_bl.yml train_and_test for 2 epochs (bay crops, the loss's stride left
-   to the prediction), ``--task test`` on the command line within 1e-3 of
-   the in-process MAE; sta_gen.yml for 1 epoch, then ``--task generate`` on
-   the command line writes one ``_a.jpg`` per train image; sta_joint.yml for
+   to the prediction), ``--task test`` through the command line's ``main``
+   in process within 1e-3 of the trainer's MAE; sta_gen.yml for 1 epoch,
+   then ``--task generate`` the same way writes one ``_a.jpg`` per train
+   image; sta_joint.yml for
    1 epoch (``last_gen`` / ``last_reg``), then ``--task test`` from that pair
    (the command line's ``main``, in process) launches #1 once per test
    image;
@@ -167,7 +168,7 @@ Phases, each of which exits non-zero on failure:
    1e-4; at the config's thresholds, the error-mask and classifier-gate
    elements that flip shown) and in bf16 at the config's B=4 of 1024^2
    (loss parts 1e-2; gradients shown against 5e-2, not held: see TOL_SP;
-   the flipped elements shown); ten more bf16 steps: finite, falling, the
+   the flipped elements shown); three more bf16 steps: finite, falling, the
    ranks' checksums equal, #2 / #3 once a step on each rank; ms/step and
    the halo exchanges' share, peak memory a rank against one process's. Then sta_final.yml with ``mesh: {data: 2,
    model: 2}`` on 4 ranks: step 1 against the 1-D ``{data: 2}`` step over
@@ -180,8 +181,27 @@ Phases, each of which exits non-zero on failure:
    validation and test image) and sta_final.yml with the 2-D mesh over 4
    ranks on phase 6's files in f32 under ``exact_f32``: log.txt written once
    with its mesh line, the test MAE within 1e-4 of one fresh process's
-   ``--task test`` of the same ``last.pth``.
+   ``--task test`` of the same ``last.pth``;
+14. int8 serving (``nn/quant.py``, ``ops/qconv.py``; the int8 convolution
+   ``csrc/qconv.cu``, a kernel that replaces XLA's int8 convolution, no
+   ``pl.pallas_call``): full-width `final` (seed 0, bf16) folded,
+   calibrated on 8 seeded 768x1024 frames and quantized (21 int8 sites);
+   the kernel against its plain version at every int8 site of a B=1
+   768x1024 forward (its real inputs) and at QCONV_EDGES (Cin 3, 16, 67,
+   Cout 1, 67, odd H / W, 1x1, dilation 2): int32 accumulators and outputs
+   bit for bit; ``count_frames`` at B=1, 4, 16 and ``stream`` against the
+   bf16 path (max(2e-2, 1.5 x the JAX package's own int8 drift) of the map's
+   mass, INT8_DRIFT), the weight-only graph likewise; #1 and the int8 kernel
+   launched; ``--task quantize`` on phase 6's JPEGs (in the background),
+   then ``--task serve --artifact`` in a fresh process against the
+   in-process int8 counter (1e-3), an HTTP burst of 4 clients on the
+   artifact (``/stats`` dispatch_int8 > 0); csrnet, bl, sasnet and dssinet
+   int8 at B=4 against bf16 (the same gate rule) and mcnn with no int8
+   site; frames/s int8 against bf16 at B=1, 4, 16 in turns; the device time
+   of the int8 sites of a B=4 forward against cuDNN's bf16 convolution at
+   the same shapes, and the three heaviest sites against their bound.
 
+Each phase's seconds and the total are printed before the result lines.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repo, the script exits non-zero and prints no result.
@@ -291,6 +311,14 @@ def log(msg):
 def fail(msg):
     print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+PHASE_S = {}  # each phase's seconds, printed before the result lines
+
+
+def phase_done(label, t0):
+    """Record phase ``label``'s seconds since ``t0``."""
+    PHASE_S[label] = time.perf_counter() - t0
 
 
 def card():
@@ -1659,8 +1687,8 @@ def train_whitening(gpu):
 def isw_file_run(tmp, gpu):
     """DGTrainer.train_and_test with configs/baselines/sta_isw.yml on phase
     6's files for 2 epochs: masks after epoch 0's validation, the JAX
-    trainer's log lines, last / best_*, ``--task test`` from best_* on the
-    command line, and a counter serving best_*."""
+    trainer's log lines, last / best_*, ``--task test`` from best_* through
+    the command line's ``main``, and a counter serving best_*."""
     import glob
 
     import yaml
@@ -1711,12 +1739,8 @@ def isw_file_run(tmp, gpu):
     if len(best) != 1 or not os.path.exists(last):
         fail(f"[sta_isw.yml] checkpoints missing: last {os.path.exists(last)}, best {best}")
     want = trainer.test(checkpoint=best[0])
-    out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", "--config", cfg_path,
-                          "--task", "test", "--ckpt", best[0]], capture_output=True,
-                         text=True, timeout=300, cwd=ROOT)
-    if out.returncode:
-        fail(f"[sta_isw.yml] CLI test exited {out.returncode}:\n{out.stderr[-3000:]}")
-    line = [ln for ln in out.stdout.splitlines() if ln.startswith("Testing results:")]
+    out = cli_in_process(["--config", cfg_path, "--task", "test", "--ckpt", best[0]])
+    line = [ln for ln in out.splitlines() if ln.startswith("Testing results:")]
     got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
     log(f"[sta_isw.yml] CLI --task test {os.path.basename(best[0])}: "
         f"{line[-1] if line else None}; in process: mae {want['mae']:.4f}")
@@ -1786,9 +1810,10 @@ def check_counts(name, got, want, want_label="einsum path"):
 
 
 def check_cli(frames, VideoCounter):
-    """The serve task of the command line on JPEG frames (sta_final.yml:
-    seed 2112, bf16, the kernel path by default), against a counter with
-    the same seeded weights on the same decoded frames."""
+    """The serve task of the command line (its ``main``, in this process) on
+    JPEG frames (sta_final.yml: seed 2112, bf16, the kernel path by
+    default), against a counter with the same seeded weights on the same
+    decoded frames."""
     import tempfile
 
     from PIL import Image
@@ -1799,15 +1824,12 @@ def check_cli(frames, VideoCounter):
         decoded = np.stack([np.asarray(Image.open(os.path.join(tmp, f"frame{i}.jpg"))
                                        .convert("RGB")) for i in range(len(frames))])
         t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "dgvcc_tpu_torch", "--config",
-             os.path.join(ROOT, "configs", "sta_final.yml"), "--task", "serve",
-             "--frames", tmp, "--batch", str(len(frames))],
-            capture_output=True, text=True, timeout=300, cwd=ROOT)
-    if out.returncode:
-        fail(f"CLI serve exited {out.returncode}:\n{out.stderr[-3000:]}")
-    lines = out.stdout.strip().splitlines()
-    log(f"CLI serve ({time.perf_counter() - t0:.1f}s with start-up): {lines[-1]}")
+        out = cli_in_process(["--config", os.path.join(ROOT, "configs", "sta_final.yml"),
+                              "--task", "serve", "--frames", tmp, "--batch",
+                              str(len(frames))])
+    lines = out.strip().splitlines()
+    log(f"CLI serve (the command line's main, {time.perf_counter() - t0:.1f}s; phase 14 "
+        f"serves from a fresh process): {lines[-1]}")
     counts = np.array([float(ln.split()[1]) for ln in lines[:-1]])
     if len(counts) != len(frames):
         fail(f"CLI serve printed {len(counts)} counts for {len(frames)} frames")
@@ -2196,11 +2218,24 @@ class _Tee(io.StringIO):
         return super().write(s)
 
 
+def cli_in_process(args):
+    """The command line's ``main`` on ``args`` in this process, its standard
+    output. Phase 6's ``--task test`` and phase 14's ``--task serve
+    --artifact`` run in fresh processes; the other command-line tasks run
+    here, without a process start-up each."""
+    from dgvcc_tpu_torch.cli.main import main as cli_main
+
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        cli_main(args)
+    return tee.getvalue()
+
+
 def regressor_file_runs(ma, mt, tmp, gpu):
     """DGTrainer.train_and_test on phase 6's files: sta_reg_base.yml (dgnet)
-    for 2 epochs (800-px tiles, a test after each epoch, --task test on the
-    command line against the in-process MAE), then sta_reg.yml (reg_mem,
-    regression) for 1 epoch (#1 in validation and test)."""
+    for 2 epochs (800-px tiles, a test after each epoch, --task test through
+    the command line's main against the trainer's MAE), then sta_reg.yml
+    (reg_mem, regression) for 1 epoch (#1 in validation and test)."""
     import yaml
 
     from dgvcc_tpu_torch.core.config import Config
@@ -2241,12 +2276,8 @@ def regressor_file_runs(ma, mt, tmp, gpu):
             fail(f"[sta_reg_base.yml] log.txt line not of the JAX trainer's shapes: {line!r}")
     last = os.path.join(trainer.log_dir, "last.pth")
     want = trainer.test(checkpoint=last)
-    out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", "--config", cfg_path,
-                          "--task", "test", "--ckpt", last], capture_output=True,
-                         text=True, timeout=300, cwd=ROOT)
-    if out.returncode:
-        fail(f"[sta_reg_base.yml] CLI test exited {out.returncode}:\n{out.stderr[-3000:]}")
-    line = [ln for ln in out.stdout.splitlines() if ln.startswith("Testing results:")]
+    out = cli_in_process(["--config", cfg_path, "--task", "test", "--ckpt", last])
+    line = [ln for ln in out.splitlines() if ln.startswith("Testing results:")]
     got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
     log(f"[sta_reg_base.yml] CLI --task test last.pth: {line[-1] if line else None}; in "
         f"process: mae {want['mae']:.4f}")
@@ -2449,15 +2480,6 @@ def phase_config(tmp, name, epochs, edit=None):
     return raw, path
 
 
-def cli(args, what):
-    """``python -m dgvcc_tpu_torch`` with ``args``; its standard output."""
-    out = subprocess.run([sys.executable, "-m", "dgvcc_tpu_torch", *args], capture_output=True,
-                         text=True, timeout=600, cwd=ROOT)
-    if out.returncode:
-        fail(f"{what}: the command line exited {out.returncode}:\n{out.stderr[-3000:]}")
-    return out.stdout
-
-
 def generator_file_runs(ma, mt, tmp, gpu):
     """sta_bl.yml (2 epochs, the implied stride, CLI --task test), sta_gen.yml
     (1 epoch, CLI --task generate) and sta_joint.yml (1 epoch, --task test from
@@ -2485,8 +2507,8 @@ def generator_file_runs(ma, mt, tmp, gpu):
         fail("[sta_bl.yml] not one finite loss and test block after each epoch")
     last = os.path.join(trainer.log_dir, "last.pth")
     want = trainer.test(checkpoint=last)
-    line = [ln for ln in cli(["--config", cfg_path, "--task", "test", "--ckpt", last],
-                             "[sta_bl.yml] --task test").splitlines()
+    line = [ln for ln in cli_in_process(["--config", cfg_path, "--task", "test", "--ckpt",
+                                         last]).splitlines()
             if ln.startswith("Testing results:")]
     got = dict(re.findall(r"(\w+): ([\d.]+)", line[-1])) if line else {}
     log(f"[sta_bl.yml] CLI --task test last.pth: {line[-1] if line else None}; in process: "
@@ -2508,12 +2530,12 @@ def generator_file_runs(ma, mt, tmp, gpu):
     if len(crit) < 2 or not all(map(math.isfinite, crit)):
         fail("[sta_gen.yml] no finite validation and test criterion")
     t0 = time.perf_counter()
-    cli(["--config", cfg_path, "--task", "generate", "--ckpt",
-         os.path.join(trainer.log_dir, "last.pth")], "[sta_gen.yml] --task generate")
+    cli_in_process(["--config", cfg_path, "--task", "generate", "--ckpt",
+                    os.path.join(trainer.log_dir, "last.pth")])
     gen_dir = os.path.join(trainer.log_dir, "gen")
     written = sorted(os.listdir(gen_dir))
-    log(f"[sta_gen.yml] CLI --task generate: {len(written)} images in "
-        f"{time.perf_counter() - t0:.1f}s (with start-up) under gen/ ({written[:2]} ...)")
+    log(f"[sta_gen.yml] --task generate (the command line's main): {len(written)} images in "
+        f"{time.perf_counter() - t0:.1f}s under gen/ ({written[:2]} ...)")
     if len(written) != n_train or not all(w.endswith("_a.jpg") for w in written):
         fail(f"[sta_gen.yml] --task generate wrote {len(written)} files, not one _a.jpg per "
              f"train image ({n_train})")
@@ -3002,7 +3024,7 @@ def _dp_phase(mt, tmp, gpu, t0, nccl, backend):
 # ---- phase 13: the bank over a 2-D mesh, the crop's height sharded ---------------
 SP_RANKS = 8                        # configs/tpu/sta_final_spatial.yml: mesh: {spatial: 8}
 SP_F32 = (2, 512)                   # the f32 check: B, crop (64 rows a rank)
-SP_STEPS = 10                       # bf16 steps after step 1, at the config's geometry
+SP_STEPS = 3                        # bf16 steps after step 1, at the config's geometry
 SP_CLOCKED = 1                      # steps timed again with each halo exchange clocked
 SP_SEED = 13
 # step 1 on the ranks against one fresh process's step from the same weights,
@@ -3135,8 +3157,8 @@ def sp_step1(state, step, batch, device, main):
 
 def sp_rank(rank, workdir):
     """Phase 13's spatial ranks (sta_final_spatial.yml): the f32 step 1 at
-    B=2 of 512^2, then the config's geometry in bf16: step 1, ten more
-    steps, launches, checksum, peak memory, ms/step and the halo
+    B=2 of 512^2, then the config's geometry in bf16: step 1, SP_STEPS
+    more steps, launches, checksum, peak memory, ms/step and the halo
     exchange's share. Writes ``workdir/rank{rank}.pt``."""
     import torch.distributed as dist
 
@@ -3347,10 +3369,9 @@ def mesh_files_run(tmp, label, config, world, nccl, edit, n_steps, n_train, n_ev
     """``config`` pointed at the files under ``tmp/data`` for 1 epoch,
     changed by ``edit``, through torchrun and the command line on ``world``
     ranks: ``n_steps`` steps that launch #2 / #3 ``n_train`` times on each
-    rank, #1 ``n_eval`` times; log.txt holds ``line`` once. Then one fresh
-    process's --task test of the same `last`; ``exact``: the ranks and that
-    process under ``exact_f32``. Returns the launches summed over the
-    ranks."""
+    rank, #1 ``n_eval`` times; log.txt holds ``line`` once; ``exact``: the
+    ranks under ``exact_f32``. Returns the launches summed over the ranks
+    and what ``hold_mesh_tests`` needs for the run's test MAE."""
     raw, cfg_path = phase_config(tmp, config, 1, edit)
     slug = re.sub(r"\W+", "_", label)
     outdir = os.path.join(tmp, f"ranks_{slug}")
@@ -3395,29 +3416,59 @@ def mesh_files_run(tmp, label, config, world, nccl, edit, n_steps, n_train, n_ev
         import yaml
 
         yaml.safe_dump(one, f)
-    # a fresh process, as the job's ranks are. bf16 counts of two processes
-    # differed by up to 1.1e-4 (the 2-D mesh's, twice in four runs; likely
-    # cuDNN's benchmark, which the command line turns on, picking other
-    # algorithms by timing where ranks share a card), so the 2-D run
-    # compares under exact_f32 (no cuDNN, TF32 off)
-    one_dir = os.path.join(tmp, f"one_{slug}")
-    os.makedirs(one_dir)
-    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-rank", one_dir,
-                          *(["--exact-f32"] if exact else []), "--config", one_path, "--task",
-                          "test", "--ckpt", os.path.join(log_dir, "last.pth")],
+    launches = {k: sum(n[k] for n in per_rank) for k in per_rank[0]}
+    test = [exact, ["--config", one_path, "--task", "test", "--ckpt",
+                    os.path.join(log_dir, "last.pth")]]
+    return launches, (label, world, exact, got, test)
+
+
+def hold_mesh_tests(tmp, pending):
+    """Each mesh run's test MAE against one process's --task test of the same
+    `last`: the tests of all runs in turn in one fresh process, as the jobs'
+    ranks are fresh (``exact``: under ``exact_f32``). bf16 counts of two
+    processes differed by up to 1.1e-4 (the 2-D mesh's, twice in four runs;
+    likely cuDNN's benchmark, which the command line turns on, picking other
+    algorithms by timing where ranks share a card), so the 2-D run compares
+    under exact_f32 (no cuDNN, TF32 off)."""
+    jobs = os.path.join(tmp, "mesh_tests.json")
+    with open(jobs, "w") as f:
+        json.dump([test for *_, test in pending], f)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-tests", jobs],
                          capture_output=True, text=True, timeout=600, cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT))
     if run.returncode:
-        fail(f"{label} --task test: the command line exited {run.returncode}:\n"
+        fail(f"mesh runs' --task test: the command line exited {run.returncode}:\n"
              f"{run.stderr[-3000:]}")
-    out = run.stdout
-    want = float(re.findall(r"Testing results: mae: (\S+)", out)[-1])
-    log(f"{label} test MAE {got:.4f} ({world} ranks{', exact_f32' if exact else ''}), one "
-        f"process's --task test of the same last.pth {want:.4f} (tol {TOL_DP_MAE} + the "
-        "printed 4 decimals)")
-    if abs(got - want) > TOL_DP_MAE * max(abs(want), 1.0) + 1e-4:
-        fail(f"{label}: the {world}-rank test MAE disagrees with one process's")
-    return {k: sum(n[k] for n in per_rank) for k in per_rank[0]}
+    outs = run.stdout.split(CLI_TESTS_MARK)[1:]
+    log(f"one fresh process's --task test of {len(pending)} mesh runs' last.pth: "
+        f"{time.perf_counter() - t0:.1f}s with start-up")
+    for (label, world, exact, got, _), out in zip(pending, outs):
+        want = float(re.findall(r"Testing results: mae: (\S+)", out)[-1])
+        log(f"{label} test MAE {got:.4f} ({world} ranks{', exact_f32' if exact else ''}), "
+            f"one process's --task test of the same last.pth {want:.4f} (tol {TOL_DP_MAE} + "
+            "the printed 4 decimals)")
+        if abs(got - want) > TOL_DP_MAE * max(abs(want), 1.0) + 1e-4:
+            fail(f"{label}: the {world}-rank test MAE disagrees with one process's")
+
+
+CLI_TESTS_MARK = "=== chip_smoke cli test\n"
+
+
+def cli_tests(path):
+    """Phase 13's reference: the command line's ``main`` on each job of the
+    JSON file ``path`` ([exact, argv] pairs) in turn, in this one process;
+    a marker line before each job's output."""
+    sys.path.insert(0, ROOT)
+    from dgvcc_tpu_torch.cli.main import main as cli_main
+
+    with open(path) as f:
+        jobs = json.load(f)
+    for exact, argv in jobs:
+        print(CLI_TESTS_MARK, end="", flush=True)
+        with exact_f32(exact):
+            cli_main(argv)
+    return 0
 
 
 def mesh_phase(tmp, gpu):
@@ -3547,14 +3598,394 @@ def _mesh_phase(tmp, gpu):
                                 compute_dtype="float32"),
          32 // TRAIN_B, 0, 8,
          f"2-D mesh: data={TP_MESH[0]} x model={TP_MESH[1]} (memory bank sharded)", True))
+    pending = []
     for where, label, config, world, use_nccl, edit, n_steps, n_train, n_ev, line, exact \
             in runs:
-        for k, v in mesh_files_run(where, label, config, world, use_nccl, edit, n_steps,
-                                   n_train, n_ev, line, exact).items():
+        got, test = mesh_files_run(where, label, config, world, use_nccl, edit, n_steps,
+                                   n_train, n_ev, line, exact)
+        for k, v in got.items():
             launches[k] += v
+        pending.append(test)
+    hold_mesh_tests(tmp, pending)
     log(f"phase 13 (2-D mesh and spatial): {time.perf_counter() - t0:.1f}s; kernel launches "
         f"over its ranks {launches}")
     return res, launches
+
+
+# ---- phase 14: int8 serving ----------------------------------------------------
+# the int8 convolution (ops/qconv.py, csrc/qconv.cu) against its plain
+# version (float64 convolution, the epilogue as separate float32 ops): the
+# int32 accumulator and the bf16 output bit for bit, at every int8 site of
+# `final` at 768x1024 B=1 (its real inputs) and at edge shapes
+PEAK_INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
+QCONV_EDGES = ((1, 37, 53, 3, 64, 3, 1), (2, 17, 9, 16, 1, 3, 1), (1, 31, 29, 67, 67, 3, 1),
+               (2, 33, 35, 64, 67, 1, 1), (1, 45, 39, 128, 96, 3, 2), (1, 5, 7, 512, 512, 3, 1),
+               (3, 1, 1, 64, 8, 3, 2))   # (N, H, W, Cin, Cout, k, dilation)
+INT8_SITES_FINAL = 21               # 13 encoder, 6 decoder convolutions, den_dec, cls_conv1
+INT8_CALIB = 8                      # seeded calibration frames (768x1024; cropped to 768^2)
+INT8_BATCHES = (1, 4, 16)
+INT8_BASELINES = ("csrnet", "bl", "sasnet", "dssinet")
+# int8 (and weight-only) counts against the same weights' bf16 path, as a
+# share of the bf16 map's mass: max(2e-2, 1.5 x the JAX package's own drift)
+# on the same seeded weights (scripts/int8_drift.py FAMILY --port-seed SEED
+# --hw 384 512 --frames 4 --calib 8 on the CPU, the batch this phase holds
+# the families at and the largest size a CPU run affords; the largest
+# frame's value): final (seed 0) and the baselines (seed 11, the weights of
+# phase 11)
+INT8_DRIFT = {"final": 0.010149, "final weight_only": 0.003599, "csrnet": 0.006611,
+              "bl": 0.036439, "sasnet": 0.026715, "dssinet": 0.009178}
+
+
+def int8_gate(name):
+    return max(2e-2, 1.5 * INT8_DRIFT[name])
+
+
+def _site_bound_ms(xq, w8, out_dtype):
+    n, h, w, cin = xq.shape
+    cout, kh, kw, _ = w8.shape
+    ops = 2.0 * n * h * w * cout * kh * kw * cin
+    nbytes = (xq.numel() + w8.numel() + n * h * w * cout * torch.empty((), dtype=out_dtype)
+              .element_size() + 8 * cout)
+    b_ops, b_bytes = 1e3 * ops / PEAK_INT8_OPS, 1e3 * nbytes / PEAK_HBM_BYTES
+    return max(b_ops, b_bytes), ("operations" if b_ops >= b_bytes else "bytes"), ops
+
+
+@contextlib.contextmanager
+def recording_sites():
+    """Every int8 site call of the int8 graphs inside: [(name-free) kwargs of
+    qconv_int8], in call order."""
+    from dgvcc_tpu_torch.nn import quant as pq
+
+    calls, real = [], pq.qconv_int8
+
+    def rec(xq, w8, ws, s, bias, relu=True, dilation=1, out_dtype=torch.bfloat16, acc=False):
+        calls.append(dict(xq=xq, w8=w8, ws=ws, s=s, bias=bias, relu=relu, dilation=dilation,
+                          out_dtype=out_dtype))
+        return real(xq, w8, ws, s, bias, relu=relu, dilation=dilation, out_dtype=out_dtype,
+                    acc=acc)
+
+    pq.qconv_int8 = rec
+    try:
+        yield calls
+    finally:
+        pq.qconv_int8 = real
+
+
+def check_qconv(qc, site):
+    """The kernel against its plain version on one site's inputs: the int32
+    accumulator and the output bit for bit. Returns the largest |difference|
+    of the outputs (0 when they agree)."""
+    acc = qc.qconv_int8(site["xq"], site["w8"], None, site["s"], None,
+                        dilation=site["dilation"], acc=True)
+    ref = qc.conv_acc_reference(site["xq"], site["w8"], site["dilation"])
+    y = qc.qconv_int8(**site)
+    want = qc.epilogue_reference(ref, site["ws"], site["s"], site["bias"], site["relu"],
+                                 site["out_dtype"])
+    torch.cuda.synchronize()
+    shape = (tuple(site["xq"].shape), tuple(site["w8"].shape), site["dilation"])
+    if not torch.equal(acc, ref):
+        fail(f"qconv_int8 {shape}: int32 accumulator differs from the float64 convolution's "
+             f"at {int((acc != ref).sum())} elements")
+    if not torch.equal(y, want):
+        err = float((y.float() - want.float()).abs().max())
+        fail(f"qconv_int8 {shape}: {site['out_dtype']} output differs from the plain "
+             f"epilogue's on the same accumulator (max |diff| {err:.3e})")
+    return 0.0
+
+
+def _mass(counter, frames):
+    """sum |d| / log_para per frame of a bf16 counter's map."""
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    return VideoCounter(_AbsMap(counter.model), dtype=counter.dtype).count_frames(frames)
+
+
+def _check_int8_counts(label, got, want, mass, gate):
+    err = float((np.abs(got - want) / np.maximum(mass, 1.0)).max())
+    log(f"{label}: int8 {np.round(got, 3).tolist()}, bf16 {np.round(want, 3).tolist()}: "
+        f"{err:.4f} of the mass (gate {gate:.4f})")
+    if not np.isfinite(got).all() or err > gate:
+        fail(f"{label}: int8 counts off the bf16 path by {err:.4f} of the mass > {gate:.4f}")
+    return err
+
+
+def int8_phase(ma, counter, tmp, gpu):
+    """Phase 14: int8 serving on `final` (and csrnet, bl, sasnet, dssinet).
+    Returns its kernel entry's numbers and the launches by path."""
+    from dgvcc_tpu_torch.cli.main import _load_calib
+    from dgvcc_tpu_torch.core.registry import MODELS
+    from dgvcc_tpu_torch.nn import quant as pq
+    from dgvcc_tpu_torch.ops import qconv as qc
+    from dgvcc_tpu_torch.serve import VideoCounter
+    from dgvcc_tpu_torch.serve_http import CountingServer
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = True
+    rng = np.random.default_rng(140)
+    calib = rng.integers(0, 256, (INT8_CALIB,) + FRAME + (3,), dtype=np.uint8)
+    frames = rng.integers(0, 256, (16,) + FRAME + (3,), dtype=np.uint8)
+
+    # ---- from files, started first: --task quantize on phase 6's JPEGs
+    # (its test split) from a checkpoint of phase 3's seeded weights
+    ckpt = os.path.join(tmp, "final_seed0.pth")
+    torch.save(counter.model.state_dict(), ckpt)
+    jpegs, art = os.path.join(tmp, "data", "test"), os.path.join(tmp, "final.int8")
+    config = os.path.join(ROOT, "configs", "sta_final.yml")
+    t_q = time.perf_counter()
+    quantize_cli = subprocess.Popen(
+        [sys.executable, "-m", "dgvcc_tpu_torch", "--config", config, "--task", "quantize",
+         "--ckpt", ckpt, "--frames", jpegs, "--out", art],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+    # ---- the int8 graph: calibrated on INT8_CALIB seeded frames
+    t0 = time.perf_counter()
+    q_counter = VideoCounter.from_checkpoint("final", None, dtype=torch.bfloat16, seed=0,
+                                             quantize=True, calib_frames=calib)
+    q = q_counter.quantized
+    sites = q.int8_sites()
+    log(f"int8 final: folded, calibrated on {INT8_CALIB} frames and quantized in "
+        f"{time.perf_counter() - t0:.1f}s; {len(sites)} int8 sites, "
+        f"{len(q.sites) - len(sites)} fp ({sorted(set(q.sites) - set(sites))})")
+    if len(sites) != INT8_SITES_FINAL:
+        fail(f"int8 final has {len(sites)} int8 sites, not {INT8_SITES_FINAL}")
+
+    # ---- the kernel against its plain version: every site of a B=1 forward,
+    # on its real inputs, then the edge shapes
+    t0 = time.perf_counter()
+    with recording_sites() as calls, torch.inference_mode():
+        q_counter.count_frames(frames[:1])
+    if len(calls) != INT8_SITES_FINAL:
+        fail(f"a B=1 int8 forward made {len(calls)} int8 site calls, not {INT8_SITES_FINAL}")
+    with torch.inference_mode():
+        for site in calls:
+            check_qconv(qc, site)
+        for i, (n, h, w, cin, cout, k, dil) in enumerate(QCONV_EDGES):
+            g = torch.Generator(device="cuda").manual_seed(1400 + i)
+            site = dict(xq=torch.randint(-127, 128, (n, h, w, cin), generator=g, device="cuda",
+                                         dtype=torch.int8),
+                        w8=torch.randint(-127, 128, (cout, k, k, cin), generator=g,
+                                         device="cuda", dtype=torch.int8),
+                        ws=torch.rand(cout, generator=g, device="cuda") * 1e-3, s=0.0123,
+                        bias=torch.randn(cout, generator=g, device="cuda"), relu=bool(i % 2),
+                        dilation=dil, out_dtype=torch.bfloat16 if i % 3 else torch.float32)
+            check_qconv(qc, site)
+    log(f"qconv_int8 against its plain version: the {len(calls)} sites of a B=1 768x1024 "
+        f"forward (Cin {sorted({c['xq'].shape[-1] for c in calls})}) and "
+        f"{len(QCONV_EDGES)} edge shapes (Cin 3, 16, 67; Cout 1, 67; odd H, W; 1x1; "
+        f"dilation 2): int32 accumulators and outputs bit for bit, "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- counts against the bf16 path, launches of #1 and the int8 kernel
+    wo_fold = MODELS.build("final", dtype=torch.float32)
+    wo_fold.reset_parameters(torch.Generator().manual_seed(0))
+    wo = VideoCounter(counter.model, dtype=torch.bfloat16, quantized=pq.QuantizedDG.from_model(
+        wo_fold, dtype=torch.bfloat16, device="cuda", weight_only=True))
+    del wo_fold
+    errs, launches = {}, {}
+    inputs = {f"count_frames B={b}": np.ascontiguousarray(frames[:b]) for b in INT8_BATCHES}
+    inputs["stream 2x B=4"] = np.ascontiguousarray(frames[:8])
+    with torch.inference_mode():
+        # the bf16 counts and masses first: the launch window below holds
+        # the int8 calls alone
+        ref = {k: (counter.count_frames(f), _mass(counter, f)) for k, f in inputs.items()}
+        before = dict(q_counter.dispatches)
+        ma.LAUNCHES = qc.LAUNCHES = 0
+        got = {k: q_counter.count_frames(inputs[k]) for k in inputs if k.startswith("count")}
+        got["stream 2x B=4"] = np.concatenate(list(q_counter.stream(
+            iter([frames[:4], frames[4:8]]), prefetch=1)))
+        launches["int8 serving"] = {"memory_attention_fused": ma.LAUNCHES,
+                                    "qconv_int8": qc.LAUNCHES}
+        n_int8 = q_counter.dispatches["int8"] - before["int8"]
+        n_fp = q_counter.dispatches["fp"] - before["fp"]
+        for k, (want, mass) in ref.items():
+            errs[k.split()[-1] if k.startswith("count") else "stream"] = _check_int8_counts(
+                f"int8 final {k} 768x1024", got[k], want, mass, int8_gate("final"))
+        ma.LAUNCHES = qc.LAUNCHES = 0
+        f = inputs["count_frames B=4"]
+        errs["weight_only"] = _check_int8_counts(
+            "weight-only final count_frames B=4", wo.count_frames(f), *ref["count_frames B=4"],
+            int8_gate("final weight_only"))
+        if qc.LAUNCHES:
+            fail("the weight-only graph launched the int8 kernel")
+    want_launches = {"memory_attention_fused": n_int8, "qconv_int8": INT8_SITES_FINAL * n_int8}
+    log(f"int8 final launches in a window of int8 calls alone: {launches['int8 serving']} over "
+        f"{n_int8} int8 dispatches and {n_fp} fp ones (one #1 and {INT8_SITES_FINAL} "
+        f"qconv_int8 a dispatch: {want_launches})")
+    if n_int8 != len(INT8_BATCHES) + 2 or n_fp or launches["int8 serving"] != want_launches:
+        fail(f"int8 serving: {n_int8} int8 and {n_fp} fp dispatches, launches "
+             f"{launches['int8 serving']}, not {want_launches}")
+
+    # ---- the artifact: served by the command line in a fresh process
+    qout, qerr = quantize_cli.communicate(timeout=600)
+    if quantize_cli.returncode:
+        fail(f"--task quantize exited {quantize_cli.returncode}:\n{qerr[-3000:]}")
+    log(f"CLI --task quantize ({time.perf_counter() - t_q:.1f}s with start-up, in the "
+        f"background): {qout.strip().splitlines()[-1]}")
+    t0 = time.perf_counter()
+    serve_cli = subprocess.Popen(
+        [sys.executable, "-m", "dgvcc_tpu_torch", "--config", config, "--task", "serve",
+         "--artifact", art, "--frames", jpegs, "--batch", "4"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    from PIL import Image
+
+    names = sorted(fn for fn in os.listdir(jpegs) if fn.endswith(".jpg"))
+    decoded = np.stack([np.asarray(Image.open(os.path.join(jpegs, fn)).convert("RGB"))
+                        for fn in names])
+    inproc = VideoCounter.from_checkpoint("final", ckpt, dtype=torch.bfloat16, quantize=True,
+                                          calib_frames=_load_calib(jpegs))
+    want = inproc.count_frames(decoded)
+    sout, serr = serve_cli.communicate(timeout=600)
+    if serve_cli.returncode:
+        fail(f"--task serve --artifact exited {serve_cli.returncode}:\n{serr[-3000:]}")
+    lines = sout.strip().splitlines()
+    log(f"CLI --task serve --artifact ({time.perf_counter() - t0:.1f}s with start-up): "
+        f"{lines[-1]}")
+    got = np.array([float(ln.split()[1]) for ln in lines[:-1]])
+    if len(got) != len(names) or not lines[-1].endswith("(int8)"):
+        fail(f"--task serve --artifact printed {len(got)} counts for {len(names)} frames: "
+             f"{lines[-1]}")
+    worst = float((np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max())
+    log(f"artifact served in a fresh process: {np.round(got, 2).tolist()}, the in-process "
+        f"int8 counter {np.round(want, 2).tolist()}: max rel diff {worst:.2e} (tol "
+        f"{TOL_CLI_TEST}: two processes' cuDNN may pick other algorithms for the fp heads)")
+    if worst > TOL_CLI_TEST:
+        fail("the artifact's counts in a fresh process disagree with the in-process int8 "
+             "counter")
+
+    # ---- HTTP on the artifact: 4 clients
+    st = _stress_tool()
+    art_counter = VideoCounter.from_artifact(art)
+    bodies = st.encode_frames(8, *FRAME, seed=141, quality=90)
+    dec = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in bodies]
+    alone = [float(art_counter.count_frames(d[None])[0]) for d in dec]
+    srv = CountingServer(art_counter, port=0, model_name="final", max_batch=4,
+                         batch_window=HTTP_WINDOW)
+    srv.start()
+    url = f"http://127.0.0.1:{srv.port}"
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        ma.LAUNCHES = qc.LAUNCHES = 0
+        wall, counts, lats, errors = st.run_load(url, bodies, clients=4, requests=16)
+        stats = st.get_json(url, "/stats")
+        health = st.get_json(url, "/healthz")
+        launches["int8 HTTP (artifact)"] = {"memory_attention_fused": ma.LAUNCHES,
+                                            "qconv_int8": qc.LAUNCHES}
+    finally:
+        srv.shutdown()
+        torch.backends.cudnn.benchmark = benchmark
+    if errors or sum(len(v) for v in counts.values()) != 16:
+        fail(f"int8 HTTP: {len(errors)} errors {errors[:2]}")
+    http_err = _check_http_counts("int8 http 4 clients", counts, alone)
+    log(f"int8 HTTP on the artifact, 4 clients x 16 requests: {16 / wall:.2f} req/s, "
+        f"/healthz quantized={health.get('quantized')}, /stats dispatch_int8 "
+        f"{stats['dispatch_int8']} dispatch_fp {stats['dispatch_fp']}, counts within "
+        f"{http_err:.2e} of count_frames alone; launches {launches['int8 HTTP (artifact)']}")
+    n_http = launches["int8 HTTP (artifact)"]["memory_attention_fused"]
+    if (not health.get("quantized") or stats["dispatch_int8"] <= 0 or stats["dispatch_fp"]
+            or n_http == 0
+            or launches["int8 HTTP (artifact)"]["qconv_int8"] != INT8_SITES_FINAL * n_http):
+        fail("int8 HTTP: the server did not serve the int8 graph")
+    del inproc, art_counter, wo
+    torch.cuda.empty_cache()
+
+    # ---- the conv families at B=4: int8 against bf16, frames/s; mcnn none
+    fam = {}
+    f4 = np.ascontiguousarray(frames[:4])
+    ma.LAUNCHES = qc.LAUNCHES = 0
+    for name in INT8_BASELINES:
+        t0 = time.perf_counter()
+        bf16 = VideoCounter.from_checkpoint(name, None, dtype=torch.bfloat16, seed=11)
+        qn = VideoCounter.from_checkpoint(name, None, dtype=torch.bfloat16, seed=11,
+                                          quantize=True, calib_frames=calib)
+        with torch.inference_mode():
+            err = _check_int8_counts(
+                f"int8 {name} count_frames B=4 768x1024 ({len(qn.quantized.int8_sites())} int8 "
+                f"sites of {len(qn.quantized.sites)})", qn.count_frames(f4),
+                bf16.count_frames(f4), _mass(bf16, f4), int8_gate(name))
+            fps = {}
+            for label, c in (("bf16", bf16), ("int8", qn), ("int8", qn), ("bf16", bf16)):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(3):
+                    c.count_frames(f4)
+                fps.setdefault(label, []).append(12 / (time.perf_counter() - t1))
+        fam[name] = dict(err=err, fps=fps)
+        log(f"serve {name} B=4 768x1024 in turns (bf16, int8, int8, bf16): int8 "
+            f"{[round(v, 2) for v in fps['int8']]}, bf16 {[round(v, 2) for v in fps['bf16']]} "
+            f"frames/s; {time.perf_counter() - t0:.1f}s [{gpu}]")
+        del bf16, qn
+        torch.cuda.empty_cache()
+    launches["int8 baselines"] = {"qconv_int8": qc.LAUNCHES}
+    if qc.LAUNCHES == 0:
+        fail("the int8 baselines never launched the int8 kernel")
+    mcnn = pq.build_quantized(MODELS.build("mcnn"), calib[:1, :256, :256].astype(np.float32)
+                              / 127.5 - 1.0)
+    log(f"mcnn under min_ch=128: {len(mcnn.int8_sites())} int8 sites of {len(mcnn.sites)} "
+        "(pure bf16)")
+    if mcnn.int8_sites():
+        fail("mcnn built int8 sites under min_ch=128")
+
+    # ---- times: frames/s int8 against bf16 in turns, host clock, synchronised
+    fps = {}
+    with torch.inference_mode():
+        for b in INT8_BATCHES:
+            f = np.ascontiguousarray(frames[:b])
+            iters = {1: 12, 4: 4, 16: 1}[b]
+            for label, c in (("bf16", counter), ("int8", q_counter), ("int8", q_counter),
+                             ("bf16", counter)):
+                c.count_frames(f)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    c.count_frames(f)
+                fps.setdefault(b, {}).setdefault(label, []).append(
+                    b * iters / (time.perf_counter() - t0))
+            log(f"serve final count_frames B={b} 768x1024 in turns (bf16, int8, int8, bf16): "
+                f"int8 {[round(v, 2) for v in fps[b]['int8']]}, bf16 "
+                f"{[round(v, 2) for v in fps[b]['bf16']]} frames/s [{gpu}]")
+
+        # device time of the int8 sites of one B=4 forward against cuDNN's bf16
+        # convolution at the same shapes (CUDA events over repeated calls)
+        with recording_sites() as calls4:
+            q_counter.count_frames(np.ascontiguousarray(frames[:4]))
+        rows = []
+        for site in calls4:
+            xq, w8 = site["xq"], site["w8"]
+            k = w8.shape[1]
+            xb = (xq.float() * site["s"]).to(torch.bfloat16).permute(0, 3, 1, 2)
+            wb = w8.to(torch.bfloat16).permute(0, 3, 1, 2)
+            ms = cuda_ms(lambda: qc.qconv_int8(**site), 3, warmup=1)
+            lib = cuda_ms(lambda: torch.nn.functional.conv2d(
+                xb, wb, padding=site["dilation"] * (k // 2), dilation=site["dilation"]), 3,
+                warmup=2)
+            bound, by, ops = _site_bound_ms(xq, w8, site["out_dtype"])
+            rows.append(dict(shape=(tuple(xq.shape), tuple(w8.shape), site["dilation"]),
+                             ms=ms, library_ms=lib, bound_ms=bound, bound_by=by, ops=ops,
+                             site=site))
+        total, total_lib = sum(r["ms"] for r in rows), sum(r["library_ms"] for r in rows)
+        log(f"int8 sites of one B=4 768x1024 forward: {len(rows)} qconv_int8 calls "
+            f"{total:.3f} ms of device time, cuDNN bf16 convolutions at the same shapes "
+            f"{total_lib:.3f} ms; bound {sum(r['bound_ms'] for r in rows):.3f} ms [{gpu}]")
+        heavy = sorted(rows, key=lambda r: -r["ops"])[:3]
+        for r in heavy:
+            r["plain_ms"] = cuda_ms(lambda: qc.qconv_int8_reference(**r["site"]), 2, warmup=1)
+            log(f"qconv_int8 {r['shape']} B=4: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {r['ops'] / r['ms'] / 1e9:.1f} TOP/s achieved), plain "
+                f"{r['plain_ms']:.4f} ms, cuDNN bf16 {r['library_ms']:.4f} ms [{gpu}]")
+    h = heavy[0]
+    entry = dict(ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+                 bound_by=h["bound_by"], library_ms=h["library_ms"],
+                 shape={"xq": list(h["shape"][0]), "w8": list(h["shape"][1]),
+                        "dilation": h["shape"][2], "out": "bfloat16"},
+                 sites_ms_b4=total, sites_library_ms_b4=total_lib,
+                 heaviest=[dict(shape=r["shape"], ms=r["ms"], bound_ms=r["bound_ms"],
+                                plain_ms=r["plain_ms"], library_ms=r["library_ms"])
+                           for r in heavy],
+                 fps={str(b): v for b, v in fps.items()}, count_errs=errs,
+                 families={k: v["fps"] for k, v in fam.items()})
+    log(f"phase 14 (int8 serving): {time.perf_counter() - t_phase:.1f}s")
+    return entry, launches
 
 
 def main():
@@ -3577,6 +4008,7 @@ def main():
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
+    t_phase = t0
     logs = _build.build_all()
     for name, text in logs.items():
         for line in text.splitlines():
@@ -3605,8 +4037,12 @@ def main():
                           "kernel #2")
     check_sass(str(_build.library_path("mem_attention_train")), "mat_bwd_(rows|cols)_bf16", 4,
                "kernel #3")
+    ptxas_qconv = _build.ptxas_report(_build.build_log("qconv"), "qconv_kernelILb1ELi1E")
+    log(f"ptxas, qconv_int8 bf16 (16-byte path): {' | '.join(ptxas_qconv)}")
+    phase_done("1 (build)", t_phase)
 
     # ---- 2. kernels vs plain versions -------------------------------------
+    t_phase = time.perf_counter()
     err_bf16 = check_kernel(ma, 4, P, torch.bfloat16, TOL_BF16, 1)
     log(f"kernel #1 bf16 B=4: max_abs_err {err_bf16:.3e} (the earlier mma.sync "
         f"kernel: {MMA_SYNC_BF16_ERR:.3e})")
@@ -3629,8 +4065,10 @@ def main():
     dmap_err = check_dmap(dm)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     device_aug_phase(gpu)
+    phase_done("2 (kernels against their plain versions)", t_phase)
 
     # ---- 3. serve the main path -------------------------------------------
+    t_phase = time.perf_counter()
     torch.backends.cudnn.benchmark = True
     counter = VideoCounter.from_checkpoint("final", None, dtype=torch.bfloat16,
                                            fused_mem=True, seed=0)
@@ -3668,8 +4106,10 @@ def main():
             fail(f"{name}: the serving path never launched the kernel")
         check_counts(name, fused_counts, run(plain))
     check_cli(frames, VideoCounter)
+    phase_done("3 (serving)", t_phase)
 
     # ---- 4. times ---------------------------------------------------------
+    t_phase = time.perf_counter()
     log(f"card: {gpu}")
     serve_fps = {}
     for b in (1, 4, 16):
@@ -3724,41 +4164,65 @@ def main():
         f"{1e3 * 4.0 * 4 * P * K * S / PEAK_F32_FLOPS:.4f} ms (f32 CUDA-core "
         f"peak) [{gpu}]")
     dmap_times = time_dmap(dm, gpu)
+    phase_done("4 (times)", t_phase)
 
     # ---- 5. train the main path ----------------------------------------------
+    t_phase = time.perf_counter()
     train_launches, train_times, step_ms = train_phase(mt, gpu)
+    phase_done("5 (train step)", t_phase)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # ---- 6. from files to a trained model ------------------------------
+        t_phase = time.perf_counter()
         dmap_launches, file_launches = files_phase(ma, mt, dm, gpu, step_ms, tmp)
+        phase_done("6 (from files)", t_phase)
 
         # ---- 7. sta_final_bigcrop.yml: accum_steps 4 at 512^2 --------------
+        t_phase = time.perf_counter()
         big_launches = bigcrop_phase(mt, gpu)
+        phase_done("7 (bigcrop)", t_phase)
 
         # ---- 8. the whitening family (sw, ibn, isw, sw_vgg, DenseNets) -----
+        t_phase = time.perf_counter()
         _, whiten_launches = whitening_phase(ma, mt, tmp, gpu)
+        phase_done("8 (whitening family)", t_phase)
 
         # ---- 9. HTTP serving and the fleet ---------------------------------
-        t0 = time.perf_counter()
+        t_phase = time.perf_counter()
         _, http_launches, bodies, decoded = http_phase(ma, counter, serve_fps, gpu)
         fleet_phase(bodies, decoded, gpu)
-        log(f"phase 9 (HTTP serving and the fleet): {time.perf_counter() - t0:.1f}s")
+        phase_done("9 (HTTP serving and the fleet)", t_phase)
 
         # ---- 10. the U-Net regressors (dgnet, dgnet_cls, reg, reg_mem) -------
+        t_phase = time.perf_counter()
         _, regressor_launches = regressor_phase(ma, mt, tmp, gpu)
+        phase_done("10 (regressors)", t_phase)
 
         # ---- 11. the generator (generation, joint) and the classic baselines --
+        t_phase = time.perf_counter()
         _, generator_launches = generator_baselines_phase(ma, mt, tmp, gpu)
+        phase_done("11 (generator and baselines)", t_phase)
 
         # ---- 12. data parallel: ranks over torch.distributed -----------------
+        t_phase = time.perf_counter()
         _, dp_launches = dp_phase(mt, tmp, gpu)
+        phase_done("12 (data parallel)", t_phase)
 
         # ---- 13. the bank over a 2-D mesh, the crop's height over 8 ranks -----
+        t_phase = time.perf_counter()
         _, mesh_launches = mesh_phase(tmp, gpu)
+        phase_done("13 (2-D mesh and spatial)", t_phase)
+
+        # ---- 14. int8 serving: final, its artifact, HTTP, the conv families ----
+        t_phase = time.perf_counter()
+        int8, int8_launches = int8_phase(ma, counter, tmp, gpu)
+        phase_done("14 (int8 serving)", t_phase)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"total {time.perf_counter() - t_start:.1f}s")
+    total_s = time.perf_counter() - t_start
+    log("phase times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items()))
+    log(f"total {total_s:.1f}s")
 
     # ---- result --------------------------------------------------------------
     # each path's launches, from its own run (counts set to 0 just before)
@@ -3773,7 +4237,8 @@ def main():
                "regressors (phase 10)": regressor_launches,
                "generator and baselines (phase 11)": generator_launches,
                "data parallel ranks (phase 12)": dp_launches,
-               "2-D mesh and spatial ranks (phase 13)": mesh_launches}
+               "2-D mesh and spatial ranks (phase 13)": mesh_launches,
+               **{f"{k} (phase 14)": n for k, n in int8_launches.items()}}
 
     def total(name):
         return sum(n.get(name, 0) for n in by_path.values())
@@ -3825,7 +4290,11 @@ def main():
         "ok": True,
         "max_abs_err": dmap_err, "max_err": dmap_err, **dmap_times,
         "shape": {"H": FRAME[0], "W": FRAME[1], "N": 1024, "sigma": 4.0, "radius": 7,
-                  "dtype": "float32"}}]}))
+                  "dtype": "float32"}}, {
+        "name": "qconv_int8", "route": "cuda", "source": "dgvcc_tpu_torch/csrc/qconv.cu",
+        "replaces": "dgvcc_tpu/nn/quant.py:290 (XLA int8 convolution; not a pl.pallas_call)",
+        "launches": total("qconv_int8"), "launches_by_path": paths("qconv_int8"), "ok": True,
+        "max_abs_err": 0.0, "max_err": 0.0, "ptxas": ptxas_qconv, **int8}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3836,4 +4305,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-rank"]:  # phase 12's and 13's torchrun ranks
         exact = sys.argv[3:4] == ["--exact-f32"]
         sys.exit(cli_rank(sys.argv[2], sys.argv[3 + exact:], exact))
+    if sys.argv[1:2] == ["--cli-tests"]:  # phase 13's one-process references
+        sys.exit(cli_tests(sys.argv[2]))
     sys.exit(main())

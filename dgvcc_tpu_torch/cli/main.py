@@ -1,8 +1,9 @@
 """Command line of the port.
 
     python -m dgvcc_tpu_torch --config configs/X.yml \
-        --task {train,test,vis,train_test,generate,serve} [--ckpt x.pth]
+        --task {train,test,vis,train_test,generate,serve,quantize} [--ckpt x.pth]
         [--device cpu] [--frames DIR | --http PORT] [--batch N]
+        [--quantize [auto] | --artifact FILE] [--out FILE]
     torchrun --nproc_per_node=N -m dgvcc_tpu_torch --config X.yml \
         --task {train,test,train_test} [--dist-backend gloo]
         (N: the mesh's ranks, data x model, or spatial)
@@ -20,6 +21,14 @@ bytes (``serve_http.py``), ``--batch`` bounding its micro-batch. The
 device is ``cuda`` unless ``--device`` or the config's ``device:`` key
 starts with ``cpu``.
 
+Int8 (``nn/quant.py``): ``--task quantize --frames DIR --out FILE`` folds
+the checkpoint, calibrates on the first frames of DIR and writes an int8
+artifact (``nn/quant_io.py``, the JAX package's format); ``--task serve
+--artifact FILE`` serves one with no checkpoint and no calibration;
+``--task serve --quantize`` calibrates on ``--frames`` and serves int8,
+``--quantize auto`` keeps both graphs and picks one per dispatch
+(``serve.py``; the config's ``auto_threshold`` key sets its batch rule).
+
 A config with a mesh trains, validates and tests under ``torchrun
 --nproc_per_node=N`` (``parallel/``): ``mesh: {data: N}`` data parallel,
 ``mesh: {data: N, model: M}`` with N M ranks and the bank sharded over the
@@ -28,9 +37,10 @@ takes ``cuda:{LOCAL_RANK}`` and NCCL; ``--device cpu`` takes gloo, and
 ``--dist-backend gloo`` lets ranks share a card (NCCL with more local ranks
 than cards raises). Outside torchrun, or with another number of ranks, it
 raises; ``vis``, ``generate`` and ``serve`` run in one process and refuse
-a mesh (serving on a mesh is ROADMAP.md, Queue 1 item 1). The other tasks of ``python -m dgvcc_tpu`` are not ported yet:
-``quantize``, ``aot`` and ``export``, and serving's ``--quantize``,
-``--artifact`` and ``--aot``, are ROADMAP.md Queue 1 item 2.
+a mesh (serving on a mesh is ROADMAP.md, Queue 1 item 1). ``aot`` and
+serving's ``--aot`` are not ported yet (ROADMAP.md, Queue 1 item 2);
+``export`` is refused: the port's checkpoints are reference ``.pth`` files
+already.
 """
 
 from __future__ import annotations
@@ -53,21 +63,73 @@ def _list_images(frames_dir: str):
     return names
 
 
-def _build_counter(cfg, device: str):
-    """The config's checkpoint (a reference or port ``.pth``), or seeded
-    random weights when it names none, in its ``compute_dtype``."""
+def _load_calib(frames_dir: str, n: int = 4):
+    """The first ``n`` frames of a directory at 256x256, the calibration
+    frames the JAX package's command line takes."""
+    import numpy as np
+    from PIL import Image
+
+    names = _list_images(frames_dir)
+    return np.stack([np.asarray(Image.open(os.path.join(frames_dir, fn)).convert("RGB")
+                                .resize((256, 256)), np.uint8) for fn in names[:max(1, n)]])
+
+
+def _build_counter(cfg, device: str, quantize=False, artifact: str = None,
+                   frames_dir: str = None, batch: int = 4):
+    """An int8 ``artifact``, or the config's checkpoint (a reference or port
+    ``.pth``; seeded random weights when it names none) in its
+    ``compute_dtype``, int8 with ``quantize`` (calibrated on the first
+    frames of ``frames_dir``)."""
     import torch
 
     from dgvcc_tpu_torch.serve import VideoCounter
 
+    if artifact is not None:
+        if quantize == "auto":
+            # an artifact holds only the int8 graph: no fp weights for the
+            # dispatches auto would serve in bf16
+            raise SystemExit("--quantize auto cannot serve an --artifact: the int8 artifact "
+                             "has no fp weights for the bf16 path. Serve the checkpoint with "
+                             "--quantize auto, or the artifact without it")
+        if not os.path.isfile(artifact):
+            raise SystemExit(f"--artifact {artifact}: no such file (--task quantize writes one)")
+        return VideoCounter.from_artifact(artifact, log_para=cfg.log_para, device=device)
+    calib = None
+    if quantize:
+        if frames_dir is not None:
+            calib = _load_calib(frames_dir, n=max(1, min(batch, 4)))
+        elif quantize != "auto":
+            # auto may calibrate lazily on its first int8 dispatch; int8 cannot
+            raise SystemExit("--quantize without --artifact needs --frames DIR for scale "
+                             "calibration")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     return VideoCounter.from_checkpoint(
         cfg.model["name"], cfg.checkpoint, log_para=cfg.log_para,
-        dtype=dtype, device=device, seed=cfg.seed,
-        **cfg.model.get("params", {}))
+        dtype=dtype, device=device, seed=cfg.seed, quantize=quantize, calib_frames=calib,
+        auto_threshold=cfg.extra.get("auto_threshold"), **cfg.model.get("params", {}))
 
 
-def _serve(cfg, frames_dir: str, batch: int, device: str):
+def _quantize(cfg, frames_dir: str, out: str, device: str):
+    """``--task quantize``: fold the checkpoint, calibrate on the first frames
+    of ``frames_dir`` and write an int8 artifact to ``out``."""
+    from dgvcc_tpu_torch.nn.quant_io import save_quantized
+
+    if cfg.checkpoint is None:
+        raise SystemExit("--task quantize requires a checkpoint (config key 'checkpoint' "
+                         "or --ckpt)")
+    if frames_dir is None or out is None:
+        raise SystemExit("--task quantize requires --frames DIR (calibration imagery) and "
+                         "--out ARTIFACT")
+    counter = _build_counter(cfg, device, quantize=True, frames_dir=frames_dir)
+    q = counter.quantized
+    params = {k: v for k, v in cfg.model.get("params", {}).items() if k != "pretrained"}
+    save_quantized(q, out, model_name=cfg.model["name"], model_params=params)
+    n8 = len(q.int8_sites())
+    print(f"[quantize] wrote {out}: {n8} int8 sites (+{len(q.sites) - n8} fp)")
+
+
+def _serve(cfg, frames_dir: str, batch: int, device: str, quantize=False,
+           artifact: str = None):
     """Stream per-frame crowd counts over a directory of images: decode on
     the host, batch consecutive same-shape frames, pipeline them through
     VideoCounter.stream."""
@@ -76,7 +138,7 @@ def _serve(cfg, frames_dir: str, batch: int, device: str):
     from PIL import Image
 
     names = _list_images(frames_dir)
-    counter = _build_counter(cfg, device)
+    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch)
     # a stream has few shapes (one per bucket): let cuDNN time its choices
     torch.backends.cudnn.benchmark = True
 
@@ -109,17 +171,18 @@ def _serve(cfg, frames_dir: str, batch: int, device: str):
         total += len(bn)
     dt = time.perf_counter() - t0
     print(f"[serve] {total} frames in {dt:.2f}s = {total / dt:.2f} fps "
-          f"on {counter.device}")
+          f"on {counter.device}{' (int8)' if counter.quantized is not None else ''}")
 
 
-def _serve_http(cfg, port: int, batch: int, device: str, block: bool = True):
+def _serve_http(cfg, port: int, batch: int, device: str, block: bool = True,
+                quantize=False, artifact: str = None, frames_dir: str = None):
     """``--task serve --http PORT``: POST /count with image bytes returns
     {"count": N} (serve_http.py); ``batch`` bounds the request
-    micro-batch. ``block=False`` serves on a daemon thread and returns the
-    server (tests, embedding)."""
+    micro-batch (and the number of calibration frames). ``block=False``
+    serves on a daemon thread and returns the server (tests, embedding)."""
     from dgvcc_tpu_torch.serve_http import CountingServer
 
-    counter = _build_counter(cfg, device)
+    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch)
     srv = CountingServer(counter, host="0.0.0.0", port=port,
                          model_name=cfg.model["name"], max_batch=batch)
     if not block:
@@ -172,42 +235,45 @@ def _mesh_task(cfg, config_path: str, task: str, device: str, backend):
 def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         ckpt: str = None, device: str = None, http: int = None,
         quantize=False, artifact: str = None, aot: str = None, block: bool = True,
-        dist_backend: str = None):
+        dist_backend: str = None, out: str = None):
     from dgvcc_tpu_torch.core.config import load_config
     from dgvcc_tpu_torch.train.trainer import config_device, mesh_size
 
-    if task not in ("train", "test", "vis", "train_test", "generate", "serve"):
-        raise SystemExit(f"--task {task} is not ported to dgvcc_tpu_torch "
-                         "yet; see ROADMAP.md, Queue 1 item 2 (use python -m "
+    if task == "export":
+        raise SystemExit("--task export has nothing to convert in dgvcc_tpu_torch: its "
+                         "checkpoints are reference DGVCC .pth files already (ROADMAP.md, "
+                         "Queue 1 item 2)")
+    if task == "aot" or aot:
+        raise SystemExit(f"{'--task aot' if task == 'aot' else '--aot'} is not ported to "
+                         "dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 2 (use python -m "
                          "dgvcc_tpu for it)")
-    for flag, value in (("--quantize", quantize), ("--artifact", artifact), ("--aot", aot)):
-        if value:
-            raise SystemExit(f"{flag} is not ported to dgvcc_tpu_torch yet; see "
-                             "ROADMAP.md, Queue 1 item 2 (use python -m dgvcc_tpu for it)")
     cfg = load_config(config_path)
     if ckpt is not None:
         # a comma pair is a joint run's [gen, reg] checkpoint
         cfg.checkpoint = ckpt.split(",") if "," in ckpt else ckpt
+    if task in ("serve", "quantize") and isinstance(cfg.checkpoint, (list, tuple)):
+        raise SystemExit(f"--task {task} takes a single checkpoint path")
     axes = {a: mesh_size(cfg, a) for a in ("data", "model", "spatial")}
     axes = {a: n for a, n in axes.items() if n > 1}
-    if axes and task in ("vis", "generate", "serve"):
+    if axes and task in ("vis", "generate", "serve", "quantize"):
         where = ("serving on a mesh (mesh / serve_shard) is ROADMAP.md, Queue 1 item 1"
                  if task == "serve" else "it runs in one process on one card")
         mesh = ", ".join(f"{a}: {n}" for a, n in axes.items())
         raise SystemExit(f"--task {task} with mesh: {{{mesh}}}: {where}; drop the "
                          "mesh key for it")
+    if task == "quantize":
+        return _quantize(cfg, frames, out, config_device(cfg, device))
     if task != "serve":
         if axes:
             return _mesh_task(cfg, config_path, task, config_device(cfg, device),
                               dist_backend)
         return _trainer_task(cfg, config_path, task, config_device(cfg, device))
-    if isinstance(cfg.checkpoint, (list, tuple)):
-        raise SystemExit("--task serve takes a single checkpoint path")
     if http is not None:
-        return _serve_http(cfg, http, batch, config_device(cfg, device), block=block)
+        return _serve_http(cfg, http, batch, config_device(cfg, device), block=block,
+                           quantize=quantize, artifact=artifact, frames_dir=frames)
     if frames is None:
         raise SystemExit("--task serve requires --frames DIR (or --http PORT)")
-    _serve(cfg, frames, batch, config_device(cfg, device))
+    _serve(cfg, frames, batch, config_device(cfg, device), quantize, artifact)
 
 
 def build_parser():
@@ -225,9 +291,13 @@ def build_parser():
                              "--frames (POST /count, GET /healthz, /stats, /metrics)")
     parser.add_argument("--quantize", nargs="?", const=True, default=False,
                         choices=[True, False, "auto"], metavar="auto",
-                        help="int8 serving: not ported (ROADMAP.md, Queue 1 item 2)")
+                        help="--task serve: the int8 graph, calibrated on --frames; 'auto' "
+                             "keeps both graphs and picks one per dispatch")
     parser.add_argument("--artifact", type=str, default=None,
-                        help="int8 artifact: not ported (ROADMAP.md, Queue 1 item 2)")
+                        help="--task serve: an int8 artifact (--task quantize's output), "
+                             "served without checkpoint or calibration")
+    parser.add_argument("--out", type=str, default=None,
+                        help="--task quantize: the artifact to write")
     parser.add_argument("--aot", type=str, default=None,
                         help="AOT program artifact: not ported (ROADMAP.md, Queue 1 item 2)")
     parser.add_argument("--ckpt", type=str, default=None,
@@ -246,7 +316,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     run(args.config, args.task, frames=args.frames, batch=args.batch,
         ckpt=args.ckpt, device=args.device, http=args.http, quantize=args.quantize,
-        artifact=args.artifact, aot=args.aot, dist_backend=args.dist_backend)
+        artifact=args.artifact, aot=args.aot, dist_backend=args.dist_backend, out=args.out)
 
 
 if __name__ == "__main__":

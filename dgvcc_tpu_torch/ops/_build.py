@@ -35,7 +35,8 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_ext"
 SOURCES = {"mem_attention": CSRC / "mem_attention.cu",
            "mem_attention_train": CSRC / "mem_attention_train.cu",
-           "dmap": CSRC / "dmap.cu"}
+           "dmap": CSRC / "dmap.cu",
+           "qconv": CSRC / "qconv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

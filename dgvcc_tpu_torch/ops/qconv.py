@@ -1,0 +1,136 @@
+"""Int8 convolution with a fused epilogue: the int8 serving path's convolution.
+
+    acc = conv(xq, w8)                    int8 x int8 -> int32, SAME, stride 1
+    y   = float(acc) * (ws * s) + bias    [, ReLU]  -> f32 or bf16
+
+No Pallas kernel of the JAX package computes this: there XLA runs it
+(``dgvcc_tpu/nn/quant.py:290-295`` and ``:508-514``, ``conv_general_dilated``
+of int8 operands with ``preferred_element_type=int32`` and the f32
+epilogue). PyTorch has no CUDA int8 convolution, so ``qconv_int8`` launches
+the hand-written kernel ``csrc/qconv.cu`` on a CUDA tensor. On a CPU
+tensor, the caller's explicit choice, it computes ``qconv_int8_reference``,
+the plain PyTorch version. A CUDA tensor never takes the plain version: the
+kernel launches or the call raises.
+
+Layouts: ``xq`` (N, H, W, Cin) int8 (channels last, as the JAX graph's
+NHWC), ``w8`` (Cout, kh, kw, Cin) int8, ``ws`` and ``bias`` (Cout,) f32,
+``s`` the site's activation scale; the output is (N, H, W, Cout).
+``quantize_activation`` is the JAX graph's ``q8``:
+``clip(round(x_f32 / s), -127, 127)``, a true division and rounding half to
+even.
+
+``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
+that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from dgvcc_tpu_torch.ops import _build
+
+LAUNCHES = 0
+_OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def quantize_activation(x: torch.Tensor, s: float) -> torch.Tensor:
+    """int8 of ``clip(round(float32(x) / s), -127, 127)``. ``s`` goes in as a
+    float32 tensor on x's device: a true division (a CPU scalar would let
+    the CUDA division multiply by its reciprocal), rounding half to even."""
+    st = torch.tensor(s, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x.float() / st), -127, 127).to(torch.int8)
+
+
+def conv_acc_reference(xq: torch.Tensor, w8: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    """The int32 accumulator: ``F.conv2d`` in float64 on the int8 values,
+    which is exact (|acc| <= 127^2 kh kw Cin < 2^53), rounded and cast."""
+    y = F.conv2d(xq.permute(0, 3, 1, 2).double(), w8.permute(0, 3, 1, 2).double(),
+                 padding=(dilation * (w8.shape[1] // 2), dilation * (w8.shape[2] // 2)),
+                 dilation=dilation)
+    return torch.round(y).to(torch.int32).permute(0, 2, 3, 1).contiguous()
+
+
+def epilogue_reference(acc: torch.Tensor, ws: torch.Tensor, s: float, bias: torch.Tensor,
+                       relu: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """``float(acc) * (ws * s) + bias``, each product and sum rounded to
+    float32 on its own, then ReLU and the cast (round to nearest even)."""
+    st = torch.tensor(s, dtype=torch.float32, device=acc.device)
+    y = acc.float() * (ws.float() * st)
+    y = y + bias.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
+
+
+def qconv_int8_reference(xq, w8, ws, s, bias, relu: bool = True, dilation: int = 1,
+                         out_dtype: torch.dtype = torch.bfloat16, acc: bool = False):
+    """Plain version of ``qconv_int8`` (same arguments)."""
+    a = conv_acc_reference(xq, w8, dilation)
+    return a if acc else epilogue_reference(a, ws, s, bias, relu, out_dtype)
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("qconv")
+        lib.qconv_int8_fwd.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+            ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib.qconv_int8_fwd.restype = ctypes.c_int
+        lib.qconv_int8_error_string.argtypes = [ctypes.c_int]
+        lib.qconv_int8_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
+               bias: torch.Tensor, relu: bool = True, dilation: int = 1,
+               out_dtype: torch.dtype = torch.bfloat16, acc: bool = False) -> torch.Tensor:
+    """xq (N, H, W, Cin) int8, w8 (Cout, kh, kw, Cin) int8 with odd kh, kw,
+    ws / bias (Cout,) f32, s the activation scale -> y (N, H, W, Cout) in
+    ``out_dtype`` (f32 or bf16). ``acc=True``: the int32 accumulator alone."""
+    global LAUNCHES
+    if xq.dim() != 4 or w8.dim() != 4 or xq.shape[-1] != w8.shape[-1]:
+        raise ValueError(f"qconv_int8: xq {tuple(xq.shape)} and w8 {tuple(w8.shape)} do not "
+                         "form (N, H, W, Cin), (Cout, kh, kw, Cin)")
+    if xq.dtype != torch.int8 or w8.dtype != torch.int8:
+        raise TypeError(f"qconv_int8 takes int8 xq and w8; got {xq.dtype} and {w8.dtype}")
+    cout, kh, kw, cin = w8.shape
+    if kh % 2 == 0 or kw % 2 == 0 or dilation < 1:
+        raise ValueError(f"qconv_int8: a {kh}x{kw} window, dilation {dilation}; SAME padding "
+                         "at stride 1 needs odd windows and dilation >= 1")
+    if not acc and (ws.shape != (cout,) or bias.shape != (cout,)):
+        raise ValueError(f"qconv_int8: ws {tuple(ws.shape)}, bias {tuple(bias.shape)} for "
+                         f"Cout={cout}")
+    if not acc and out_dtype not in _OUT_KIND:
+        raise TypeError(f"qconv_int8 writes f32 or bf16, not {out_dtype}")
+    tensors = (xq, w8) if acc else (xq, w8, ws, bias)
+    if all(t.device.type == "cpu" for t in tensors):
+        return qconv_int8_reference(xq, w8, ws, s, bias, relu, dilation, out_dtype, acc)
+    if xq.device.type != "cuda" or any(t.device != xq.device for t in tensors):
+        raise ValueError("qconv_int8: every tensor must be on one CUDA device, or all on "
+                         "the CPU")
+    n, h, w, _ = xq.shape
+    xq, w8 = xq.contiguous(), w8.contiguous()
+    if not acc:
+        ws = ws.to(torch.float32).contiguous()
+        bias = bias.to(torch.float32).contiguous()
+    out = torch.empty((n, h, w, cout), dtype=torch.int32 if acc else out_dtype,
+                      device=xq.device)
+    lib = _kernel()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.qconv_int8_fwd(
+            xq.data_ptr(), w8.data_ptr(), 0 if acc else ws.data_ptr(),
+            0 if acc else bias.data_ptr(), 0.0 if acc else float(s), out.data_ptr(),
+            n, h, w, cin, cout, kh, kw, dilation, int(relu),
+            2 if acc else _OUT_KIND[out_dtype], stream)
+    if err:
+        raise RuntimeError("qconv_int8 kernel launch failed: "
+                           + lib.qconv_int8_error_string(err).decode())
+    LAUNCHES += 1
+    return out

@@ -11,14 +11,19 @@ Usage:
     for c in counter.stream(frame_batches):       # pipelined streaming
         ...
 
-Only the full-precision path is ported: a device mesh (``mesh`` /
-``shard``) raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 1), as
-do int8 (``quantize``), ``auto_threshold`` and ``from_artifact`` (item 2).
-It serves every counting family of the port: the DG family, the whitening
-counters, the regressors and the classic baselines (a model that predicts
-at a coarser stride is masked at its own grid). For
-the HTTP server (``serve_http.py``) a counter keeps ``quantized`` (None:
-no int8 graph) and ``dispatches``, its batches by precision.
+Int8 serving (``nn/quant.py``): ``quantize=True`` serves the int8 graph,
+calibrated on ``calib_frames`` or lazily on the first batch;
+``quantize="auto"`` keeps both graphs and picks one per dispatch
+(``_prefers_int8``); ``from_artifact`` serves a saved int8 graph
+(``nn/quant_io.py``). The int8 graphs run the hand-written int8 convolution
+(``ops/qconv.py``) through the padded and the tiled path alike. A device
+mesh (``mesh`` / ``shard``) raises ``NotImplementedError`` (ROADMAP.md,
+Queue 1 item 1). It serves every counting family of the port: the DG
+family, the whitening counters, the regressors and the classic baselines
+(a model that predicts at a coarser stride is masked at its own grid); int8
+the DG family and csrnet, mcnn, bl, sasnet and dssinet. For the HTTP server
+(``serve_http.py``) a counter keeps ``quantized`` (None: no int8 graph) and
+``dispatches``, its batches by precision.
 """
 
 from __future__ import annotations
@@ -33,9 +38,17 @@ import torch
 
 from dgvcc_tpu_torch.core.registry import MODELS
 
-_NOT_PORTED = "is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1"
-_PARALLEL = f"{_NOT_PORTED} item 1"
-_INT8 = f"{_NOT_PORTED} item 2"
+_PARALLEL = "is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 1"
+
+# quantize="auto": the smallest dispatch batch at which the int8 graph
+# serves. None: int8 measured faster than bf16 at no batch: DGModel final at
+# 768x1024 served 0.33-0.53x bf16's frames/s at B=1, 4 and 16 on an NVIDIA
+# H100 80GB HBM3 at 700 W (chip_smoke.py phase 14; PERF.md section 2), so
+# "auto" serves bf16 under the default law. An integer auto_threshold opts a
+# deployment into its own per-dispatch batch rule. The JAX package's
+# constants (and its per-pixel floor) were measured on a TPU v5e and are not
+# carried over.
+AUTO_INT8_MIN_BATCH: Optional[int] = None
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -99,23 +112,35 @@ def serving_state_dict(path: str, model: torch.nn.Module):
 class VideoCounter:
     """Batched, shape-bucketed crowd counting over raw uint8 frames."""
 
-    def __init__(self, model: torch.nn.Module, log_para: float = 1000.0,
+    def __init__(self, model: Optional[torch.nn.Module], log_para: float = 1000.0,
                  bucket: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 quantize=False, tile_size: int = 768,
-                 tile_threshold: int = 4096, mesh=None, shard: str = "batch",
-                 auto_threshold: Optional[int] = None, device="cuda"):
-        if quantize:
-            raise NotImplementedError(f"int8 serving (quantize) {_INT8}")
+                 quantize=False, calib_frames: Optional[np.ndarray] = None,
+                 tile_size: int = 768, tile_threshold: int = 4096, mesh=None,
+                 shard: str = "batch", quantized=None,
+                 auto_threshold: Optional[int] = None, device="cuda",
+                 fold_model: Optional[torch.nn.Module] = None):
+        """``fold_model``: the float32 twin of ``model`` whose weights the int8
+        graph folds (``from_checkpoint`` builds one); default ``model``.
+        ``quantized``: a built int8 graph (a loaded artifact); with one,
+        ``model`` may be None, and then the counter holds no fp weights."""
         if mesh is not None or shard != "batch":
             raise NotImplementedError(f"mesh / spatial serving {_PARALLEL}")
-        if auto_threshold is not None:
-            raise NotImplementedError(f"auto_threshold (quantize='auto') {_INT8}")
+        if quantize not in (False, True, "auto"):
+            raise ValueError(f"quantize must be False, True or 'auto'; got {quantize!r}")
+        self.auto = quantize == "auto"
+        if self.auto and quantized is not None:
+            raise ValueError("quantize='auto' needs fp weights; an int8 artifact carries "
+                             "none (serve it with the default quantize)")
+        if model is None and (quantized is None or self.auto):
+            raise ValueError("a counter without a model serves a built int8 graph "
+                             "(quantized=) under the default quantize")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = None if model is None else model.to(self.device).eval()
         if self.device.type == "cuda":
-            # NHWC is the tensor cores' layout, and it makes the memory
-            # bank's (B, P, K) view of its input a free permute
-            self.model.to(memory_format=torch.channels_last)
+            if self.model is not None:
+                # NHWC is the tensor cores' layout, and it makes the memory
+                # bank's (B, P, K) view of its input a free permute
+                self.model.to(memory_format=torch.channels_last)
             self._h2d = torch.cuda.Stream(self.device)
         self.log_para = log_para
         self.bucket = bucket
@@ -124,15 +149,80 @@ class VideoCounter:
         # tile_size x tile_size tiles forwarded as one batch; 0 disables
         self.tile_size = tile_size
         self.tile_threshold = tile_threshold
-        # what the HTTP server reports: no int8 graph, batches by precision
-        self.quantized = None
-        self.dispatches = {"fp": 0, "int8": 0}
+        self.auto_threshold = auto_threshold
+        self.quantized = quantized
+        self._quant_pending = False
+        self._fold_model = None
+        self.dispatches = {"fp": 0, "int8": 0}  # batches by precision
+        if quantize and quantized is None:
+            from dgvcc_tpu_torch.nn.quant import check_quantizable
+
+            check_quantizable(model)
+            self._fold_model = fold_model if fold_model is not None else model
+            if calib_frames is None:
+                self._quant_pending = True
+            else:
+                self._build_quantized(np.asarray(calib_frames))
+
+    def _build_quantized(self, calib_frames: np.ndarray):
+        """Fold, calibrate and quantize on real frames (uint8, or already
+        normalised float). The calibration crop is capped at 768x768 (a
+        multiple of 64), as the JAX counter caps it: the absmax needs
+        representative pixels, not a whole giant frame in f32."""
+        from dgvcc_tpu_torch.nn.quant import build_quantized
+
+        c = np.asarray(calib_frames)
+        if c.dtype == np.uint8:  # the serving normalisation
+            c = (c.astype(np.float32) / 255.0 - 0.5) / 0.5
+        ch, cw = min(c.shape[1], 768), min(c.shape[2], 768)
+        c = c[:, :max(ch - ch % 64, 64), :max(cw - cw % 64, 64)]
+        self.quantized = build_quantized(self._fold_model, c, dtype=self.dtype,
+                                         device=self.device)
+        self._quant_pending = False
+        self._fold_model = None
+
+    def _dispatch_batch(self, frames: np.ndarray) -> int:
+        """The batch of the forward a dispatch runs: its frames, or their
+        tiles."""
+        b, h, w, _ = frames.shape
+        if self.tile_size and max(h, w) > self.tile_threshold:
+            t = self.tile_size
+            return b * math.ceil(h / t) * math.ceil(w / t)
+        return b
+
+    def _family_min_batch(self) -> int:
+        """The graph's own batch floor (an artifact stores it); 1 before
+        calibration (no family the port quantizes has a higher one)."""
+        return getattr(self.quantized, "int8_min_batch", 1)
+
+    def _prefers_int8(self, frames: np.ndarray) -> bool:
+        """quantize="auto"'s choice for this dispatch: int8 from the dispatch
+        batch ``auto_threshold`` (an integer) or else ``AUTO_INT8_MIN_BATCH``
+        (None: never), and never below the graph's own floor."""
+        threshold = (AUTO_INT8_MIN_BATCH if self.auto_threshold is None
+                     else int(self.auto_threshold))
+        if threshold is None:
+            return False
+        return self._dispatch_batch(frames) >= max(threshold, self._family_min_batch())
+
+    def _maybe_calibrate(self, frames: np.ndarray):
+        """Lazy calibration on the first batch; in auto mode only once a
+        dispatch would take the int8 graph."""
+        if not self._quant_pending or (self.auto and not self._prefers_int8(frames)):
+            return
+        self._build_quantized(frames)
+
+    def _select(self, frames: np.ndarray) -> bool:
+        """Whether this dispatch runs the int8 graph; counted by precision."""
+        use_q = self.quantized is not None and (not self.auto or self._prefers_int8(frames))
+        self.dispatches["int8" if use_q else "fp"] += 1
+        return use_q
 
     @classmethod
     def from_checkpoint(cls, model_name: str, ckpt_path: Optional[str] = None,
                         log_para: float = 1000.0, dtype=torch.bfloat16,
-                        quantize=False, tile_size: int = 768,
-                        tile_threshold: int = 4096,
+                        quantize=False, calib_frames: Optional[np.ndarray] = None,
+                        tile_size: int = 768, tile_threshold: int = 4096,
                         mesh=None, shard: str = "batch", bucket: int = 64,
                         auto_threshold: Optional[int] = None, device="cuda",
                         seed: int = 0, **model_params):
@@ -141,26 +231,44 @@ class VideoCounter:
         ``ckpt_path``: a reference DGVCC ``.pth`` or one the port saved
         (same layout; the EMA shadow of its training-state sidecar, when
         there is one, in place of the raw parameters), or the JAX package's
-        ``.ckpt`` (its ``ema_params`` when present)."""
+        ``.ckpt`` (its ``ema_params`` when present). With ``quantize`` the
+        int8 graph folds a float32 twin of the same weights."""
         import dgvcc_tpu_torch.models  # noqa: F401
 
         resolve_device(device)
-        model = MODELS.build(model_name, dtype=dtype, **model_params)
-        if ckpt_path:
-            sd, ema = serving_state_dict(str(ckpt_path), model)
-            if ema:
-                print("[serve ckpt] using EMA-averaged weights")
-            model.load_state_dict(sd, strict=True)
-        else:
-            model.reset_parameters(torch.Generator().manual_seed(seed))
+
+        def build(dt, say=False):
+            model = MODELS.build(model_name, dtype=dt, **model_params)
+            if ckpt_path:
+                sd, ema = serving_state_dict(str(ckpt_path), model)
+                if ema and say:
+                    print("[serve ckpt] using EMA-averaged weights")
+                model.load_state_dict(sd, strict=True)
+            else:
+                model.reset_parameters(torch.Generator().manual_seed(seed))
+            return model
+
+        model = build(dtype, say=True)
+        fold = build(torch.float32) if quantize and dtype != torch.float32 else None
         return cls(model, log_para=log_para, dtype=dtype, quantize=quantize,
-                   tile_size=tile_size,
+                   calib_frames=calib_frames, tile_size=tile_size,
                    tile_threshold=tile_threshold, mesh=mesh, shard=shard,
-                   bucket=bucket, auto_threshold=auto_threshold, device=device)
+                   bucket=bucket, auto_threshold=auto_threshold, device=device,
+                   fold_model=fold)
 
     @classmethod
-    def from_artifact(cls, path: str, **kwargs):
-        raise NotImplementedError(f"int8 serving artifacts {_INT8}")
+    def from_artifact(cls, path: str, log_para: float = 1000.0, dtype=None,
+                      tile_size: int = 768, tile_threshold: int = 4096, mesh=None,
+                      shard: str = "batch", bucket: int = 64, device="cuda"):
+        """Serve a saved int8 artifact (``nn/quant_io.py``): no checkpoint, no
+        calibration frames, no fp weights. ``dtype`` overrides
+        the stored serving dtype (float32 on the CPU)."""
+        from dgvcc_tpu_torch.nn.quant_io import load_quantized
+
+        art = load_quantized(path, dtype=dtype, device=resolve_device(device))
+        return cls(None, log_para=log_para, bucket=bucket, dtype=art.quantized.dtype,
+                   tile_size=tile_size, tile_threshold=tile_threshold, mesh=mesh,
+                   shard=shard, quantized=art.quantized, device=device)
 
     # ---- device-side steps ------------------------------------------------
 
@@ -177,13 +285,18 @@ class VideoCounter:
         return dev
 
     def masked_counts(self, frames_u8: torch.Tensor, vh: torch.Tensor,
-                      vw: torch.Tensor) -> torch.Tensor:
+                      vw: torch.Tensor, use_q: bool = False) -> torch.Tensor:
         """(N, H, W, 3) uint8 -> (N,) counts over each element's valid
-        extent (vh, vw), divided by log_para."""
+        extent (vh, vw), divided by log_para; ``use_q``: through the int8
+        graph (NHWC in and out)."""
         x = frames_u8.permute(0, 3, 1, 2).float() / 255.0
         x = ((x - 0.5) / 0.5).to(self.dtype)  # Normalize(0.5, 0.5)
-        out = self.model(x)
-        d = (out[0] if isinstance(out, tuple) else out).float()
+        if use_q:
+            out = self.quantized(x.permute(0, 2, 3, 1))
+            d = (out[0] if isinstance(out, tuple) else out).permute(0, 3, 1, 2).float()
+        else:
+            out = self.model(x)
+            d = (out[0] if isinstance(out, tuple) else out).float()
         h_idx = torch.arange(d.shape[2], device=d.device)[None, None, :, None]
         w_idx = torch.arange(d.shape[3], device=d.device)[None, None, None, :]
         scale_h = d.shape[2] / frames_u8.shape[1]
@@ -223,16 +336,17 @@ class VideoCounter:
     def _launch(self, frames: np.ndarray) -> _Pending:
         """Dispatch one batch; the counts come back through a pending copy."""
         b, h, w, _ = frames.shape
-        self.dispatches["fp"] += 1
+        self._maybe_calibrate(frames)
+        use_q = self._select(frames)
         with torch.inference_mode():
             dev = self._to_device(frames)
             if self.tile_size and max(h, w) > self.tile_threshold:
                 tiles, vh, vw = self._tile(dev)
-                counts = self.masked_counts(tiles, vh, vw).reshape(b, -1).sum(1)
+                counts = self.masked_counts(tiles, vh, vw, use_q).reshape(b, -1).sum(1)
             else:
                 vh = torch.full((b,), h, device=dev.device)
                 vw = torch.full((b,), w, device=dev.device)
-                counts = self.masked_counts(self._pad(dev), vh, vw)
+                counts = self.masked_counts(self._pad(dev), vh, vw, use_q)
             return _Pending(counts)
 
     # ---- public API -------------------------------------------------------

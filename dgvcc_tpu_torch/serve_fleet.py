@@ -2,13 +2,13 @@
 counterpart of dgvcc_tpu/serve_fleet.py (stdlib only).
 
     python -m dgvcc_tpu_torch.serve_fleet --config cfg.yml --port 8000 \\
-        --replicas 4 --devices 0,1,2,3
+        --replicas 4 --devices 0,1,2,3 [--artifact m.int8 | --quantize [auto] --frames DIR]
 
 Each replica is the command line's HTTP endpoint,
 ``python -m dgvcc_tpu_torch --task serve --http P --batch B [--device D]
-[--ckpt X]``, pinned to its card by ``utils/devices.py::chip_env``
-(``CUDA_VISIBLE_DEVICES``; ``--devices 0,0`` puts two replicas on one
-card). The proxy:
+[--ckpt X] [--artifact A] [--quantize [auto]] [--frames DIR]``, pinned to
+its card by ``utils/devices.py::chip_env`` (``CUDA_VISIBLE_DEVICES``;
+``--devices 0,0`` puts two replicas on one card). The proxy:
 
 - POST /count   -> the next healthy replica, round-robin; a replica that
                    does not answer fails over to the next one within the
@@ -22,9 +22,13 @@ card). The proxy:
   out of the rotation; with ``restart`` it respawns a dead replica on a
   new port, with exponential backoff.
 
-The JAX fleet's ``--aot``, ``--artifact`` and ``--quantize`` (int8 and AOT
-replicas) are not ported (ROADMAP.md, Queue 1 item 2): they are refused
-here, before any replica starts.
+Int8 replicas serve an artifact (``--artifact``, ``--task quantize``'s
+output) or calibrate their own graph (``--quantize [auto]`` with
+``--frames``). ``--quantize auto`` with ``--artifact`` and ``--quantize`` with neither
+frames nor an artifact are refused here, as the command line refuses them,
+and so is the JAX fleet's ``--aot`` (AOT
+replicas are not ported: ROADMAP.md, Queue 1 item 2), before any replica
+starts.
 """
 
 from __future__ import annotations
@@ -46,8 +50,8 @@ from dgvcc_tpu_torch.serve_http import Server
 from dgvcc_tpu_torch.utils.devices import chip_env
 
 _STAT_KEYS = ("frames", "batches", "device_s", "dispatch_fp", "dispatch_int8")
-_NOT_PORTED = ("is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 2 "
-               "(use python -m dgvcc_tpu.serve_fleet for it)")
+_AOT = ("the fleet's --aot is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 "
+        "item 2 (use python -m dgvcc_tpu.serve_fleet for it)")
 
 
 def _free_port() -> int:
@@ -143,11 +147,18 @@ class FleetServer:
                  host: str = "0.0.0.0", batch: int = 4, device: Optional[str] = None,
                  ckpt: Optional[str] = None, restart: bool = False, probe_s: float = 2.0,
                  request_timeout: float = 300.0, aot: Optional[str] = None,
-                 artifact: Optional[str] = None, quantize=False):
-        for flag, value in (("--aot", aot), ("--artifact", artifact),
-                            ("--quantize", quantize)):
-            if value:
-                raise NotImplementedError(f"the fleet's {flag} {_NOT_PORTED}")
+                 artifact: Optional[str] = None, quantize=False,
+                 frames_dir: Optional[str] = None):
+        if aot:
+            raise NotImplementedError(_AOT)
+        if artifact and quantize == "auto":
+            # fail in the parent, not in N replicas' crash loops: an int8
+            # artifact has no fp weights for auto's bf16 dispatches
+            raise ValueError("--quantize auto cannot serve an --artifact: the int8 artifact "
+                             "has no fp weights for the bf16 path")
+        if quantize is True and not artifact and not frames_dir:
+            raise ValueError("--quantize without --artifact needs --frames DIR for scale "
+                             "calibration")
         if devices and len(devices) != replicas:
             raise ValueError(f"--devices lists {len(devices)} ids for {replicas} replicas")
         self.restart = restart
@@ -165,6 +176,12 @@ class FleetServer:
                 cmd += ["--device", device]
             if ckpt:
                 cmd += ["--ckpt", ckpt]
+            if artifact:
+                cmd += ["--artifact", artifact]
+            if quantize:
+                cmd += ["--quantize"] + (["auto"] if quantize == "auto" else [])
+            if frames_dir:
+                cmd += ["--frames", frames_dir]
             return cmd
 
         self.replicas = [Replica(make_cmd, chip_env(devices[i] if devices else None),
@@ -391,11 +408,12 @@ def main(argv=None) -> int:
     ap.add_argument("--restart", action="store_true", help="respawn dead replicas")
     ap.add_argument("--probe-s", type=float, default=2.0)
     ap.add_argument("--aot", default=None, help="not ported (ROADMAP.md, Queue 1 item 2)")
-    ap.add_argument("--artifact", default=None,
-                    help="not ported (ROADMAP.md, Queue 1 item 2)")
+    ap.add_argument("--artifact", default=None, help="an int8 artifact for every replica")
     ap.add_argument("--quantize", nargs="?", const=True, default=False,
                     choices=[True, False, "auto"], metavar="auto",
-                    help="not ported (ROADMAP.md, Queue 1 item 2)")
+                    help="int8 replicas; 'auto' picks int8 or bf16 per dispatch in each")
+    ap.add_argument("--frames", default=None,
+                    help="calibration imagery directory (with --quantize)")
     args = ap.parse_args(argv)
     try:
         fleet = FleetServer(
@@ -403,7 +421,7 @@ def main(argv=None) -> int:
             devices=args.devices.split(",") if args.devices else None,
             port=args.port, batch=args.batch, device=args.device, ckpt=args.ckpt,
             restart=args.restart, probe_s=args.probe_s, aot=args.aot,
-            artifact=args.artifact, quantize=args.quantize)
+            artifact=args.artifact, quantize=args.quantize, frames_dir=args.frames)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     fleet.serve_forever()

@@ -20,7 +20,10 @@ f32, 1e-2 in bf16. The density-map kernel: atol 1e-5 / rtol 1e-4 against
 its plain version and the numpy golden (f32, other summation order). The
 paths without a kernel of their own, in bf16 on the card against f32 on the
 CPU: the joint step's loss parts 2e-2, the classic baselines' served counts
-2e-2 of the map's mass; the Bayesian loss on the same values 1e-4.
+2e-2 of the map's mass; the Bayesian loss on the same values 1e-4. The int8
+convolution (csrc/qconv.cu): its int32 accumulator against the float64
+convolution, and its f32 and bf16 outputs against the plain epilogue on
+that accumulator, bit for bit.
 """
 
 import pytest
@@ -875,3 +878,54 @@ def test_2d_step_on_four_ranks_matches_the_1d_step(cuda, tmp_path):
         num = sum(float((g2[n] - g1[n]).norm() ** 2) for n in g1)
         den = sum(float(g1[n].norm() ** 2) for n in g1)
         assert (num / den) ** 0.5 <= 1e-3
+
+
+# the int8 convolution's edges: Cin 3 (enc1/conv0's), 16 and 67 (the byte
+# path), Cout 1 and 67 (ragged channel tiles), odd H and W, 1x1 windows,
+# dilation 2 (CSRNet's back end), rows below one 128-pixel tile
+QCONV_EDGES = [(1, 37, 53, 3, 64, 3, 1), (2, 17, 9, 16, 1, 3, 1), (1, 31, 29, 67, 67, 3, 1),
+               (2, 33, 35, 64, 67, 1, 1), (1, 45, 39, 128, 96, 3, 2), (1, 5, 7, 512, 512, 3, 1),
+               (3, 1, 1, 64, 8, 3, 2)]
+
+
+def _qconv_case(device, n, h, w, cin, cout, k, seed):
+    g = torch.Generator().manual_seed(seed)
+    xq = torch.randint(-127, 128, (n, h, w, cin), generator=g, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (cout, k, k, cin), generator=g, dtype=torch.int8)
+    ws = torch.rand(cout, generator=g) * 1e-3
+    bias = torch.randn(cout, generator=g)
+    return [t.to(device) for t in (xq, w8, ws, bias)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k,dil", QCONV_EDGES)
+def test_qconv_int8_matches_plain_bit_for_bit(cuda, n, h, w, cin, cout, k, dil):
+    """The int32 accumulator equal to the float64 convolution's; the f32 and
+    bf16 outputs equal to the plain epilogue's on that accumulator (the
+    kernel rounds as the JAX graph does: no FMA, bf16 to nearest even)."""
+    from dgvcc_tpu_torch.ops import qconv
+
+    xq, w8, ws, bias = _qconv_case(cuda, n, h, w, cin, cout, k, n * h + w * cin + cout)
+    s = 0.0123
+    before = qconv.LAUNCHES
+    acc = qconv.qconv_int8(xq, w8, None, s, None, dilation=dil, acc=True)
+    ref = qconv.conv_acc_reference(xq, w8, dil)
+    torch.cuda.synchronize()
+    assert qconv.LAUNCHES == before + 1
+    assert acc.dtype == torch.int32 and torch.equal(acc, ref)
+    for dtype in (torch.float32, torch.bfloat16):
+        for relu in (True, False):
+            y = qconv.qconv_int8(xq, w8, ws, s, bias, relu=relu, dilation=dil, out_dtype=dtype)
+            want = qconv.epilogue_reference(ref, ws, s, bias, relu, dtype)
+            assert y.dtype == dtype and torch.equal(y, want)
+
+
+def test_qconv_int8_rejects_what_it_cannot_take(cuda):
+    from dgvcc_tpu_torch.ops import qconv
+
+    xq, w8, ws, bias = _qconv_case(cuda, 1, 8, 8, 16, 8, 3, 0)
+    with pytest.raises(TypeError):
+        qconv.qconv_int8(xq.float(), w8, ws, 0.1, bias)
+    with pytest.raises(ValueError):
+        qconv.qconv_int8(xq, w8[:, :2], ws, 0.1, bias)  # an even window
+    with pytest.raises(ValueError):
+        qconv.qconv_int8(xq, w8.cpu(), ws, 0.1, bias)

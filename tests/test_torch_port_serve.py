@@ -61,12 +61,16 @@ def test_pad_and_tile_geometry():
 
 
 def test_unported_options_raise_with_a_pointer():
-    for kw in (dict(quantize=True), dict(quantize="auto"), dict(shard="spatial"),
-               dict(mesh=object()), dict(auto_threshold=8)):
+    """A mesh is Queue 1 item 1's; int8 serving is ported (test_torch_port_quant_io.py)
+    and refuses a model it cannot fold, and an artifact that is not there."""
+    for kw in (dict(shard="spatial"), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             VideoCounter(torch.nn.Identity(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VideoCounter.from_artifact("x.int8")
+    for kw in (dict(quantize=True), dict(quantize="auto"), dict(quantize="int4")):
+        with pytest.raises(ValueError):
+            VideoCounter(torch.nn.Identity(), device="cpu", **kw)
+    with pytest.raises(FileNotFoundError):
+        VideoCounter.from_artifact("x.int8", device="cpu")
 
 
 def test_from_checkpoint_loads_a_pth_strictly(tmp_path, pair):

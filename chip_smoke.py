@@ -12,7 +12,9 @@ Phases, each of which exits non-zero on failure:
    kernel, of the training forward and of the training backward's rows
    and cols kernels must hold wgmma fed by TMA (SASS, body by body: HGMMA
    and UTMALDG, no HMMA) with no serialised wgmma (ptxas C7512, C7514)
-   and no spill at K=256;
+   and no spill at K=256; so must the 13 kernels of the int8 convolution
+   (s8 wgmma: IGMMA and UTMALDG, no IMMA or HMMA, no C7512, C7514 or
+   spill);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it: the serving kernel at K=256, S=1024,
    P=192*256 per 768x1024 frame, B=4, and in bf16 at its edges (rows
@@ -187,9 +189,12 @@ Phases, each of which exits non-zero on failure:
    ``pl.pallas_call``): full-width `final` (seed 0, bf16) folded,
    calibrated on 8 seeded 768x1024 frames and quantized (21 int8 sites);
    the kernel against its plain version at every int8 site of a B=1
-   768x1024 forward (its real inputs) and at QCONV_EDGES (Cin 3, 16, 67,
-   Cout 1, 67, odd H / W, 1x1, dilation 2): int32 accumulators and outputs
-   bit for bit; ``count_frames`` at B=1, 4, 16 and ``stream`` against the
+   768x1024 forward (its real inputs; each site's schedule logged), at
+   QCONV_EDGES (Cin 3, 16, 32, 67, 192, Cout 1, 8, 67, 130, 300, H / W off
+   the tiles, a 1x1 image, 1x1 windows, dilation 2, N = 3) and at one
+   sasnet and one dssinet site (QCONV_FAMILY_SITES, their real inputs):
+   int32 accumulators and outputs bit for bit; ``count_frames`` at B=1, 4,
+   16 and ``stream`` against the
    bf16 path (max(2e-2, 1.5 x the JAX package's own int8 drift) of the map's
    mass, INT8_DRIFT), the weight-only graph likewise; #1 and the int8 kernel
    launched; ``--task quantize`` on phase 6's JPEGs (in the background),
@@ -198,8 +203,11 @@ Phases, each of which exits non-zero on failure:
    artifact (``/stats`` dispatch_int8 > 0); csrnet, bl, sasnet and dssinet
    int8 at B=4 against bf16 (the same gate rule) and mcnn with no int8
    site; frames/s int8 against bf16 at B=1, 4, 16 in turns; the device time
-   of the int8 sites of a B=4 forward against cuDNN's bf16 convolution at
-   the same shapes, and the three heaviest sites against their bound.
+   (median of 20 calls with a cold L2, CUDA events: ``device_ms_cold``) of
+   the int8 sites of a B=4 forward, whose shapes must be FINAL_INT8_SITES',
+   against cuDNN's bf16 convolution at the same shapes, and the three
+   heaviest sites, on the seeded inputs scripts/sweep_qconv.py times, against
+   their bound at the site's own Cin.
 
 Each phase's seconds and the total are printed before the result lines.
 The line before the last is a JSON object with one entry per kernel; the
@@ -207,6 +215,7 @@ last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repo, the script exits non-zero and prints no result.
 """
 
+import collections
 import contextlib
 import glob
 import io
@@ -375,9 +384,12 @@ MMA_SYNC_BF16_ERR = 1.793e-3  # the earlier mma.sync kernel's, B=4 (PERF.md)
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")
+# the int8 kernels: wgmma with s8 operands is IGMMA in SASS (HGMMA is its
+# f16 / bf16 form), mma.sync with s8 operands IMMA
+SASS_OPS_INT8 = ("IGMMA", "HGMMA", "UTMALDG", "IMMA", "HMMA")
 
 
-def sass_counts(sass, pattern):
+def sass_counts(sass, pattern, ops=SASS_OPS):
     """{function name: {op: count}} of the function bodies of ``cuobjdump
     -sass`` text whose (mangled) name matches the regular expression
     ``pattern``, counted body by body."""
@@ -385,26 +397,28 @@ def sass_counts(sass, pattern):
     for f in re.split(r"\n\s*Function : ", sass)[1:]:
         name = f.splitlines()[0].strip()
         if re.search(pattern, name):
-            bodies[name] = {op: len(re.findall(rf"\b{op}\b", f)) for op in SASS_OPS}
+            bodies[name] = {op: len(re.findall(rf"\b{op}\b", f)) for op in ops}
     return bodies
 
 
-def wgmma_tma_faults(bodies, n_expected):
+def wgmma_tma_faults(bodies, n_expected, gmma="HGMMA", banned=("HMMA",)):
     """What in ``sass_counts`` shows a kernel off wgmma fed by TMA: a count
-    of bodies other than ``n_expected``, a body without HGMMA or UTMALDG,
-    or one with HMMA (mma.sync)."""
+    of bodies other than ``n_expected``, a body without ``gmma`` (HGMMA;
+    IGMMA for s8) or UTMALDG, or one with an op of ``banned`` (mma.sync:
+    HMMA; IMMA too for s8)."""
     faults = [] if len(bodies) == n_expected else [
         f"{len(bodies)} function bodies, expected {n_expected}"]
     for name, c in bodies.items():
-        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+        if not c[gmma] or not c["UTMALDG"] or any(c[op] for op in banned):
             faults.append(f"{name}: {c}")
     return faults
 
 
-def check_sass(lib, pattern, n_expected, what):
-    """The bf16 kernels of ``lib`` whose names match ``pattern`` run on
-    wgmma fed by TMA: every one of their SASS bodies holds HGMMA and
-    UTMALDG and no HMMA. Returns the counts summed over those bodies."""
+def check_sass(lib, pattern, n_expected, what, int8=False):
+    """The bf16 (``int8``: s8) kernels of ``lib`` whose names match
+    ``pattern`` run on wgmma fed by TMA: every one of their SASS bodies
+    holds HGMMA (IGMMA) and UTMALDG and no HMMA (and no IMMA). Returns the
+    counts summed over those bodies."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -413,12 +427,15 @@ def check_sass(lib, pattern, n_expected, what):
         fail(f"cuobjdump not found: the SASS of {what} cannot be checked")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    bodies = sass_counts(sass, pattern)
-    counts = {op: sum(c[op] for c in bodies.values()) for op in SASS_OPS}
-    log(f"SASS of {os.path.basename(lib)}, {len(bodies)} bf16 kernels of {what}: {counts}")
-    faults = wgmma_tma_faults(bodies, n_expected)
+    ops = SASS_OPS_INT8 if int8 else SASS_OPS
+    kind = "s8" if int8 else "bf16"
+    bodies = sass_counts(sass, pattern, ops)
+    counts = {op: sum(c[op] for c in bodies.values()) for op in ops}
+    log(f"SASS of {os.path.basename(lib)}, {len(bodies)} {kind} kernels of {what}: {counts}")
+    faults = (wgmma_tma_faults(bodies, n_expected, "IGMMA", ("IMMA", "HMMA")) if int8
+              else wgmma_tma_faults(bodies, n_expected))
     if faults:
-        fail(f"{what}: bf16 build does not run on wgmma fed by TMA: {'; '.join(faults)}")
+        fail(f"{what}: {kind} build does not run on wgmma fed by TMA: {'; '.join(faults)}")
     return counts
 
 
@@ -3618,10 +3635,32 @@ def _mesh_phase(tmp, gpu):
 # int32 accumulator and the bf16 output bit for bit, at every int8 site of
 # `final` at 768x1024 B=1 (its real inputs) and at edge shapes
 PEAK_INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
+# (N, H, W, Cin, Cout, k, dilation): Cin 3 and 67 (padded to 16 and 80),
+# 16 and 32 (32-byte K steps), 192 (three 64-byte chunks); Cout 1, 8, 67,
+# 130, 300 (ragged channel tiles); W 100, 130 and H 45, 37 that the pixel
+# tiles do not divide; a 1x1 image; 1x1 windows; dilation 2; N = 3
 QCONV_EDGES = ((1, 37, 53, 3, 64, 3, 1), (2, 17, 9, 16, 1, 3, 1), (1, 31, 29, 67, 67, 3, 1),
                (2, 33, 35, 64, 67, 1, 1), (1, 45, 39, 128, 96, 3, 2), (1, 5, 7, 512, 512, 3, 1),
-               (3, 1, 1, 64, 8, 3, 2))   # (N, H, W, Cin, Cout, k, dilation)
-INT8_SITES_FINAL = 21               # 13 encoder, 6 decoder convolutions, den_dec, cls_conv1
+               (3, 1, 1, 64, 8, 3, 2), (2, 45, 100, 64, 64, 3, 1), (1, 19, 70, 32, 64, 3, 1),
+               (1, 24, 40, 256, 300, 3, 1), (1, 13, 21, 192, 128, 3, 1),
+               (3, 50, 130, 128, 130, 3, 2))
+QCONV_BODIES = 13                   # 9 per-tap and 4 halo kernels in csrc/qconv.cu
+# one site each of sasnet and dssinet held bit for bit too: the first int8
+# call of a B=1 forward whose weights match (kh, kw, Cin), shapes final has not
+QCONV_FAMILY_SITES = {"sasnet": (5, 5, None), "dssinet": (1, 1, 768)}
+# (H, W, Cin, Cout, k) of final's 21 int8 sites at 768x1024, in call order:
+# the 13 encoder convolutions, 6 decoder ones, den_dec (1x1), cls_conv1;
+# phase 14 holds a forward's recorded sites to it (Cin 3 arrives padded to 16)
+FINAL_INT8_SITES = ((768, 1024, 3, 64, 3), (768, 1024, 64, 64, 3), (384, 512, 64, 128, 3),
+                    (384, 512, 128, 128, 3), (192, 256, 128, 256, 3), (192, 256, 256, 256, 3),
+                    (192, 256, 256, 256, 3), (96, 128, 256, 512, 3), (96, 128, 512, 512, 3),
+                    (96, 128, 512, 512, 3), (48, 64, 512, 512, 3), (48, 64, 512, 512, 3),
+                    (48, 64, 512, 512, 3), (48, 64, 512, 1024, 3), (48, 64, 1024, 512, 3),
+                    (96, 128, 1024, 512, 3), (96, 128, 512, 256, 3), (192, 256, 512, 256, 3),
+                    (192, 256, 256, 128, 3), (192, 256, 896, 256, 1), (48, 64, 512, 256, 3))
+INT8_SITES_FINAL = len(FINAL_INT8_SITES)
+QCONV_CALLS = 20                    # calls a site's device-time median is over
+L2_FLUSH_BYTES = 256 << 20          # read before each timed call: five times the 50 MB L2
 INT8_CALIB = 8                      # seeded calibration frames (768x1024; cropped to 768^2)
 INT8_BATCHES = (1, 4, 16)
 INT8_BASELINES = ("csrnet", "bl", "sasnet", "dssinet")
@@ -3640,14 +3679,79 @@ def int8_gate(name):
     return max(2e-2, 1.5 * INT8_DRIFT[name])
 
 
-def _site_bound_ms(xq, w8, out_dtype):
-    n, h, w, cin = xq.shape
-    cout, kh, kw, _ = w8.shape
-    ops = 2.0 * n * h * w * cout * kh * kw * cin
-    nbytes = (xq.numel() + w8.numel() + n * h * w * cout * torch.empty((), dtype=out_dtype)
-              .element_size() + 8 * cout)
+def qconv_bound_ms(n, h, w, cin, cout, k, out_bytes=2):
+    """The least time of one int8 convolution on the card: 2 N H W Cout k^2
+    Cin operations at the dense int8 peak, or the bytes (xq and w8 read once,
+    the output written once, ws and bias) at the HBM rate, whichever is
+    longer, at the site's own Cin (not the padded one). Returns (ms, "bytes"
+    or "operations", operations)."""
+    ops = 2.0 * n * h * w * cout * k * k * cin
+    nbytes = n * h * w * cin + cout * k * k * cin + n * h * w * cout * out_bytes + 8 * cout
     b_ops, b_bytes = 1e3 * ops / PEAK_INT8_OPS, 1e3 * nbytes / PEAK_HBM_BYTES
     return max(b_ops, b_bytes), ("operations" if b_ops >= b_bytes else "bytes"), ops
+
+
+def qconv_site(n, h, w, cin, cout, k, seed, dilation=1, relu=True, out_dtype=torch.bfloat16):
+    """Seeded int8 inputs of one qconv_int8 call on the card, as its
+    keyword arguments."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return dict(xq=torch.randint(-127, 128, (n, h, w, cin), generator=g, device="cuda",
+                                 dtype=torch.int8),
+                w8=torch.randint(-127, 128, (cout, k, k, cin), generator=g, device="cuda",
+                                 dtype=torch.int8),
+                ws=torch.rand(cout, generator=g, device="cuda") * 1e-3, s=0.0123,
+                bias=torch.randn(cout, generator=g, device="cuda"), relu=relu,
+                dilation=dilation, out_dtype=out_dtype)
+
+
+def final_site(i, b):
+    """final's int8 site ``i`` (FINAL_INT8_SITES) at batch ``b`` on seeded
+    random inputs: the inputs phase 14's kernel time and
+    scripts/sweep_qconv.py time."""
+    h, w, cin, cout, k = FINAL_INT8_SITES[i]
+    return qconv_site(b, h, w, cin, cout, k, 1600 + i)
+
+
+def check_final_sites(calls):
+    """Fail unless a forward's recorded int8 site calls have the shapes of
+    FINAL_INT8_SITES (Cin padded to a multiple of 16)."""
+    got = [(c["xq"].shape[1], c["xq"].shape[2], c["xq"].shape[3], c["w8"].shape[0],
+            c["w8"].shape[1], c["w8"].shape[2]) for c in calls]
+    want = [(h, w, -(-cin // 16) * 16, cout, k, k) for h, w, cin, cout, k in FINAL_INT8_SITES]
+    if got != want:
+        fail(f"int8 final's site calls have the shapes {got}, not FINAL_INT8_SITES's {want}")
+
+
+def device_ms_cold(fn, calls=QCONV_CALLS):
+    """Median device time of one call of ``fn`` with a cold L2, in ms.
+    Before each call a 256 MB buffer is read (a sum), which evicts what the
+    call before it left in L2 and writes its dirty lines back outside the
+    timed span; a CUDA event pair brackets the call alone. The calls are
+    queued behind a spin kernel that must still be running when the last
+    one is queued (else they are taken again behind a spin twice as long),
+    so that the events time the card and not the host's launches."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    cycles = 400_000 * calls
+    for _ in range(4):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(calls)]
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        spun.record()
+        for start, end in pairs:
+            flush.sum()
+            start.record()
+            fn()
+            end.record()
+        ahead = not spun.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return float(np.median([start.elapsed_time(end) for start, end in pairs]))
+        cycles *= 2
+    raise RuntimeError(f"the host queued {calls} calls more slowly than a spin of {cycles // 2} "
+                       "cycles ran")
 
 
 @contextlib.contextmanager
@@ -3754,25 +3858,21 @@ def int8_phase(ma, counter, tmp, gpu):
     t0 = time.perf_counter()
     with recording_sites() as calls, torch.inference_mode():
         q_counter.count_frames(frames[:1])
-    if len(calls) != INT8_SITES_FINAL:
-        fail(f"a B=1 int8 forward made {len(calls)} int8 site calls, not {INT8_SITES_FINAL}")
+    check_final_sites(calls)
     with torch.inference_mode():
         for site in calls:
             check_qconv(qc, site)
         for i, (n, h, w, cin, cout, k, dil) in enumerate(QCONV_EDGES):
-            g = torch.Generator(device="cuda").manual_seed(1400 + i)
-            site = dict(xq=torch.randint(-127, 128, (n, h, w, cin), generator=g, device="cuda",
-                                         dtype=torch.int8),
-                        w8=torch.randint(-127, 128, (cout, k, k, cin), generator=g,
-                                         device="cuda", dtype=torch.int8),
-                        ws=torch.rand(cout, generator=g, device="cuda") * 1e-3, s=0.0123,
-                        bias=torch.randn(cout, generator=g, device="cuda"), relu=bool(i % 2),
-                        dilation=dil, out_dtype=torch.bfloat16 if i % 3 else torch.float32)
-            check_qconv(qc, site)
+            check_qconv(qc, qconv_site(n, h, w, cin, cout, k, 1400 + i, dilation=dil,
+                                       relu=bool(i % 2),
+                                       out_dtype=torch.bfloat16 if i % 3 else torch.float32))
+    schedules = collections.Counter(
+        qc.plan(c["xq"].shape, c["w8"].shape, c["dilation"])["schedule"] for c in calls)
     log(f"qconv_int8 against its plain version: the {len(calls)} sites of a B=1 768x1024 "
-        f"forward (Cin {sorted({c['xq'].shape[-1] for c in calls})}) and "
-        f"{len(QCONV_EDGES)} edge shapes (Cin 3, 16, 67; Cout 1, 67; odd H, W; 1x1; "
-        f"dilation 2): int32 accumulators and outputs bit for bit, "
+        f"forward (Cin {sorted({c['xq'].shape[-1] for c in calls})}; schedules "
+        f"{dict(schedules)}) and {len(QCONV_EDGES)} edge shapes (Cin 3, 16, 32, 67, 192; "
+        f"Cout 1, 8, 67, 130, 300; H, W off the tiles; a 1x1 image; 1x1 windows; "
+        f"dilation 2; N = 3): int32 accumulators and outputs bit for bit, "
         f"{time.perf_counter() - t0:.1f}s")
 
     # ---- counts against the bf16 path, launches of #1 and the int8 kernel
@@ -3889,16 +3989,36 @@ def int8_phase(ma, counter, tmp, gpu):
     del inproc, art_counter, wo
     torch.cuda.empty_cache()
 
-    # ---- the conv families at B=4: int8 against bf16, frames/s; mcnn none
-    fam = {}
+    # ---- the conv families at B=4: int8 against bf16, frames/s; mcnn none.
+    # Each family's launches are counted from zero just before its own run,
+    # after the check of its site
+    fam, family_sites = {}, {}
     f4 = np.ascontiguousarray(frames[:4])
-    ma.LAUNCHES = qc.LAUNCHES = 0
+    baseline_launches = 0
     for name in INT8_BASELINES:
         t0 = time.perf_counter()
         bf16 = VideoCounter.from_checkpoint(name, None, dtype=torch.bfloat16, seed=11)
         qn = VideoCounter.from_checkpoint(name, None, dtype=torch.bfloat16, seed=11,
                                           quantize=True, calib_frames=calib)
         with torch.inference_mode():
+            if name in QCONV_FAMILY_SITES:
+                # one of the family's sites on its real input, bit for bit
+                kh, kw, cin = QCONV_FAMILY_SITES[name]
+                with recording_sites() as fcalls:
+                    qn.count_frames(f4[:1])
+                site = next((c for c in fcalls if c["w8"].shape[1:3] == (kh, kw)
+                             and cin in (None, c["w8"].shape[3])), None)
+                if site is None:
+                    fail(f"int8 {name}: no site with a {kh}x{kw} window and Cin {cin}")
+                check_qconv(qc, site)
+                family_sites[name] = dict(xq=list(site["xq"].shape),
+                                          w8=list(site["w8"].shape),
+                                          plan=qc.plan(site["xq"].shape, site["w8"].shape,
+                                                       site["dilation"]))
+                log(f"qconv_int8 against its plain version at a {name} site, xq "
+                    f"{family_sites[name]['xq']} w8 {family_sites[name]['w8']} "
+                    f"({family_sites[name]['plan']}): bit for bit")
+            ma.LAUNCHES = qc.LAUNCHES = 0
             err = _check_int8_counts(
                 f"int8 {name} count_frames B=4 768x1024 ({len(qn.quantized.int8_sites())} int8 "
                 f"sites of {len(qn.quantized.sites)})", qn.count_frames(f4),
@@ -3910,14 +4030,15 @@ def int8_phase(ma, counter, tmp, gpu):
                 for _ in range(3):
                     c.count_frames(f4)
                 fps.setdefault(label, []).append(12 / (time.perf_counter() - t1))
+            baseline_launches += qc.LAUNCHES
         fam[name] = dict(err=err, fps=fps)
         log(f"serve {name} B=4 768x1024 in turns (bf16, int8, int8, bf16): int8 "
             f"{[round(v, 2) for v in fps['int8']]}, bf16 {[round(v, 2) for v in fps['bf16']]} "
             f"frames/s; {time.perf_counter() - t0:.1f}s [{gpu}]")
         del bf16, qn
         torch.cuda.empty_cache()
-    launches["int8 baselines"] = {"qconv_int8": qc.LAUNCHES}
-    if qc.LAUNCHES == 0:
+    launches["int8 baselines"] = {"qconv_int8": baseline_launches}
+    if baseline_launches == 0:
         fail("the int8 baselines never launched the int8 kernel")
     mcnn = pq.build_quantized(MODELS.build("mcnn"), calib[:1, :256, :256].astype(np.float32)
                               / 127.5 - 1.0)
@@ -3945,43 +4066,74 @@ def int8_phase(ma, counter, tmp, gpu):
                 f"int8 {[round(v, 2) for v in fps[b]['int8']]}, bf16 "
                 f"{[round(v, 2) for v in fps[b]['bf16']]} frames/s [{gpu}]")
 
-        # device time of the int8 sites of one B=4 forward against cuDNN's bf16
-        # convolution at the same shapes (CUDA events over repeated calls)
+        # device time of the int8 sites of one B=4 forward, on their real
+        # activations, against cuDNN's bf16 convolution at the same shapes;
+        # the three heaviest also on the seeded inputs scripts/sweep_qconv.py
+        # times them on (final_site), which give the kernels line's numbers.
+        # Each with a cold L2 (device_ms_cold)
         with recording_sites() as calls4:
             q_counter.count_frames(np.ascontiguousarray(frames[:4]))
-        rows = []
-        for site in calls4:
-            xq, w8 = site["xq"], site["w8"]
-            k = w8.shape[1]
+        check_final_sites(calls4)
+
+        def timed(site):
+            xq, w8, k, dil = site["xq"], site["w8"], site["w8"].shape[1], site["dilation"]
             xb = (xq.float() * site["s"]).to(torch.bfloat16).permute(0, 3, 1, 2)
             wb = w8.to(torch.bfloat16).permute(0, 3, 1, 2)
-            ms = cuda_ms(lambda: qc.qconv_int8(**site), 3, warmup=1)
-            lib = cuda_ms(lambda: torch.nn.functional.conv2d(
-                xb, wb, padding=site["dilation"] * (k // 2), dilation=site["dilation"]), 3,
-                warmup=2)
-            bound, by, ops = _site_bound_ms(xq, w8, site["out_dtype"])
-            rows.append(dict(shape=(tuple(xq.shape), tuple(w8.shape), site["dilation"]),
-                             ms=ms, library_ms=lib, bound_ms=bound, bound_by=by, ops=ops,
-                             site=site))
+            return (device_ms_cold(lambda: qc.qconv_int8(**site)),
+                    device_ms_cold(lambda: torch.nn.functional.conv2d(
+                        xb, wb, padding=dil * (k // 2), dilation=dil)))
+
+        rows = []
+        for i, site in enumerate(calls4):
+            h, w, cin, cout, k = FINAL_INT8_SITES[i]
+            ms, lib = timed(site)
+            bound, by, ops = qconv_bound_ms(4, h, w, cin, cout, k)
+            rows.append(dict(index=i, shape=(4, h, w, cin, cout, k), ms=ms, library_ms=lib,
+                             bound_ms=bound, bound_by=by, ops=ops,
+                             plan=qc.plan(site["xq"].shape, site["w8"].shape)))
         total, total_lib = sum(r["ms"] for r in rows), sum(r["library_ms"] for r in rows)
-        log(f"int8 sites of one B=4 768x1024 forward: {len(rows)} qconv_int8 calls "
-            f"{total:.3f} ms of device time, cuDNN bf16 convolutions at the same shapes "
-            f"{total_lib:.3f} ms; bound {sum(r['bound_ms'] for r in rows):.3f} ms [{gpu}]")
+        log(f"int8 sites of one B=4 768x1024 forward on its activations: {len(rows)} "
+            f"qconv_int8 calls {total:.3f} ms of device time, cuDNN bf16 convolutions at the "
+            f"same shapes {total_lib:.3f} ms ({total / total_lib:.2f}x); bound "
+            f"{sum(r['bound_ms'] for r in rows):.3f} ms (median of {QCONV_CALLS} calls each, "
+            f"L2 cold) [{gpu}]")
+        for r in rows:
+            log(f"  site {r['index']:2d} {r['shape']}: {r['ms']:.4f} ms, cuDNN bf16 "
+                f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}); "
+                f"{r['plan']}")
+        below = [r["index"] for r in rows if r["ms"] < r["bound_ms"]]
+        if below:
+            log(f"WARNING: sites {below} read below their bound")
         heavy = sorted(rows, key=lambda r: -r["ops"])[:3]
         for r in heavy:
-            r["plain_ms"] = cuda_ms(lambda: qc.qconv_int8_reference(**r["site"]), 2, warmup=1)
-            log(f"qconv_int8 {r['shape']} B=4: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            seeded = final_site(r["index"], 4)
+            r["ms_activations"], r["library_ms_activations"] = r["ms"], r["library_ms"]
+            r["ms"], r["library_ms"] = timed(seeded)
+            r["plain_ms"] = cuda_ms(lambda: qc.qconv_int8_reference(**seeded), 2, warmup=1)
+            log(f"qconv_int8 site {r['index']} {r['shape']} on seeded inputs: {r['ms']:.4f} ms "
+                f"(on the activations {r['ms_activations']:.4f}), bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}; {r['ops'] / r['ms'] / 1e9:.1f} TOP/s achieved), plain "
-                f"{r['plain_ms']:.4f} ms, cuDNN bf16 {r['library_ms']:.4f} ms [{gpu}]")
+                f"{r['plain_ms']:.4f} ms, cuDNN bf16 {r['library_ms']:.4f} ms "
+                f"({r['ms'] / r['library_ms']:.2f}x) [{gpu}]")
+            del seeded
     h = heavy[0]
+    b, hh, ww, cin, cout, k = h["shape"]
     entry = dict(ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
                  bound_by=h["bound_by"], library_ms=h["library_ms"],
-                 shape={"xq": list(h["shape"][0]), "w8": list(h["shape"][1]),
-                        "dilation": h["shape"][2], "out": "bfloat16"},
+                 ms_activations=h["ms_activations"],
+                 shape={"xq": [b, hh, ww, cin], "w8": [cout, k, k, cin], "dilation": 1,
+                        "out": "bfloat16"},
+                 timing=f"median of {QCONV_CALLS} calls, L2 cold (device_ms_cold)",
                  sites_ms_b4=total, sites_library_ms_b4=total_lib,
-                 heaviest=[dict(shape=r["shape"], ms=r["ms"], bound_ms=r["bound_ms"],
-                                plain_ms=r["plain_ms"], library_ms=r["library_ms"])
+                 heaviest=[{key: r[key] for key in ("index", "shape", "ms", "ms_activations",
+                                                    "library_ms", "library_ms_activations",
+                                                    "bound_ms", "plain_ms", "plan")}
                            for r in heavy],
+                 sites_b4=[dict(index=r["index"], shape=r["shape"], ms=r["ms"],
+                                library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                                schedule=r["plan"]["schedule"])
+                           for r in rows],
+                 family_sites=family_sites,
                  fps={str(b): v for b, v in fps.items()}, count_errs=errs,
                  families={k: v["fps"] for k, v in fam.items()})
     log(f"phase 14 (int8 serving): {time.perf_counter() - t_phase:.1f}s")
@@ -4037,8 +4189,16 @@ def main():
                           "kernel #2")
     check_sass(str(_build.library_path("mem_attention_train")), "mat_bwd_(rows|cols)_bf16", 4,
                "kernel #3")
-    ptxas_qconv = _build.ptxas_report(_build.build_log("qconv"), "qconv_kernelILb1ELi1E")
-    log(f"ptxas, qconv_int8 bf16 (16-byte path): {' | '.join(ptxas_qconv)}")
+    # qconv_int8: the per-tap kernels (BN 64, 128, 256 x kBK 32, 64, 128)
+    # and the halo kernels (BN 64, 128 x kBK 32, 64), all s8 wgmma fed by
+    # TMA
+    ptxas_qconv = _build.ptxas_report(_build.build_log("qconv"), "qconv_")
+    log(f"ptxas, qconv_int8 ({QCONV_BODIES} kernels): {' | '.join(sorted(set(ptxas_qconv)))}")
+    faults = _build.ptxas_faults(ptxas_qconv)
+    if faults or len(ptxas_qconv) < 2 * QCONV_BODIES:
+        fail(f"qconv_int8's build: {'; '.join(faults) or f'{len(ptxas_qconv)} ptxas lines'}")
+    sass_qconv = check_sass(str(_build.library_path("qconv")), "qconv_(wgmma|halo)_kernel",
+                            QCONV_BODIES, "qconv_int8", int8=True)
     phase_done("1 (build)", t_phase)
 
     # ---- 2. kernels vs plain versions -------------------------------------
@@ -4294,7 +4454,8 @@ def main():
         "name": "qconv_int8", "route": "cuda", "source": "dgvcc_tpu_torch/csrc/qconv.cu",
         "replaces": "dgvcc_tpu/nn/quant.py:290 (XLA int8 convolution; not a pl.pallas_call)",
         "launches": total("qconv_int8"), "launches_by_path": paths("qconv_int8"), "ok": True,
-        "max_abs_err": 0.0, "max_err": 0.0, "ptxas": ptxas_qconv, **int8}]}))
+        "max_abs_err": 0.0, "max_err": 0.0, "ptxas": sorted(set(ptxas_qconv)),
+        "sass": sass_qconv, **int8}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

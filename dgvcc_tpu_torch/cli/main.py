@@ -48,6 +48,7 @@ from __future__ import annotations
 import argparse
 import os
 import shutil
+import sys
 import time
 
 TASKS = ("train", "test", "vis", "train_test", "generate", "serve", "export",
@@ -248,6 +249,12 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
                          "dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 2 (use python -m "
                          "dgvcc_tpu for it)")
     cfg = load_config(config_path)
+    if cfg.extra.get("compile_cache"):
+        # the JAX package turns on XLA's persistent compilation cache from it
+        print(f"[config] compile_cache: {cfg.extra['compile_cache']!r} has no effect in "
+              "dgvcc_tpu_torch: there is no XLA program to cache; the CUDA kernels' nvcc "
+              "builds are kept in build/torch_ext/ and reused while their sources are "
+              "unchanged", file=sys.stderr)
     if ckpt is not None:
         # a comma pair is a joint run's [gen, reg] checkpoint
         cfg.checkpoint = ckpt.split(",") if "," in ckpt else ckpt
@@ -255,6 +262,10 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         raise SystemExit(f"--task {task} takes a single checkpoint path")
     axes = {a: mesh_size(cfg, a) for a in ("data", "model", "spatial")}
     axes = {a: n for a, n in axes.items() if n > 1}
+    if task == "serve" and cfg.extra.get("serve_shard", "batch") == "spatial" and not axes:
+        # `serve_shard: spatial` slices each frame's height over a mesh
+        raise SystemExit("serve_shard: spatial needs a mesh — set mesh: {spatial: N} (or "
+                         "mesh: {data: N}) in the config")
     if axes and task in ("vis", "generate", "serve", "quantize"):
         where = ("serving on a mesh (mesh / serve_shard) is ROADMAP.md, Queue 1 item 1"
                  if task == "serve" else "it runs in one process on one card")

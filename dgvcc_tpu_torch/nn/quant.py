@@ -56,7 +56,7 @@ import torch.nn.functional as F
 from dgvcc_tpu_torch.nn.layers import resize_bilinear_ac, upsample
 from dgvcc_tpu_torch.nn.vgg import VGG16_CFG, VGG19_CFG, feature_layout
 from dgvcc_tpu_torch.ops.mem_attention import memory_attention_fused
-from dgvcc_tpu_torch.ops.qconv import qconv_int8, quantize_activation
+from dgvcc_tpu_torch.ops.qconv import pad_cin, qconv_int8, quantize_activation
 from dgvcc_tpu_torch.serve import resolve_device
 
 _DEC_BLOCKS = ("dec3_0", "dec3_1", "dec2_0", "dec2_1", "dec1_0", "dec1_1")
@@ -125,15 +125,17 @@ def quantize_sites(folded: Dict, quantized) -> Dict[str, Dict[str, np.ndarray]]:
 
 def _place(sites: Dict, dtype: torch.dtype, device) -> Dict[str, Dict[str, torch.Tensor]]:
     """The sites on the device: an int8 site's ``w8`` as (Cout, kh, kw, Cin)
-    int8, an fp site's kernel in ``dtype`` the same way; f32 scales and
+    int8 with Cin padded by zero channels to a multiple of 16 (the int8
+    kernel's tensor maps need it; ``_qconv`` pads the activations to match),
+    an fp site's kernel in ``dtype`` as (Cout, kh, kw, Cin); f32 scales and
     biases. A permute of either is the channels-last OIHW weight."""
     out = {}
     for name, site in sites.items():
         bias = torch.as_tensor(np.asarray(site["bias"], np.float32)).to(device)
         if "w8" in site:
-            w8 = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(site["w8"], np.int8).transpose(3, 0, 1, 2)))
-            out[name] = {"w8": w8.to(device),
+            w8 = pad_cin(torch.from_numpy(np.ascontiguousarray(
+                np.asarray(site["w8"], np.int8).transpose(3, 0, 1, 2))))
+            out[name] = {"w8": w8.contiguous().to(device),
                          "ws": torch.as_tensor(np.asarray(site["ws"], np.float32)).to(device),
                          "bias": bias}
         else:
@@ -199,8 +201,9 @@ class _Graph:
         if "w8" not in site or self.weight_only:  # fp activations
             if parts is not None:
                 x = torch.cat(parts, dim=-1)
-            if "w8" in site:  # weight-only: dequantize at use
-                kernel = site["w8"].to(dt) * site["ws"].to(dt)[:, None, None, None]
+            if "w8" in site:  # weight-only: dequantize at use (without the padding)
+                w8 = site["w8"][..., :x.shape[-1]]
+                kernel = w8.to(dt) * site["ws"].to(dt)[:, None, None, None]
             else:
                 kernel = site["kernel"]
             kh, kw = kernel.shape[1:3]
@@ -212,6 +215,7 @@ class _Graph:
         s = self.scales[name]
         xq = (torch.cat([quantize_activation(p, s) for p in parts], dim=-1)
               if parts is not None else quantize_activation(x, s))
+        xq = pad_cin(xq, site["w8"].shape[-1])
         return qconv_int8(xq, site["w8"], site["ws"], s, site["bias"], relu=relu,
                           dilation=dilation, out_dtype=dt)
 

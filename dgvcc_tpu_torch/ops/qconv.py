@@ -7,10 +7,16 @@ No Pallas kernel of the JAX package computes this: there XLA runs it
 (``dgvcc_tpu/nn/quant.py:290-295`` and ``:508-514``, ``conv_general_dilated``
 of int8 operands with ``preferred_element_type=int32`` and the f32
 epilogue). PyTorch has no CUDA int8 convolution, so ``qconv_int8`` launches
-the hand-written kernel ``csrc/qconv.cu`` on a CUDA tensor. On a CPU
-tensor, the caller's explicit choice, it computes ``qconv_int8_reference``,
-the plain PyTorch version. A CUDA tensor never takes the plain version: the
-kernel launches or the call raises.
+the hand-written kernel ``csrc/qconv.cu`` (s8 wgmma fed by TMA) on a CUDA
+tensor. On a CPU tensor, the caller's explicit choice, it computes
+``qconv_int8_reference``, the plain PyTorch version. A CUDA tensor never
+takes the plain version: the kernel launches or the call raises.
+
+The kernel's tensor maps need Cin to be a multiple of 16 (TMA's 16-byte
+strides). ``qconv_int8`` pads any other Cin with zero channels first
+(``pad_cin``), which leaves the accumulator exact; the int8 graphs pad a
+site's weights once when they place it (``nn/quant.py::_place``), so that a
+call pads only its activations.
 
 Layouts: ``xq`` (N, H, W, Cin) int8 (channels last, as the JAX graph's
 NHWC), ``w8`` (Cout, kh, kw, Cin) int8, ``ws`` and ``bias`` (Cout,) f32,
@@ -73,6 +79,14 @@ def qconv_int8_reference(xq, w8, ws, s, bias, relu: bool = True, dilation: int =
     return a if acc else epilogue_reference(a, ws, s, bias, relu, out_dtype)
 
 
+def pad_cin(t: torch.Tensor, cin: int = None) -> torch.Tensor:
+    """``t`` (..., C) with zero channels added up to ``cin`` (default: the
+    next multiple of 16); ``t`` itself when nothing is added."""
+    c = t.shape[-1]
+    cin = -(-c // 16) * 16 if cin is None else cin
+    return t if cin == c else F.pad(t, (0, cin - c))
+
+
 def _kernel():
     global _lib
     if _lib is None:
@@ -81,10 +95,28 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
             ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.qconv_int8_fwd.restype = ctypes.c_int
+        lib.qconv_int8_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+        lib.qconv_int8_plan.restype = ctypes.c_int
         lib.qconv_int8_error_string.argtypes = [ctypes.c_int]
         lib.qconv_int8_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def plan(xq_shape, w8_shape, dilation: int = 1) -> dict:
+    """The schedule and tiling the kernel takes for these shapes (it needs
+    the card: the choice reads its SM count): {schedule ("halo" or
+    "per_tap"), bn, bk, tw, th, stages}; Cin padded as ``qconv_int8`` pads
+    it. The shapes alone decide: see ``csrc/qconv.cu``."""
+    n, h, w, cin = xq_shape
+    cout, kh, kw, _ = w8_shape
+    out = (ctypes.c_int * 6)()
+    err = _kernel().qconv_int8_plan(n, h, w, -(-cin // 16) * 16, cout, kh, kw, dilation, out)
+    if err:
+        raise ValueError(f"qconv_int8: no schedule for {xq_shape}, {w8_shape}: "
+                         + _kernel().qconv_int8_error_string(err).decode())
+    return dict(schedule="halo" if out[0] else "per_tap", bn=out[1], bk=out[2], tw=out[3],
+                th=out[4], stages=out[5])
 
 
 def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
@@ -99,7 +131,7 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
                          "form (N, H, W, Cin), (Cout, kh, kw, Cin)")
     if xq.dtype != torch.int8 or w8.dtype != torch.int8:
         raise TypeError(f"qconv_int8 takes int8 xq and w8; got {xq.dtype} and {w8.dtype}")
-    cout, kh, kw, cin = w8.shape
+    cout, kh, kw, _ = w8.shape
     if kh % 2 == 0 or kw % 2 == 0 or dilation < 1:
         raise ValueError(f"qconv_int8: a {kh}x{kw} window, dilation {dilation}; SAME padding "
                          "at stride 1 needs odd windows and dilation >= 1")
@@ -115,7 +147,8 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
         raise ValueError("qconv_int8: every tensor must be on one CUDA device, or all on "
                          "the CPU")
     n, h, w, _ = xq.shape
-    xq, w8 = xq.contiguous(), w8.contiguous()
+    xq, w8 = pad_cin(xq).contiguous(), pad_cin(w8).contiguous()
+    xq, w8 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xq, w8))
     if not acc:
         ws = ws.to(torch.float32).contiguous()
         bias = bias.to(torch.float32).contiguous()
@@ -127,7 +160,7 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
         err = lib.qconv_int8_fwd(
             xq.data_ptr(), w8.data_ptr(), 0 if acc else ws.data_ptr(),
             0 if acc else bias.data_ptr(), 0.0 if acc else float(s), out.data_ptr(),
-            n, h, w, cin, cout, kh, kw, dilation, int(relu),
+            n, h, w, xq.shape[-1], cout, kh, kw, dilation, int(relu),
             2 if acc else _OUT_KIND[out_dtype], stream)
     if err:
         raise RuntimeError("qconv_int8 kernel launch failed: "

@@ -42,12 +42,14 @@ _PARALLEL = "is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 
 
 # quantize="auto": the smallest dispatch batch at which the int8 graph
 # serves. None: int8 measured faster than bf16 at no batch: DGModel final at
-# 768x1024 served 0.33-0.53x bf16's frames/s at B=1, 4 and 16 on an NVIDIA
-# H100 80GB HBM3 at 700 W (chip_smoke.py phase 14; PERF.md section 2), so
-# "auto" serves bf16 under the default law. An integer auto_threshold opts a
-# deployment into its own per-dispatch batch rule. The JAX package's
-# constants (and its per-pixel floor) were measured on a TPU v5e and are not
-# carried over.
+# 768x1024 served 0.49-0.74x bf16's frames/s at B=1, 4 and 16 on an NVIDIA
+# H100 80GB HBM3 at 700 W with the wgmma int8 kernel (0.33-0.53x with the
+# first one; chip_smoke.py phase 14; PERF.md section 2): the int8 graph's
+# activation quantize passes take more device time than its convolutions
+# save (scripts/profile_torch_serve.py --quantize). So "auto" serves bf16
+# under the default law. An integer auto_threshold opts a deployment into
+# its own per-dispatch batch rule. The JAX package's constants (and its
+# per-pixel floor) were measured on a TPU v5e and are not carried over.
 AUTO_INT8_MIN_BATCH: Optional[int] = None
 
 

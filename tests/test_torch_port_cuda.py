@@ -880,12 +880,17 @@ def test_2d_step_on_four_ranks_matches_the_1d_step(cuda, tmp_path):
         assert (num / den) ** 0.5 <= 1e-3
 
 
-# the int8 convolution's edges: Cin 3 (enc1/conv0's), 16 and 67 (the byte
-# path), Cout 1 and 67 (ragged channel tiles), odd H and W, 1x1 windows,
-# dilation 2 (CSRNet's back end), rows below one 128-pixel tile
+# the int8 convolution's edges: Cin 3 (enc1/conv0's) and 67 (padded to 16
+# and 80 for the tensor maps), 16 and 32 (32-byte K steps), 192 (three
+# 64-byte chunks); Cout 1, 8, 67 and 300 (ragged channel tiles of 64, 128,
+# 256); H and W that the 2 x 64, 4 x 32, ... pixel tiles do not divide (W
+# 100, 130: a ragged second or third tile); a 1x1 image; 1x1 windows;
+# dilation 2 (CSRNet's back end); N = 3; rows below one 128-pixel tile
 QCONV_EDGES = [(1, 37, 53, 3, 64, 3, 1), (2, 17, 9, 16, 1, 3, 1), (1, 31, 29, 67, 67, 3, 1),
                (2, 33, 35, 64, 67, 1, 1), (1, 45, 39, 128, 96, 3, 2), (1, 5, 7, 512, 512, 3, 1),
-               (3, 1, 1, 64, 8, 3, 2)]
+               (3, 1, 1, 64, 8, 3, 2), (2, 45, 100, 64, 64, 3, 1), (1, 19, 70, 32, 64, 3, 1),
+               (1, 24, 40, 256, 300, 3, 1), (1, 13, 21, 192, 128, 3, 1),
+               (3, 50, 130, 128, 130, 3, 2)]
 
 
 def _qconv_case(device, n, h, w, cin, cout, k, seed):
@@ -917,6 +922,68 @@ def test_qconv_int8_matches_plain_bit_for_bit(cuda, n, h, w, cin, cout, k, dil):
             y = qconv.qconv_int8(xq, w8, ws, s, bias, relu=relu, dilation=dil, out_dtype=dtype)
             want = qconv.epilogue_reference(ref, ws, s, bias, relu, dtype)
             assert y.dtype == dtype and torch.equal(y, want)
+
+
+@pytest.mark.parametrize("cin", [32, 64, 128])
+@pytest.mark.parametrize("bn", [64, 128, 256])
+def test_qconv_int8_tilings_match_plain_bit_for_bit(cuda, cin, bn):
+    """Every kernel the int8 convolution is built for, reached through the
+    shapes that pick it (Cin picks the K step kBK, Cout and the tile count
+    BN, W the tile width, a 3x3 window with one K chunk and Cout <= 128 the
+    halo schedule), bit for bit against the plain version: the per-tap
+    schedule at BN 64, 128, 256 by kBK 32, 64, 128, at tile widths 1 to 64
+    and dilation 2, and the halo schedule at BN 64, 128 by kBK 32, 64 with
+    ragged Cout (Cout % 8 != 0 stores from the registers, Cout % 8 == 0
+    through shared memory and TMA stores in bf16)."""
+    from dgvcc_tpu_torch.ops import qconv
+
+    cout = {64: 61, 128: 100, 256: 200}[bn]
+    bk = {32: 32, 64: 64, 128: 128}[cin]
+    # BN 256 needs between half a wave and a wave of 128-pixel tiles
+    tiles = 3 * torch.cuda.get_device_properties(0).multi_processor_count // 4
+    # (N, H, W, k, dilation, TW): TW 32 and 16 at `tiles` tiles, 64 at about
+    # as many (1x1: the per-tap schedule), 1 at two tiles
+    for n, h, w, k, dil, tw in ((1, 4 * tiles, 20, 3, 1, 32), (1, 8 * tiles, 13, 3, 2, 16),
+                                (1, tiles, 100, 1, 1, 64), (2, 23, 1, 3, 1, 1)):
+        xq, w8, ws, bias = _qconv_case(cuda, n, h, w, cin, cout, k, cin + bn + w)
+        got = qconv.plan(xq.shape, w8.shape, dil)
+        assert (got["schedule"], got["bk"], got["tw"]) == ("per_tap", bk, tw), got
+        assert tw == 1 or got["bn"] == bn, got
+        ref = qconv.conv_acc_reference(xq, w8, dil)
+        acc = qconv.qconv_int8(xq, w8, None, 0.0123, None, dilation=dil, acc=True)
+        y = qconv.qconv_int8(xq, w8, ws, 0.0123, bias, dilation=dil)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, ref), (h, w, k, dil)
+        assert torch.equal(y, qconv.epilogue_reference(ref, ws, 0.0123, bias, True,
+                                                       torch.bfloat16)), (h, w, k, dil)
+    if bn == 256:
+        return
+    # one BN tile, ragged, at TW 64: the halo schedule where its ring fits
+    # (not at kBK 128; not at dilation 2 with BN 128 and kBK 64)
+    for cout, dil in ((bn - 3, 1), (bn - 3, 2), (bn - 8, 1), (bn - 8, 2)):
+        xq, w8, ws, bias = _qconv_case(cuda, 2, 9, 150, cin, cout, 3, cin + bn + cout + dil)
+        got = qconv.plan(xq.shape, w8.shape, dil)
+        assert got["bn"] == bn and (got["schedule"] == "halo") == (
+            cin < 128 and (dil == 1 or cin * bn < 64 * 128)), got
+        ref = qconv.conv_acc_reference(xq, w8, dil)
+        acc = qconv.qconv_int8(xq, w8, None, 0.0123, None, dilation=dil, acc=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            y = qconv.qconv_int8(xq, w8, ws, 0.0123, bias, relu=False, dilation=dil,
+                                 out_dtype=dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(y, qconv.epilogue_reference(ref, ws, 0.0123, bias, False,
+                                                           dtype)), (cout, dil, dtype)
+        assert torch.equal(acc, ref), (cout, dil)
+
+
+def test_qconv_int8_plans_the_halo_schedule_for_final_full_size_sites(cuda):
+    """The 64-channel sites at 768x1024 and 384x512 (and enc1/conv0, Cin 3
+    padded to 16) take the halo schedule; the deep sites the per-tap one."""
+    from dgvcc_tpu_torch.ops import qconv
+
+    for cin, cout in ((3, 64), (64, 64), (64, 128)):
+        assert qconv.plan((4, 768, 1024, cin), (cout, 3, 3, cin))["schedule"] == "halo"
+    assert qconv.plan((4, 96, 128, 1024), (512, 3, 3, 1024))["schedule"] == "per_tap"
 
 
 def test_qconv_int8_rejects_what_it_cannot_take(cuda):

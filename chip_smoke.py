@@ -8,7 +8,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel of the port from the checkout's sources
-   (nvcc, sm_90a, into build/torch_ext/); the bf16 builds of the serving
+   (nvcc, sm_90a, into build/torch_ext/; the training kernels' library,
+   the slowest to build, in a process of its own beside phases 1-3, its
+   checks and phase 2's training-kernel checks after phase 3 as 2b);
+   the bf16 builds of the serving
    kernel, of the training forward and of the training backward's rows
    and cols kernels must hold wgmma fed by TMA (SASS, body by body: HGMMA
    and UTMALDG, no HMMA) with no serialised wgmma (ptxas C7512, C7514)
@@ -71,7 +74,10 @@ Phases, each of which exits non-zero on failure:
    the JAX trainer's log.txt lines, ``last`` / ``best_*`` checkpoints; in
    B the counter serves the sidecar's EMA shadow; in A VideoCounter
    strict-loads both and ``--task test`` from the best checkpoint on the
-   command line prints the in-process MAE / MSE;
+   command line prints the in-process MAE / MSE, and ``--task test`` of
+   ``last.pth`` with ``test_quantized: true`` tests through the int8 graph
+   (its log line; #1 and the int8 kernel launched, 21 int8 sites a test
+   image);
 7. configs/tpu/sta_final_bigcrop.yml at full width (B=8 two-view 512^2
    crops, remat, accum_steps 4) on a repeated synthetic batch: parameters
    unchanged after micro steps 1-3 and 5-7, moved after 4 and 8, #2 and #3
@@ -158,8 +164,11 @@ Phases, each of which exits non-zero on failure:
    sta_final.yml with ``mesh: {data: 2}`` for 1 epoch on phase 6's files
    (``--dist-backend gloo`` on one card): log.txt written once with the
    ``Data parallel over 2 devices`` line, #1 once per rank per validation
-   and test image, the test MAE within 1e-4 of one process's ``--task
-   test`` of the same ``last.pth``;
+   and test image, the test MAE within 1e-4 of a fresh process's ``--task
+   test`` of the same ``last.pth`` (phase 13's, which tests its own runs
+   too; a fresh process, as the ranks are: a convolution keeps the cuDNN
+   algorithm its shape first ran with, and this process timed these shapes
+   with the benchmark on in phases 3 and 6);
 13. the bank over a 2-D mesh and the crop's height over 8 ranks
    (``parallel/tp.py``, ``parallel/spatial.py``; no kernel of their own):
    configs/tpu/sta_final_spatial.yml's `final` at full width on 8 ranks
@@ -192,8 +201,10 @@ Phases, each of which exits non-zero on failure:
    768x1024 forward (its real inputs; each site's schedule logged), at
    QCONV_EDGES (Cin 3, 16, 32, 67, 192, Cout 1, 8, 67, 130, 300, H / W off
    the tiles, a 1x1 image, 1x1 windows, dilation 2, N = 3) and at one
-   sasnet and one dssinet site (QCONV_FAMILY_SITES, their real inputs):
-   int32 accumulators and outputs bit for bit; ``count_frames`` at B=1, 4,
+   sasnet, one dssinet and one strided CCTrans site (QCONV_FAMILY_SITES,
+   their real inputs): int32 accumulators and outputs bit for bit (the
+   strided edges: H / W the stride does not divide, strides 2, 4, 8 and a
+   3x3 window at stride 2); ``count_frames`` at B=1, 4,
    16 and ``stream`` against the
    bf16 path (max(2e-2, 1.5 x the JAX package's own int8 drift) of the map's
    mass, INT8_DRIFT), the weight-only graph likewise; #1 and the int8 kernel
@@ -201,8 +212,13 @@ Phases, each of which exits non-zero on failure:
    then ``--task serve --artifact`` in a fresh process against the
    in-process int8 counter (1e-3), an HTTP burst of 4 clients on the
    artifact (``/stats`` dispatch_int8 > 0); csrnet, bl, sasnet and dssinet
-   int8 at B=4 against bf16 (the same gate rule) and mcnn with no int8
-   site; frames/s int8 against bf16 at B=1, 4, 16 in turns; the device time
+   int8 at B=4 and CCTrans (alt_gvt_large, seed 11) at B=8, its int8 floor,
+   against bf16 (the same gate rule; a family's int8 kernel launches equal
+   its int8 sites times its int8 dispatches), frames/s in turns, and mcnn
+   with no int8 site; CCTrans's int8 sites' device time against cuDNN bf16
+   at the same shapes (each distinct shape once), its heaviest strided site
+   against its bound and its plain version; frames/s int8 against bf16 at
+   B=1, 4, 16 in turns; the device time
    (median of 20 calls with a cold L2, CUDA events: ``device_ms_cold``) of
    the int8 sites of a B=4 forward, whose shapes must be FINAL_INT8_SITES',
    against cuDNN's bf16 convolution at the same shapes, and the three
@@ -215,7 +231,9 @@ last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repo, the script exits non-zero and prints no result.
 """
 
+import atexit
 import collections
+import concurrent.futures
 import contextlib
 import glob
 import io
@@ -1302,7 +1320,43 @@ def files_phase(ma, mt, dm, gpu, step_ms_repeated, tmp):
         for k, v in keys.items():
             raw[k] = dict(raw[k], **v) if isinstance(v, dict) else v
         runs[label] = file_run(label, raw, tmp, ma, mt, gpu, step_ms_repeated, check=i == 0)
+    a = dict(base, log_dir=os.path.join(tmp, "logs0"))
+    runs["A --task test, test_quantized"] = test_quantized_run(a, tmp, ma)
     return dmap_launches, runs
+
+
+def test_quantized_run(raw, tmp, ma):
+    """``--task test`` of run A's ``last.pth`` with ``test_quantized: true``
+    (the command line's ``main`` in this process): the int8 graph calibrated
+    on the first 4 test images and counting all of them. Returns its
+    kernels' launches."""
+    import yaml
+
+    from dgvcc_tpu_torch.cli.main import main as cli_main
+    from dgvcc_tpu_torch.ops import qconv as qc
+
+    last = os.path.join(raw["log_dir"], raw["version"], "last.pth")
+    path = os.path.join(tmp, "sta_final_tq.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(raw, version="tq", test_quantized=True), f)
+    buf = io.StringIO()
+    ma.LAUNCHES = qc.LAUNCHES = 0
+    with contextlib.redirect_stdout(buf):
+        cli_main(["--config", path, "--task", "test", "--ckpt", last])
+    launches = {"memory_attention_fused": ma.LAUNCHES, "qconv_int8": qc.LAUNCHES}
+    text = buf.getvalue()
+    line = [ln for ln in text.splitlines() if ln.startswith("Testing results:")]
+    n_test = 4
+    log(f"--task test with test_quantized: true ({os.path.basename(last)}): "
+        f"{line[-1] if line else None}; launches {launches} (calibration's f32 forward: #1 "
+        f"once; then {n_test} test images, one #1 and {INT8_SITES_FINAL} qconv_int8 each)")
+    if "Testing through the int8 PTQ serving graph" not in text or not line:
+        fail("--task test with test_quantized did not test through the int8 graph")
+    mae = float(re.findall(r"mae: (\S+)", line[-1])[0])
+    if not math.isfinite(mae) or launches != {"memory_attention_fused": n_test + 1,
+                                             "qconv_int8": INT8_SITES_FINAL * n_test}:
+        fail(f"--task test with test_quantized: MAE {mae}, launches {launches}")
+    return launches
 
 
 def file_run(label, raw, tmp, ma, mt, gpu, step_ms_repeated, check):
@@ -2835,13 +2889,11 @@ def cli_rank(outdir, argv, exact=False):
     return 0
 
 
-def dp_files_run(tmp, gpu, nccl):
+def dp_files_command(tmp, nccl):
     """sta_final.yml with mesh: {data: 2} for 1 epoch on phase 6's files
-    through torchrun and the command line; then one process's --task test
-    of the same `last`. Returns the launches summed over the ranks."""
+    through torchrun and the command line: (the command, its config, the
+    directory of the ranks' launch counts)."""
     import yaml
-
-    from dgvcc_tpu_torch.cli.main import main as cli_main
 
     with open(os.path.join(ROOT, "configs", "sta_final.yml")) as f:
         raw = yaml.safe_load(f)
@@ -2860,13 +2912,21 @@ def dp_files_run(tmp, gpu, nccl):
            "--config", cfg_path, "--task", "train_test"]
     if not nccl:
         cmd += ["--dist-backend", "gloo"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=ROOT,
-                         env=dict(os.environ, PYTHONPATH=ROOT))
+    return cmd, raw, outdir
+
+
+def dp_files_run(tmp, nccl, run, raw, outdir, t0):
+    """Wait for the run of ``dp_files_command``, started at ``t0``, and
+    check it. Returns the launches summed over the ranks and what
+    ``hold_mesh_tests`` needs for the run's test MAE: a fresh process's
+    --task test of the same `last` (phase 13 runs it with its own runs')."""
+    import yaml
+
+    stdout, stderr = run.communicate(timeout=900)
     wall = time.perf_counter() - t0
-    if out.returncode:
-        fail(f"torchrun train_test exited {out.returncode}:\n{out.stdout[-2000:]}\n"
-             f"{out.stderr[-4000:]}")
+    if run.returncode:
+        fail(f"torchrun train_test exited {run.returncode}:\n{stdout[-2000:]}\n"
+             f"{stderr[-4000:]}")
     per_rank = []
     for r in range(DP_RANKS):
         with open(os.path.join(outdir, f"rank{r}.json")) as f:
@@ -2878,7 +2938,7 @@ def dp_files_run(tmp, gpu, nccl):
     log(f"data parallel from files: torchrun --nproc_per_node={DP_RANKS} -m dgvcc_tpu_torch "
         f"--task train_test{'' if nccl else ' --dist-backend gloo'} (sta_final.yml, "
         f"mesh: {{data: {DP_RANKS}}}, 1 epoch x {steps} steps of B={DP_B}): {wall:.1f} s "
-        f"with start-up; launches per rank {per_rank}")
+        f"with start-up, beside the one-process reference; launches per rank {per_rank}")
     for line in ("Data parallel over 2 devices", "Start training and testing at"):
         if text.count(line) != 1:
             fail(f"data parallel log.txt has {text.count(line)} {line!r} lines, not 1")
@@ -2899,21 +2959,15 @@ def dp_files_run(tmp, gpu, nccl):
     one_path = os.path.join(tmp, "sta_final_one.yml")
     with open(one_path, "w") as f:
         yaml.safe_dump(one, f)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        cli_main(["--config", one_path, "--task", "test", "--ckpt",
-                  os.path.join(log_dir, "last.pth")])
-    want = float(re.findall(r"Testing results: mae: (\S+)", buf.getvalue())[-1])
-    log(f"data parallel test MAE {got:.4f} (2 ranks), one process's --task test of the same "
-        f"last.pth {want:.4f} (tol {TOL_DP_MAE} + the printed 4 decimals)")
-    if abs(got - want) > TOL_DP_MAE * max(abs(want), 1.0) + 1e-4:
-        fail("the 2-rank test MAE disagrees with one process's")
-    return {k: sum(n[k] for n in per_rank) for k in per_rank[0]}
+    test = [False, ["--config", one_path, "--task", "test", "--ckpt",
+                    os.path.join(log_dir, "last.pth")]]
+    return ({k: sum(n[k] for n in per_rank) for k in per_rank[0]},
+            ("data parallel", DP_RANKS, False, got, test))
 
 
 def dp_phase(mt, tmp, gpu):
-    """Phase 12: data parallel. Returns what it measured and the kernels'
-    launches of its ranks."""
+    """Phase 12: data parallel. Returns what it measured, the kernels'
+    launches of its ranks and its torchrun run's pending test MAE."""
     from dgvcc_tpu_torch.parallel.launch import run_ranks
 
     t0 = time.perf_counter()
@@ -2935,9 +2989,22 @@ def dp_phase(mt, tmp, gpu):
 def _dp_phase(mt, tmp, gpu, t0, nccl, backend):
     from dgvcc_tpu_torch.parallel.launch import run_ranks
 
-    work = tempfile.mkdtemp(prefix="dp_ref_", dir=tmp)
-    run_ranks(dp_reference, 1, (work,), init_file=os.path.join(work, "init"), timeout=600,
-              threads=4)
+    # the command line's torchrun run from files (nothing timed) runs beside
+    # the reference process (nothing timed either); the timed steps after
+    # them run alone
+    cmd, raw, outdir = dp_files_command(tmp, nccl)
+    t0 = time.perf_counter()
+    run = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        work = tempfile.mkdtemp(prefix="dp_ref_", dir=tmp)
+        run_ranks(dp_reference, 1, (work,), init_file=os.path.join(work, "init"),
+                  timeout=600, threads=4)
+        files, test = dp_files_run(tmp, nccl, run, raw, outdir, t0)
+    finally:
+        if run.poll() is None:
+            run.kill()
+            run.wait()
     ref = torch.load(os.path.join(work, "reference.pt"), weights_only=False)
     res, launches = {}, {"memory_attention_train_fwd": 0, "memory_attention_train_bwd": 0}
     runs = (("two ranks", DP_RANKS, backend, DP_B, True), ("one rank", 1, "nccl", DP_B // 2,
@@ -3028,14 +3095,12 @@ def _dp_phase(mt, tmp, gpu, t0, nccl, backend):
             f"{DP_B // 2} in {one_ms:.3f} ms on one: {2 * one_ms / step_ms:.3f}x the "
             f"throughput [{gpu}]")
 
-    # ---- from files, through torchrun and the command line
-    files = dp_files_run(tmp, gpu, nccl)
     for k, v in files.items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 12 (data parallel): {time.perf_counter() - t0:.1f}s; kernel launches over "
-        f"its ranks {launches}")
+        f"its ranks {launches}; its test MAE is held in phase 13's fresh process")
     return {"step_ms": step_ms, "allreduce_ms": ar_ms, "one_rank_ms": one_ms,
-            "backend": backend}, launches
+            "backend": backend}, launches, test
 
 
 # ---- phase 13: the bank over a 2-D mesh, the crop's height sharded ---------------
@@ -3440,13 +3505,17 @@ def mesh_files_run(tmp, label, config, world, nccl, edit, n_steps, n_train, n_ev
 
 
 def hold_mesh_tests(tmp, pending):
-    """Each mesh run's test MAE against one process's --task test of the same
-    `last`: the tests of all runs in turn in one fresh process, as the jobs'
-    ranks are fresh (``exact``: under ``exact_f32``). bf16 counts of two
-    processes differed by up to 1.1e-4 (the 2-D mesh's, twice in four runs;
-    likely cuDNN's benchmark, which the command line turns on, picking other
-    algorithms by timing where ranks share a card), so the 2-D run compares
-    under exact_f32 (no cuDNN, TF32 off)."""
+    """Each torchrun run's test MAE (phase 12's and 13's) against one
+    process's --task test of the same `last`: the tests of all runs in turn
+    in one fresh process, as the jobs' ranks are fresh (``exact``: under
+    ``exact_f32``). A convolution keeps the cuDNN algorithm its shape first
+    ran with, whatever the benchmark flag says later, so a reference run in
+    this process, which timed these shapes with the benchmark on in phases 3
+    and 6, compares unequal work: 1.6e-5 of phase 12's MAE apart, where a
+    fresh process equals the ranks per image (scripts/probe_dp_test.py).
+    bf16 counts of two processes differed by up to 1.1e-4 (the 2-D mesh's,
+    twice in four runs), so the 2-D run compares under exact_f32 (no cuDNN,
+    TF32 off)."""
     jobs = os.path.join(tmp, "mesh_tests.json")
     with open(jobs, "w") as f:
         json.dump([test for *_, test in pending], f)
@@ -3458,7 +3527,7 @@ def hold_mesh_tests(tmp, pending):
         fail(f"mesh runs' --task test: the command line exited {run.returncode}:\n"
              f"{run.stderr[-3000:]}")
     outs = run.stdout.split(CLI_TESTS_MARK)[1:]
-    log(f"one fresh process's --task test of {len(pending)} mesh runs' last.pth: "
+    log(f"one fresh process's --task test of {len(pending)} torchrun runs' last.pth: "
         f"{time.perf_counter() - t0:.1f}s with start-up")
     for (label, world, exact, got, _), out in zip(pending, outs):
         want = float(re.findall(r"Testing results: mae: (\S+)", out)[-1])
@@ -3488,19 +3557,20 @@ def cli_tests(path):
     return 0
 
 
-def mesh_phase(tmp, gpu):
+def mesh_phase(tmp, gpu, pending=()):
     """Phase 13: the crop's height sharded over 8 ranks and the bank over a
-    (data 2, model 2) mesh. Returns what it measured and the kernels'
-    launches of its ranks."""
+    (data 2, model 2) mesh; ``pending``: earlier torchrun runs' test MAEs,
+    held with its own. Returns what it measured and the kernels' launches of
+    its ranks."""
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = False  # the ranks choose as the command line does
     try:
-        return _mesh_phase(tmp, gpu)
+        return _mesh_phase(tmp, gpu, list(pending))
     finally:
         torch.backends.cudnn.benchmark = benchmark
 
 
-def _mesh_phase(tmp, gpu):
+def _mesh_phase(tmp, gpu, pending):
     from dgvcc_tpu_torch.core.config import load_config
     from dgvcc_tpu_torch.data import dmap_cli
     from dgvcc_tpu_torch.parallel.launch import run_ranks
@@ -3516,11 +3586,23 @@ def _mesh_phase(tmp, gpu):
     nccl = cards >= SP_RANKS
     log(f"spatial: {SP_RANKS} ranks over "
         f"{'NCCL, one card a rank' if nccl else 'gloo on cuda:0 (one card visible)'}")
+    # the 2-D mesh's ranks (nothing timed) run beside the spatial reference
+    # process (nothing timed either); the spatial ranks, timed, run alone
+    tp_world = TP_MESH[0] * TP_MESH[1]
+    tp_nccl = cards >= tp_world
+    tp_work = tempfile.mkdtemp(prefix="tp_", dir=tmp)
+    val = sorted(glob.glob(os.path.join(tmp, "data", "val", "*.jpg")))[:TP_EVAL_IMAGES]
     work = tempfile.mkdtemp(prefix="sp_ref_", dir=tmp)
-    run_ranks(sp_reference, 1, (work,), init_file=os.path.join(work, "init"), timeout=600,
-              threads=4)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        tp_run = pool.submit(run_ranks, tp_rank, tp_world, (tp_work, val),
+                             init_file=os.path.join(tp_work, "init"),
+                             backend="nccl" if tp_nccl else "gloo", timeout=600, threads=2)
+        run_ranks(sp_reference, 1, (work,), init_file=os.path.join(work, "init"), timeout=600,
+                  threads=4)
+        tp_run.result()
     ref = torch.load(os.path.join(work, "reference.pt"), weights_only=False)
-    log(f"spatial: one process's steps {time.perf_counter() - t0:.1f}s into phase 13")
+    log(f"spatial: one process's steps and the 2-D mesh's ranks {time.perf_counter() - t0:.1f}s "
+        "into phase 13")
     work = tempfile.mkdtemp(prefix="sp_", dir=tmp)
     run_ranks(sp_rank, SP_RANKS, (work,), init_file=os.path.join(work, "init"),
               backend="nccl" if nccl else "gloo", timeout=900)
@@ -3565,17 +3647,11 @@ def _mesh_phase(tmp, gpu):
            "clocked_step_ms": o["clocked_step_ms"],
            "peak_gib": max(x["peak_gib"] for x in outs), "one_peak_gib": ref["bf16_peak_gib"]}
 
-    # ---- the 2-D mesh
-    tp_world = TP_MESH[0] * TP_MESH[1]
-    tp_nccl = cards >= tp_world
-    work = tempfile.mkdtemp(prefix="tp_", dir=tmp)
-    val = sorted(glob.glob(os.path.join(tmp, "data", "val", "*.jpg")))[:TP_EVAL_IMAGES]
-    run_ranks(tp_rank, tp_world, (work, val), init_file=os.path.join(work, "init"),
-              backend="nccl" if tp_nccl else "gloo", timeout=600, threads=2)
-    outs = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+    # ---- the 2-D mesh (its ranks ran beside the spatial reference)
+    outs = [torch.load(os.path.join(tp_work, f"rank{r}.pt"), weights_only=False)
             for r in range(tp_world)]
     log(f"2-D mesh data={TP_MESH[0]} x model={TP_MESH[1]}: {outs[0]['backend']} on "
-        f"{sorted({o['device'] for o in outs})}; {time.perf_counter() - t0:.1f}s into phase 13")
+        f"{sorted({o['device'] for o in outs})}")
     for dtype in (torch.float32, torch.bfloat16):
         r = outs[0][str(dtype)]
         against = "its einsum bank" if dtype == torch.float32 else "kernels #2 / #3"
@@ -3615,7 +3691,6 @@ def _mesh_phase(tmp, gpu):
                                 compute_dtype="float32"),
          32 // TRAIN_B, 0, 8,
          f"2-D mesh: data={TP_MESH[0]} x model={TP_MESH[1]} (memory bank sharded)", True))
-    pending = []
     for where, label, config, world, use_nccl, edit, n_steps, n_train, n_ev, line, exact \
             in runs:
         got, test = mesh_files_run(where, label, config, world, use_nccl, edit, n_steps,
@@ -3635,19 +3710,27 @@ def _mesh_phase(tmp, gpu):
 # int32 accumulator and the bf16 output bit for bit, at every int8 site of
 # `final` at 768x1024 B=1 (its real inputs) and at edge shapes
 PEAK_INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
-# (N, H, W, Cin, Cout, k, dilation): Cin 3 and 67 (padded to 16 and 80),
-# 16 and 32 (32-byte K steps), 192 (three 64-byte chunks); Cout 1, 8, 67,
-# 130, 300 (ragged channel tiles); W 100, 130 and H 45, 37 that the pixel
-# tiles do not divide; a 1x1 image; 1x1 windows; dilation 2; N = 3
-QCONV_EDGES = ((1, 37, 53, 3, 64, 3, 1), (2, 17, 9, 16, 1, 3, 1), (1, 31, 29, 67, 67, 3, 1),
-               (2, 33, 35, 64, 67, 1, 1), (1, 45, 39, 128, 96, 3, 2), (1, 5, 7, 512, 512, 3, 1),
-               (3, 1, 1, 64, 8, 3, 2), (2, 45, 100, 64, 64, 3, 1), (1, 19, 70, 32, 64, 3, 1),
-               (1, 24, 40, 256, 300, 3, 1), (1, 13, 21, 192, 128, 3, 1),
-               (3, 50, 130, 128, 130, 3, 2))
+# (N, H, W, Cin, Cout, k, dilation, stride): Cin 3 and 67 (padded to 16 and
+# 80), 16 and 32 (32-byte K steps), 192 (three 64-byte chunks); Cout 1, 8,
+# 67, 130, 300 (ragged channel tiles); W 100, 130 and H 45, 37 that the pixel
+# tiles do not divide; a 1x1 image; 1x1 windows; dilation 2; N = 3; then
+# strided: k x k windows at stride k = 2, 4, 8 on H and W the stride does
+# not divide (SAME pads low and high), Cin 16 and 67, Cout 8 and 300, and a
+# 3x3 window at stride 2
+QCONV_EDGES = ((1, 37, 53, 3, 64, 3, 1, 1), (2, 17, 9, 16, 1, 3, 1, 1),
+               (1, 31, 29, 67, 67, 3, 1, 1), (2, 33, 35, 64, 67, 1, 1, 1),
+               (1, 45, 39, 128, 96, 3, 2, 1), (1, 5, 7, 512, 512, 3, 1, 1),
+               (3, 1, 1, 64, 8, 3, 2, 1), (2, 45, 100, 64, 64, 3, 1, 1),
+               (1, 19, 70, 32, 64, 3, 1, 1), (1, 24, 40, 256, 300, 3, 1, 1),
+               (1, 13, 21, 192, 128, 3, 1, 1), (3, 50, 130, 128, 130, 3, 2, 1),
+               (3, 13, 11, 16, 8, 2, 1, 2), (1, 37, 29, 67, 300, 4, 1, 4),
+               (3, 21, 45, 16, 300, 8, 1, 8), (2, 9, 70, 67, 8, 2, 1, 2),
+               (1, 100, 67, 67, 8, 8, 1, 8), (2, 15, 17, 16, 8, 3, 1, 2))
 QCONV_BODIES = 13                   # 9 per-tap and 4 halo kernels in csrc/qconv.cu
-# one site each of sasnet and dssinet held bit for bit too: the first int8
-# call of a B=1 forward whose weights match (kh, kw, Cin), shapes final has not
-QCONV_FAMILY_SITES = {"sasnet": (5, 5, None), "dssinet": (1, 1, 768)}
+# one site each of sasnet, dssinet and CCTrans held bit for bit too: the
+# first int8 call of a B=1 forward whose weights match (kh, kw, Cin), shapes
+# final has not (CCTrans's: pe1, a 2x2 window at stride 2)
+QCONV_FAMILY_SITES = {"sasnet": (5, 5, None), "dssinet": (1, 1, 768), "cctrans": (2, 2, 128)}
 # (H, W, Cin, Cout, k) of final's 21 int8 sites at 768x1024, in call order:
 # the 13 encoder convolutions, 6 decoder ones, den_dec (1x1), cls_conv1;
 # phase 14 holds a forward's recorded sites to it (Cin 3 arrives padded to 16)
@@ -3659,39 +3742,72 @@ FINAL_INT8_SITES = ((768, 1024, 3, 64, 3), (768, 1024, 64, 64, 3), (384, 512, 64
                     (96, 128, 1024, 512, 3), (96, 128, 512, 256, 3), (192, 256, 512, 256, 3),
                     (192, 256, 256, 128, 3), (192, 256, 896, 256, 1), (48, 64, 512, 256, 3))
 INT8_SITES_FINAL = len(FINAL_INT8_SITES)
+# (H, W, Cin, Cout, k, sites) of CCTrans's strided int8 sites at 768x1024
+# under min_ch=128 (alt_gvt_large: b0_1_sr 8x8, pe1, b1_1_sr 4x4, pe2, pe3,
+# and the nine b2_*_sr 2x2), each a k x k window at stride k; phase 14 holds
+# a B=8 forward's strided sites to it
+CCTRANS_STRIDED_SITES = ((192, 256, 128, 128, 8, 1), (192, 256, 128, 256, 2, 1),
+                         (96, 128, 256, 256, 4, 1), (96, 128, 256, 512, 2, 1),
+                         (48, 64, 512, 1024, 2, 1), (48, 64, 512, 512, 2, 9))
 QCONV_CALLS = 20                    # calls a site's device-time median is over
 L2_FLUSH_BYTES = 256 << 20          # read before each timed call: five times the 50 MB L2
 INT8_CALIB = 8                      # seeded calibration frames (768x1024; cropped to 768^2)
 INT8_BATCHES = (1, 4, 16)
-INT8_BASELINES = ("csrnet", "bl", "sasnet", "dssinet")
+INT8_BASELINES = ("csrnet", "bl", "sasnet", "dssinet", "cctrans")
 # int8 (and weight-only) counts against the same weights' bf16 path, as a
 # share of the bf16 map's mass: max(2e-2, 1.5 x the JAX package's own drift)
 # on the same seeded weights (scripts/int8_drift.py FAMILY --port-seed SEED
 # --hw 384 512 --frames 4 --calib 8 on the CPU, the batch this phase holds
 # the families at and the largest size a CPU run affords; the largest
 # frame's value): final (seed 0) and the baselines (seed 11, the weights of
-# phase 11)
+# phase 11); cctrans at 384x512 as well, its B=8 served here
 INT8_DRIFT = {"final": 0.010149, "final weight_only": 0.003599, "csrnet": 0.006611,
-              "bl": 0.036439, "sasnet": 0.026715, "dssinet": 0.009178}
+              "bl": 0.036439, "sasnet": 0.026715, "dssinet": 0.009178, "cctrans": 0.000844}
+
+
+# CCTrans's untrained counts are all but zero, so its int8 map is also held
+# where it is not: the head's last site before its ReLU (reg_res2), |a - b| /
+# |b| per frame (L2) against the bf16 model's, at 1.5 x the JAX package's own
+# drift (scripts/int8_drift.py cctrans --port-seed 11 --hw 384 512 --frames 4
+# --calib 8 on the CPU: the largest frame's value)
+CCTRANS_HEAD_DRIFT = 0.038957  # control, against the next frame's map: 0.265-0.308
 
 
 def int8_gate(name):
     return max(2e-2, 1.5 * INT8_DRIFT[name])
 
 
-def qconv_bound_ms(n, h, w, cin, cout, k, out_bytes=2):
-    """The least time of one int8 convolution on the card: 2 N H W Cout k^2
-    Cin operations at the dense int8 peak, or the bytes (xq and w8 read once,
-    the output written once, ws and bias) at the HBM rate, whichever is
-    longer, at the site's own Cin (not the padded one). Returns (ms, "bytes"
-    or "operations", operations)."""
-    ops = 2.0 * n * h * w * cout * k * k * cin
-    nbytes = n * h * w * cin + cout * k * k * cin + n * h * w * cout * out_bytes + 8 * cout
+def rel_l2(a, b):
+    """|a - b| / |b| over each frame (L2); numpy arrays."""
+    a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+    return np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)
+
+
+def without_last_relu(forward_fn, last):
+    """An int8 graph's forward (nn/quant.py's, or the JAX package's) whose
+    site ``last`` skips its ReLU."""
+    def fwd(qconv, x, *extras):
+        def qc(t, name, **kw):
+            return qconv(t, name, **(dict(kw, relu=False) if name == last else kw))
+        return forward_fn(qc, x, *extras)
+    return fwd
+
+
+def qconv_bound_ms(n, h, w, cin, cout, k, out_bytes=2, stride=1):
+    """The least time of one int8 convolution on the card: 2 N Ho Wo Cout
+    k^2 Cin operations at the dense int8 peak, or the bytes (xq and w8 read
+    once, the output written once, ws and bias) at the HBM rate, whichever is
+    longer, at the site's own Cin (not the padded one); (Ho, Wo) = ceil((H,
+    W) / stride). Returns (ms, "bytes" or "operations", operations)."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    ops = 2.0 * n * ho * wo * cout * k * k * cin
+    nbytes = n * h * w * cin + cout * k * k * cin + n * ho * wo * cout * out_bytes + 8 * cout
     b_ops, b_bytes = 1e3 * ops / PEAK_INT8_OPS, 1e3 * nbytes / PEAK_HBM_BYTES
     return max(b_ops, b_bytes), ("operations" if b_ops >= b_bytes else "bytes"), ops
 
 
-def qconv_site(n, h, w, cin, cout, k, seed, dilation=1, relu=True, out_dtype=torch.bfloat16):
+def qconv_site(n, h, w, cin, cout, k, seed, dilation=1, relu=True, out_dtype=torch.bfloat16,
+               stride=1):
     """Seeded int8 inputs of one qconv_int8 call on the card, as its
     keyword arguments."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -3701,7 +3817,7 @@ def qconv_site(n, h, w, cin, cout, k, seed, dilation=1, relu=True, out_dtype=tor
                                  dtype=torch.int8),
                 ws=torch.rand(cout, generator=g, device="cuda") * 1e-3, s=0.0123,
                 bias=torch.randn(cout, generator=g, device="cuda"), relu=relu,
-                dilation=dilation, out_dtype=out_dtype)
+                dilation=dilation, out_dtype=out_dtype, stride=stride)
 
 
 def final_site(i, b):
@@ -3762,11 +3878,12 @@ def recording_sites():
 
     calls, real = [], pq.qconv_int8
 
-    def rec(xq, w8, ws, s, bias, relu=True, dilation=1, out_dtype=torch.bfloat16, acc=False):
+    def rec(xq, w8, ws, s, bias, relu=True, dilation=1, out_dtype=torch.bfloat16, acc=False,
+            stride=1):
         calls.append(dict(xq=xq, w8=w8, ws=ws, s=s, bias=bias, relu=relu, dilation=dilation,
-                          out_dtype=out_dtype))
+                          out_dtype=out_dtype, stride=stride))
         return real(xq, w8, ws, s, bias, relu=relu, dilation=dilation, out_dtype=out_dtype,
-                    acc=acc)
+                    acc=acc, stride=stride)
 
     pq.qconv_int8 = rec
     try:
@@ -3780,13 +3897,13 @@ def check_qconv(qc, site):
     accumulator and the output bit for bit. Returns the largest |difference|
     of the outputs (0 when they agree)."""
     acc = qc.qconv_int8(site["xq"], site["w8"], None, site["s"], None,
-                        dilation=site["dilation"], acc=True)
-    ref = qc.conv_acc_reference(site["xq"], site["w8"], site["dilation"])
+                        dilation=site["dilation"], acc=True, stride=site["stride"])
+    ref = qc.conv_acc_reference(site["xq"], site["w8"], site["dilation"], site["stride"])
     y = qc.qconv_int8(**site)
     want = qc.epilogue_reference(ref, site["ws"], site["s"], site["bias"], site["relu"],
                                  site["out_dtype"])
     torch.cuda.synchronize()
-    shape = (tuple(site["xq"].shape), tuple(site["w8"].shape), site["dilation"])
+    shape = (tuple(site["xq"].shape), tuple(site["w8"].shape), site["dilation"], site["stride"])
     if not torch.equal(acc, ref):
         fail(f"qconv_int8 {shape}: int32 accumulator differs from the float64 convolution's "
              f"at {int((acc != ref).sum())} elements")
@@ -3811,6 +3928,126 @@ def _check_int8_counts(label, got, want, mass, gate):
     if not np.isfinite(got).all() or err > gate:
         fail(f"{label}: int8 counts off the bf16 path by {err:.4f} of the mass > {gate:.4f}")
     return err
+
+
+def timed_against_cudnn(qc, site):
+    """(qconv_int8's device ms, cuDNN's bf16 convolution's at the same shape
+    on the dequantized input), each ``device_ms_cold``."""
+    xq, w8, k, dil, stride = (site["xq"], site["w8"], site["w8"].shape[1], site["dilation"],
+                              site["stride"])
+    xb = (xq.float() * site["s"]).to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = w8.to(torch.bfloat16).permute(0, 3, 1, 2)
+    # SAME: odd windows d (k / 2) a side; CCTrans's windows at their own
+    # stride on sizes it divides, none
+    pad = dil * (k // 2) if k % 2 else 0
+    return (device_ms_cold(lambda: qc.qconv_int8(**site)),
+            device_ms_cold(lambda: torch.nn.functional.conv2d(
+                xb, wb, stride=stride, padding=pad, dilation=dil)))
+
+
+def cctrans_sites(qc, qn, frames, gpu):
+    """CCTrans's int8 sites of one forward of ``frames`` on their
+    activations: every strided site bit for bit against the plain version,
+    each distinct site shape's device time against cuDNN bf16 (a shape that
+    recurs counted as often as it does), and the heaviest strided site (by
+    its bound) on the same inputs against its bound and its plain version.
+    Returns the numbers."""
+    with recording_sites() as calls:
+        qn.count_frames(frames)
+    strided = [c for c in calls if c["stride"] > 1]
+    got = collections.Counter((c["xq"].shape[1], c["xq"].shape[2], c["xq"].shape[3],
+                               c["w8"].shape[0], c["w8"].shape[1]) for c in strided)
+    if got != {site[:5]: site[5] for site in CCTRANS_STRIDED_SITES}:
+        fail(f"int8 cctrans's strided sites {dict(got)} are not CCTRANS_STRIDED_SITES")
+    for c in strided:
+        check_qconv(qc, c)
+    shapes = collections.Counter(
+        (tuple(c["xq"].shape), tuple(c["w8"].shape), c["dilation"], c["stride"]) for c in calls)
+    first = {}
+    for c in calls:
+        first.setdefault((tuple(c["xq"].shape), tuple(c["w8"].shape), c["dilation"],
+                          c["stride"]), c)
+    rows = []
+    for key, n in shapes.items():
+        (b, h, w, cin), (cout, k, _, _), dil, stride = key
+        ms, lib = timed_against_cudnn(qc, first[key])
+        bound, by, _ = qconv_bound_ms(b, h, w, cin, cout, k, stride=stride)
+        rows.append(dict(xq=[b, h, w, cin], w8=[cout, k, k, cin], dilation=dil, stride=stride,
+                         sites=n, ms=ms, library_ms=lib, bound_ms=bound, bound_by=by))
+    total = sum(r["ms"] * r["sites"] for r in rows)
+    total_lib = sum(r["library_ms"] * r["sites"] for r in rows)
+    log(f"int8 cctrans: {len(calls)} int8 sites of one B={len(frames)} 768x1024 forward "
+        f"({len(strided)} strided, bit for bit against the plain version), {len(rows)} "
+        f"distinct shapes: qconv_int8 {total:.3f} ms of device time, cuDNN bf16 "
+        f"{total_lib:.3f} ms ({total / total_lib:.2f}x); bound "
+        f"{sum(r['bound_ms'] * r['sites'] for r in rows):.3f} ms (median of {QCONV_CALLS} "
+        f"calls each, L2 cold) [{gpu}]")
+    for r in sorted(rows, key=lambda r: -r["ms"] * r["sites"]):
+        log(f"  cctrans site xq {r['xq']} w8 {r['w8']} dil {r['dilation']} stride "
+            f"{r['stride']} x{r['sites']}: {r['ms']:.4f} ms, cuDNN bf16 {r['library_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    heavy = max((r for r in rows if r["stride"] > 1), key=lambda r: r["bound_ms"])
+    site = first[(tuple(heavy["xq"]), tuple(heavy["w8"]), heavy["dilation"], heavy["stride"])]
+    heavy["plain_ms"] = cuda_ms(lambda: qc.qconv_int8_reference(**site), 2, warmup=1)
+    log(f"cctrans heaviest strided site xq {heavy['xq']} w8 {heavy['w8']} stride "
+        f"{heavy['stride']}: {heavy['ms']:.4f} ms against its bound {heavy['bound_ms']:.4f} ms "
+        f"({heavy['bound_by']}; {heavy['ms'] / heavy['bound_ms']:.2f}x), plain "
+        f"{heavy['plain_ms']:.4f} ms, cuDNN bf16 {heavy['library_ms']:.4f} ms [{gpu}]")
+    return dict(sites=len(calls), strided_sites=len(strided), sites_ms=total,
+                sites_library_ms=total_lib, heaviest_strided=heavy, shapes=rows)
+
+
+def cctrans_head_checks(qc, bf16, qn, frames, gpu):
+    """CCTrans's int8 map held where it is not near zero: its head's last
+    site before the ReLU (reg_res2) on ``frames``, (1) against the same
+    graph with the plain version in place of the kernel at its int8 sites,
+    bit for bit, and (2) against the bf16 model's, |a - b| / |b| per frame
+    within 1.5 x CCTRANS_HEAD_DRIFT, while the control (the int8 map
+    against the next frame's bf16 map) must read above that gate. Launches
+    the kernel outside serving's window. Returns the numbers."""
+    from dgvcc_tpu_torch.nn import quant as pq
+
+    x = (torch.from_numpy(frames).cuda().permute(0, 3, 1, 2).float() / 255.0 - 0.5) / 0.5
+    x = x.to(torch.bfloat16)
+    seen = []
+    hook = bf16.model.regression.res[3].register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    try:
+        bf16.model(x)
+    finally:
+        hook.remove()
+    want = seen[0].permute(0, 2, 3, 1).float().cpu().numpy()
+    g, kernel = qn.quantized, pq.qconv_int8
+    g.forward_fn, real_fwd = without_last_relu(g.forward_fn, "reg_res2"), g.forward_fn
+    try:
+        got = g(x.permute(0, 2, 3, 1)).float()
+        pq.qconv_int8 = qc.qconv_int8_reference
+        try:
+            plain = g(x.permute(0, 2, 3, 1)).float()
+        finally:
+            pq.qconv_int8 = kernel
+    finally:
+        g.forward_fn = real_fwd
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain):
+        fail(f"int8 cctrans: reg_res2 before its ReLU differs between the kernel's graph and "
+             f"the plain version's by {float((got - plain).abs().max()):.3e} at "
+             f"{int((got != plain).sum())} of {got.numel()} elements")
+    got = got.cpu().numpy()
+    err, control = rel_l2(got, want), rel_l2(got, np.roll(want, -1, axis=0))
+    gate = 1.5 * CCTRANS_HEAD_DRIFT
+    log(f"int8 cctrans B={len(frames)} 768x1024, reg_res2 before its ReLU (|b| per frame "
+        f"{np.round(np.linalg.norm(want.reshape(len(want), -1), axis=1), 2).tolist()}): the "
+        f"kernel's graph equal to the plain version's bit for bit; |int8 - bf16| / |bf16| "
+        f"{np.round(err, 5).tolist()} (gate {gate:.5f}), control against the next frame's "
+        f"bf16 map {np.round(control, 5).tolist()} [{gpu}]")
+    if not np.isfinite(got).all() or err.max() > gate:
+        fail(f"int8 cctrans: reg_res2 before its ReLU off the bf16 model's by {err.max():.5f} "
+             f"> {gate:.5f}")
+    if control.min() <= gate:
+        fail(f"int8 cctrans: the control reads {control.min():.5f} <= the gate {gate:.5f}: "
+             "the head's map does not tell the frames apart")
+    return dict(head_err=float(err.max()), head_control=float(control.min()), head_gate=gate)
 
 
 def int8_phase(ma, counter, tmp, gpu):
@@ -3862,18 +4099,19 @@ def int8_phase(ma, counter, tmp, gpu):
     with torch.inference_mode():
         for site in calls:
             check_qconv(qc, site)
-        for i, (n, h, w, cin, cout, k, dil) in enumerate(QCONV_EDGES):
+        for i, (n, h, w, cin, cout, k, dil, stride) in enumerate(QCONV_EDGES):
             check_qconv(qc, qconv_site(n, h, w, cin, cout, k, 1400 + i, dilation=dil,
                                        relu=bool(i % 2),
-                                       out_dtype=torch.bfloat16 if i % 3 else torch.float32))
+                                       out_dtype=torch.bfloat16 if i % 3 else torch.float32,
+                                       stride=stride))
     schedules = collections.Counter(
         qc.plan(c["xq"].shape, c["w8"].shape, c["dilation"])["schedule"] for c in calls)
     log(f"qconv_int8 against its plain version: the {len(calls)} sites of a B=1 768x1024 "
         f"forward (Cin {sorted({c['xq'].shape[-1] for c in calls})}; schedules "
         f"{dict(schedules)}) and {len(QCONV_EDGES)} edge shapes (Cin 3, 16, 32, 67, 192; "
         f"Cout 1, 8, 67, 130, 300; H, W off the tiles; a 1x1 image; 1x1 windows; "
-        f"dilation 2; N = 3): int32 accumulators and outputs bit for bit, "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"dilation 2; N = 3; strides 2, 4, 8 on H, W they do not divide): int32 "
+        f"accumulators and outputs bit for bit, {time.perf_counter() - t0:.1f}s")
 
     # ---- counts against the bf16 path, launches of #1 and the int8 kernel
     wo_fold = MODELS.build("final", dtype=torch.float32)
@@ -3989,18 +4227,22 @@ def int8_phase(ma, counter, tmp, gpu):
     del inproc, art_counter, wo
     torch.cuda.empty_cache()
 
-    # ---- the conv families at B=4: int8 against bf16, frames/s; mcnn none.
-    # Each family's launches are counted from zero just before its own run,
-    # after the check of its site
-    fam, family_sites = {}, {}
-    f4 = np.ascontiguousarray(frames[:4])
+    # ---- the conv families at B=4 and CCTrans at B=8: int8 against bf16,
+    # frames/s; mcnn none. Each family's launches are counted from zero just
+    # before its own run, after the check of its site
+    fam, family_sites, strided = {}, {}, None
     baseline_launches = 0
     for name in INT8_BASELINES:
         t0 = time.perf_counter()
         bf16 = VideoCounter.from_checkpoint(name, None, dtype=torch.bfloat16, seed=11)
         qn = VideoCounter.from_checkpoint(name, None, dtype=torch.bfloat16, seed=11,
                                           quantize=True, calib_frames=calib)
+        # CCTrans at its graph's int8 floor (8), the others at 4
+        nb = max(4, qn.quantized.int8_min_batch)
+        f4 = np.ascontiguousarray(frames[:nb])
         with torch.inference_mode():
+            if name == "cctrans":
+                head = cctrans_head_checks(qc, bf16, qn, f4, gpu)
             if name in QCONV_FAMILY_SITES:
                 # one of the family's sites on its real input, bit for bit
                 kh, kw, cin = QCONV_FAMILY_SITES[name]
@@ -4012,29 +4254,41 @@ def int8_phase(ma, counter, tmp, gpu):
                     fail(f"int8 {name}: no site with a {kh}x{kw} window and Cin {cin}")
                 check_qconv(qc, site)
                 family_sites[name] = dict(xq=list(site["xq"].shape),
-                                          w8=list(site["w8"].shape),
+                                          w8=list(site["w8"].shape), stride=site["stride"],
                                           plan=qc.plan(site["xq"].shape, site["w8"].shape,
-                                                       site["dilation"]))
+                                                       site["dilation"], site["stride"]))
                 log(f"qconv_int8 against its plain version at a {name} site, xq "
                     f"{family_sites[name]['xq']} w8 {family_sites[name]['w8']} "
                     f"({family_sites[name]['plan']}): bit for bit")
+            n_sites = len(qn.quantized.int8_sites())
+            want_mass = _mass(bf16, f4)
+            want_counts = bf16.count_frames(f4)
+            dispatched = qn.dispatches["int8"]
             ma.LAUNCHES = qc.LAUNCHES = 0
             err = _check_int8_counts(
-                f"int8 {name} count_frames B=4 768x1024 ({len(qn.quantized.int8_sites())} int8 "
-                f"sites of {len(qn.quantized.sites)})", qn.count_frames(f4),
-                bf16.count_frames(f4), _mass(bf16, f4), int8_gate(name))
+                f"int8 {name} count_frames B={nb} 768x1024 ({n_sites} int8 sites of "
+                f"{len(qn.quantized.sites)})", qn.count_frames(f4), want_counts, want_mass,
+                int8_gate(name))
             fps = {}
             for label, c in (("bf16", bf16), ("int8", qn), ("int8", qn), ("bf16", bf16)):
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 for _ in range(3):
                     c.count_frames(f4)
-                fps.setdefault(label, []).append(12 / (time.perf_counter() - t1))
-            baseline_launches += qc.LAUNCHES
+                fps.setdefault(label, []).append(3 * nb / (time.perf_counter() - t1))
+            dispatched = qn.dispatches["int8"] - dispatched
+            if qc.LAUNCHES != n_sites * dispatched:
+                fail(f"int8 {name}: {qc.LAUNCHES} qconv_int8 launches for {n_sites} int8 sites "
+                     f"x {dispatched} int8 dispatches")
+            launched = qc.LAUNCHES
+            baseline_launches += launched
+            if name == "cctrans":
+                strided = dict(cctrans_sites(qc, qn, f4, gpu), **head)
         fam[name] = dict(err=err, fps=fps)
-        log(f"serve {name} B=4 768x1024 in turns (bf16, int8, int8, bf16): int8 "
+        log(f"serve {name} B={nb} 768x1024 in turns (bf16, int8, int8, bf16): int8 "
             f"{[round(v, 2) for v in fps['int8']]}, bf16 {[round(v, 2) for v in fps['bf16']]} "
-            f"frames/s; {time.perf_counter() - t0:.1f}s [{gpu}]")
+            f"frames/s; qconv_int8 launched {launched} = {n_sites} sites x {dispatched} "
+            f"dispatches; {time.perf_counter() - t0:.1f}s [{gpu}]")
         del bf16, qn
         torch.cuda.empty_cache()
     launches["int8 baselines"] = {"qconv_int8": baseline_launches}
@@ -4075,18 +4329,10 @@ def int8_phase(ma, counter, tmp, gpu):
             q_counter.count_frames(np.ascontiguousarray(frames[:4]))
         check_final_sites(calls4)
 
-        def timed(site):
-            xq, w8, k, dil = site["xq"], site["w8"], site["w8"].shape[1], site["dilation"]
-            xb = (xq.float() * site["s"]).to(torch.bfloat16).permute(0, 3, 1, 2)
-            wb = w8.to(torch.bfloat16).permute(0, 3, 1, 2)
-            return (device_ms_cold(lambda: qc.qconv_int8(**site)),
-                    device_ms_cold(lambda: torch.nn.functional.conv2d(
-                        xb, wb, padding=dil * (k // 2), dilation=dil)))
-
         rows = []
         for i, site in enumerate(calls4):
             h, w, cin, cout, k = FINAL_INT8_SITES[i]
-            ms, lib = timed(site)
+            ms, lib = timed_against_cudnn(qc, site)
             bound, by, ops = qconv_bound_ms(4, h, w, cin, cout, k)
             rows.append(dict(index=i, shape=(4, h, w, cin, cout, k), ms=ms, library_ms=lib,
                              bound_ms=bound, bound_by=by, ops=ops,
@@ -4108,7 +4354,7 @@ def int8_phase(ma, counter, tmp, gpu):
         for r in heavy:
             seeded = final_site(r["index"], 4)
             r["ms_activations"], r["library_ms_activations"] = r["ms"], r["library_ms"]
-            r["ms"], r["library_ms"] = timed(seeded)
+            r["ms"], r["library_ms"] = timed_against_cudnn(qc, seeded)
             r["plain_ms"] = cuda_ms(lambda: qc.qconv_int8_reference(**seeded), 2, warmup=1)
             log(f"qconv_int8 site {r['index']} {r['shape']} on seeded inputs: {r['ms']:.4f} ms "
                 f"(on the activations {r['ms_activations']:.4f}), bound {r['bound_ms']:.4f} ms "
@@ -4133,11 +4379,44 @@ def int8_phase(ma, counter, tmp, gpu):
                                 library_ms=r["library_ms"], bound_ms=r["bound_ms"],
                                 schedule=r["plan"]["schedule"])
                            for r in rows],
-                 family_sites=family_sites,
+                 family_sites=family_sites, cctrans=strided,
                  fps={str(b): v for b, v in fps.items()}, count_errs=errs,
                  families={k: v["fps"] for k, v in fam.items()})
     log(f"phase 14 (int8 serving): {time.perf_counter() - t_phase:.1f}s")
     return entry, launches
+
+
+def log_build(logs, t0):
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"nvcc {name}: {line.strip()}")
+    log(f"built {sorted(logs) or 'nothing (up to date)'} {time.perf_counter() - t0:.1f}s "
+        "after the start of the build")
+
+
+def check_ptxas(build, kernels):
+    """ptxas's report of each (library, kernel, label) on disk; fails on a
+    serialised wgmma or a spill. Returns {kernel: report}."""
+    ptxas = {}
+    for lib, kernel, what in kernels:
+        ptxas[kernel] = build.ptxas_report(build.build_log(lib), kernel)
+        log(f"ptxas, {what} bf16 K=256: {' | '.join(ptxas[kernel])}")
+        faults = build.ptxas_faults(ptxas[kernel])
+        if faults:
+            fail(f"{what}'s bf16 K=256 build: {'; '.join(faults)}")
+    return ptxas
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """Matmuls and convolutions in full float32 inside; the flags put back."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def main():
@@ -4161,34 +4440,28 @@ def main():
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
     t_phase = t0
-    logs = _build.build_all()
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"nvcc {name}: {line.strip()}")
-    log(f"built {sorted(logs) or 'nothing (up to date)'} in "
-        f"{time.perf_counter() - t0:.1f}s")
+    # mem_attention_train's nvcc takes most of the build (117.0 s on the
+    # card's host, where the other three took 25.5 s together): it builds in a
+    # process of its own while the others build and phases 2-3 run, and is
+    # waited for before its kernels' checks (2b)
+    train_build = subprocess.Popen(
+        [sys.executable, "-c", "from dgvcc_tpu_torch.ops import _build; "
+         "_build.build_all(['mem_attention_train'])"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), start_new_session=True)
+    # a failure before the wait ends the build and its nvcc too
+    atexit.register(lambda: train_build.poll() is None
+                    and os.killpg(train_build.pid, signal.SIGKILL))
+    logs = _build.build_all([n for n in _build.SOURCES if n != "mem_attention_train"])
+    log_build(logs, t0)
     # the report of the library on disk (kept beside it), built now or not;
     # a serialised wgmma (C7512, C7514) or a spill slows the kernel and
     # passes every check of its values, so it fails here
-    ptxas = {}
-    for lib, kernel, what in (
-            ("mem_attention", "mem_attention_bf16_kernelILi256E", "kernel #1"),
-            ("mem_attention_train", "mat_fwd_bf16ILi256E", "kernel #2"),
-            ("mem_attention_train", "mat_bwd_rows_bf16ILi256E", "kernel #3 rows"),
-            ("mem_attention_train", "mat_bwd_cols_bf16ILi256E", "kernel #3 cols")):
-        ptxas[kernel] = _build.ptxas_report(_build.build_log(lib), kernel)
-        log(f"ptxas, {what} bf16 K=256: {' | '.join(ptxas[kernel])}")
-        faults = _build.ptxas_faults(ptxas[kernel])
-        if faults:
-            fail(f"{what}'s bf16 K=256 build: {'; '.join(faults)}")
+    ptxas = check_ptxas(_build, (("mem_attention", "mem_attention_bf16_kernelILi256E",
+                                  "kernel #1"),))
     ptxas_k256 = ptxas["mem_attention_bf16_kernelILi256E"]
     sass = check_sass(str(_build.library_path("mem_attention")), "mem_attention_bf16_kernel",
                       5, "kernel #1")
-    sass_fwd = check_sass(str(_build.library_path("mem_attention_train")), "mat_fwd_bf16", 2,
-                          "kernel #2")
-    check_sass(str(_build.library_path("mem_attention_train")), "mat_bwd_(rows|cols)_bf16", 4,
-               "kernel #3")
     # qconv_int8: the per-tap kernels (BN 64, 128, 256 x kBK 32, 64, 128)
     # and the halo kernels (BN 64, 128 x kBK 32, 64), all s8 wgmma fed by
     # TMA
@@ -4213,19 +4486,10 @@ def main():
                     for i, (b, p, k, s) in enumerate(EDGES_BF16))
     # the plain versions' float32 products in full float32 for these
     # comparisons (TF32 off); the flags are put back after them
-    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    train_bf16 = check_train_kernels(mt, TRAIN_B, TRAIN_P, torch.bfloat16, 5)
-    train_f32 = check_train_kernels(mt, TRAIN_B, TRAIN_P, torch.float32, 6)
-    check_train_kernels(mt, 3, 6400 + 37, torch.bfloat16, 7)
-    check_train_kernels(mt, 3, 6400 + 37, torch.float32, 8)
-    near = {(dtype, eps): check_train_forward_near(mt, dtype, eps, 70 + i)
-            for i, (dtype, eps) in enumerate((d, e) for d in (torch.bfloat16, torch.float32)
-                                             for e in NEAR_EPS)}
-    dmap_err = check_dmap(dm)
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    with tf32_off():
+        dmap_err = check_dmap(dm)
     device_aug_phase(gpu)
-    phase_done("2 (kernels against their plain versions)", t_phase)
+    phase_done("2 (kernels #1 and #4 against their plain versions)", t_phase)
 
     # ---- 3. serve the main path -------------------------------------------
     t_phase = time.perf_counter()
@@ -4267,6 +4531,30 @@ def main():
         check_counts(name, fused_counts, run(plain))
     check_cli(frames, VideoCounter)
     phase_done("3 (serving)", t_phase)
+
+    # ---- 2b. the training kernels, built beside phases 1-3 ----------------
+    t_phase = time.perf_counter()
+    out, _ = train_build.communicate()
+    if train_build.returncode:
+        fail(f"building mem_attention_train exited {train_build.returncode}:\n{out[-3000:]}")
+    log_build({"mem_attention_train": _build.build_log("mem_attention_train")}, t0)
+    ptxas.update(check_ptxas(_build, (
+        ("mem_attention_train", "mat_fwd_bf16ILi256E", "kernel #2"),
+        ("mem_attention_train", "mat_bwd_rows_bf16ILi256E", "kernel #3 rows"),
+        ("mem_attention_train", "mat_bwd_cols_bf16ILi256E", "kernel #3 cols"))))
+    sass_fwd = check_sass(str(_build.library_path("mem_attention_train")), "mat_fwd_bf16", 2,
+                          "kernel #2")
+    check_sass(str(_build.library_path("mem_attention_train")), "mat_bwd_(rows|cols)_bf16", 4,
+               "kernel #3")
+    with tf32_off():
+        train_bf16 = check_train_kernels(mt, TRAIN_B, TRAIN_P, torch.bfloat16, 5)
+        train_f32 = check_train_kernels(mt, TRAIN_B, TRAIN_P, torch.float32, 6)
+        check_train_kernels(mt, 3, 6400 + 37, torch.bfloat16, 7)
+        check_train_kernels(mt, 3, 6400 + 37, torch.float32, 8)
+        near = {(dtype, eps): check_train_forward_near(mt, dtype, eps, 70 + i)
+                for i, (dtype, eps) in enumerate((d, e) for d in (torch.bfloat16, torch.float32)
+                                                 for e in NEAR_EPS)}
+    phase_done("2b (kernels #2 and #3 against their plain versions)", t_phase)
 
     # ---- 4. times ---------------------------------------------------------
     t_phase = time.perf_counter()
@@ -4366,12 +4654,12 @@ def main():
 
         # ---- 12. data parallel: ranks over torch.distributed -----------------
         t_phase = time.perf_counter()
-        _, dp_launches = dp_phase(mt, tmp, gpu)
+        _, dp_launches, dp_test = dp_phase(mt, tmp, gpu)
         phase_done("12 (data parallel)", t_phase)
 
         # ---- 13. the bank over a 2-D mesh, the crop's height over 8 ranks -----
         t_phase = time.perf_counter()
-        _, mesh_launches = mesh_phase(tmp, gpu)
+        _, mesh_launches = mesh_phase(tmp, gpu, [dp_test])
         phase_done("13 (2-D mesh and spatial)", t_phase)
 
         # ---- 14. int8 serving: final, its artifact, HTTP, the conv families ----

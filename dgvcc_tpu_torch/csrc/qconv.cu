@@ -1,14 +1,19 @@
 // Int8 convolution with a fused epilogue for Hopper (sm_90a):
 //
-//     acc[n, h, w, c] = sum_{r, q, k} xq[n, h + (r - kh/2) d, w + (q - kw/2) d, k]
+//     acc[n, i, j, c] = sum_{r, q, k} xq[n, i u + r d - pad_h, j u + q d - pad_w, k]
 //                                     * w8[c, r, q, k]        (int32, SAME zeros)
 //     y = float(acc) * (ws[c] * s) + bias[c]  [, ReLU]  -> f32 or bf16, NHWC
 //
 // xq: (N, H, W, Cin) int8, contiguous (channels last); w8: (Cout, kh, kw, Cin)
-// int8, contiguous; ws, bias: (Cout,) f32; s: the site's activation scale.
-// Stride 1, odd kh and kw, dilation d >= 1, Cin a multiple of 16 (TMA's
-// 16-byte strides; ops/qconv.py pads any other Cin with zero channels, which
-// leaves the accumulator exact), Cout >= 1, any N, H, W.
+// int8, contiguous; ws, bias: (Cout,) f32; s: the site's activation scale;
+// y: (N, ceil(H / u), ceil(W / u), Cout). Stride u in 1..8, dilation d >= 1,
+// odd kh and kw, or an even window at its own stride (kh = kw = u: CCTrans's
+// patch embeddings and GSA's sr convolutions); the padding is flax's / XLA's
+// 'SAME': total = max((ceil(n / u) - 1) u + (k - 1) d + 1 - n, 0) on a side
+// of n, total / 2 of it low, the rest high (d (k / 2) each side at stride 1).
+// Cin a multiple of 16 (TMA's 16-byte strides; ops/qconv.py pads any other
+// Cin with zero channels, which leaves the accumulator exact), Cout >= 1,
+// any N, H, W.
 //
 // Replaces no pl.pallas_call: on the TPU, XLA ran this convolution itself
 // (dgvcc_tpu/nn/quant.py:290-295, QuantizedDG._qconv, and :508-514,
@@ -35,10 +40,14 @@
 //     of kBK bytes. A block's M tile is a TH x TW = 128-pixel rectangle of
 //     one image (TW the power of two from W up to 64).
 //   * A by TMA in tiled mode from a 4-D map of xq (Cin, W, H, N) with a
-//     box (kBK, TW, TH, 1): tap (r, q) loads at (c0, w0 + q d - pad_w,
-//     h0 + r d - pad_h, n), and TMA fills every coordinate outside the
-//     image, negative ones included, with zeros. That is SAME padding and
-//     dilation with no code per element, and no address a thread computes.
+//     box (kBK, TW u, TH u, 1) and element strides (1, u, u, 1): tap (r, q)
+//     loads the TW x TH pixels (c0, w0 u + q d - pad_w + u j,
+//     h0 u + r d - pad_h + u i, n), packed as at stride 1, and TMA fills
+//     every coordinate outside the image, negative ones included, with
+//     zeros. That is SAME padding, dilation and stride with no code per
+//     element, and no address a thread computes. TMA's box spans at most
+//     256 elements a dimension, so TW u <= 256 and TH u <= 256 (at u = 8:
+//     4 <= TW <= 32).
 //   * B by TMA from a 3-D map of w8 (Cin, kh kw, Cout) with a box (kBK, 1,
 //     BN): channels past Cin and rows past Cout arrive as zeros.
 //   * kBK is 128 bytes with the 128-byte swizzle when Cin % 128 == 0, 64
@@ -118,7 +127,8 @@ struct Params {
   const float* __restrict__ bias;
   void* __restrict__ out;
   float s;
-  int h, w, cout, kw, taps, dil, pad_h, pad_w, relu, out_kind;
+  int h, w;                        // the output's height and width
+  int cout, kw, taps, dil, stride, pad_h, pad_w, relu, out_kind;
   int chunks;                      // Cin / kBK, rounded up
   int tw, th, tiles_w, tiles_h, tiles_m, n_tiles;
   int stages, halo_bytes, halo_stride;  // the halo schedule's ring
@@ -236,7 +246,8 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
         const Tile t = tile_at<BN>(p, tile);
         for (int tap = 0; tap < p.taps; ++tap) {
           const int r = tap / p.kw, q = tap - r * p.kw;
-          const int hi = t.h0 + r * p.dil - p.pad_h, wi = t.w0 + q * p.dil - p.pad_w;
+          const int hi = t.h0 * p.stride + r * p.dil - p.pad_h;
+          const int wi = t.w0 * p.stride + q * p.dil - p.pad_w;
           for (int c = 0; c < p.chunks; ++c, ++it) {
             const uint32_t st = it % C::kStages;
             mbar_wait(empty + st, ((it / C::kStages) & 1) ^ 1);
@@ -495,8 +506,8 @@ cudaError_t launch_bk(bool halo, int bk, const CUtensorMap& x_map, const CUtenso
 }
 
 // The halo schedule's shared memory for these weights and tiles, or 0 where
-// it does not apply (3x3 windows, TW = 64, one K chunk of at most 64 bytes,
-// Cout <= BN <= 128): the weights of every tap, kHaloMinStages halo tiles,
+// it does not apply (3x3 windows at stride 1, TW = 64, one K chunk of at most
+// 64 bytes, Cout <= BN <= 128): the weights of every tap, kHaloMinStages halo tiles,
 // the scales and the barriers must fit. A 128-byte chunk never fits: its
 // weights and four halo tiles take more than the 227 KB a block may have.
 // Four tiles in flight, two a consumer warpgroup: with two, a tile's load
@@ -505,8 +516,8 @@ cudaError_t launch_bk(bool halo, int bk, const CUtensorMap& x_map, const CUtenso
 constexpr int kHaloMinStages = 4;
 
 uint32_t halo_smem(const Params& p, int bn, int bk, int cout, int* stages) {
-  if (p.taps != 9 || p.kw != 3 || p.tw != 64 || p.th != 2 || p.chunks != 1 || bk > 64 ||
-      cout > bn || bn > 128 || p.tw + 2 * p.pad_w > 256 || p.th + 2 * p.pad_h > 256)
+  if (p.taps != 9 || p.kw != 3 || p.stride != 1 || p.tw != 64 || p.th != 2 || p.chunks != 1 ||
+      bk > 64 || cout > bn || bn > 128 || p.tw + 2 * p.pad_w > 256 || p.th + 2 * p.pad_h > 256)
     return 0;
   const uint32_t fixed = uint32_t(p.taps) * bn * bk + kConsumers * (bn / 64) * kTileM * 128 +
                          8 * bn + 1024 + 16 * (2 * kMaxStages + 1);
@@ -529,33 +540,46 @@ int choose_bn(int cout, long long tiles_m, int sms) {
   return 18 * waves256 <= 10 * waves128 ? 256 : 128;
 }
 
-// The schedule and tiling of a call, from its shapes: Cin picks kBK, W the
-// tile width TW (the power of two from W up to 64), Cout and the tile count
-// BN, and a 3x3 window with one K chunk and Cout <= 128 the halo schedule
-// where its ring fits -> p, bk, bn, whether the halo schedule runs and its
-// dynamic shared memory. Returns a cudaError_t.
-int make_plan(int n, int h, int width, int cin, int cout, int kh, int kw, int dil, int sms,
-              Params* p_out, int* bk_out, int* bn_out, bool* halo_out, uint32_t* smem_out) {
+// SAME's low padding on a side of n: the total split total / 2 low
+int same_pad_low(int n, int k, int dil, int stride) {
+  const long long total = (ceil_div(n, stride) - 1) * stride + (k - 1LL) * dil + 1 - n;
+  return total > 0 ? int(total / 2) : 0;
+}
+
+// The schedule and tiling of a call, from its shapes: Cin picks kBK, the
+// output's width the tile width TW (the power of two from it up to 64,
+// kept to TMA's 256-element box at the stride), Cout and the tile count
+// BN, and a 3x3 window at stride 1 with one K chunk and Cout <= 128 the halo
+// schedule where its ring fits -> p, bk, bn, whether the halo schedule runs
+// and its dynamic shared memory. Returns a cudaError_t.
+int make_plan(int n, int h, int width, int cin, int cout, int kh, int kw, int dil, int stride,
+              int sms, Params* p_out, int* bk_out, int* bn_out, bool* halo_out,
+              uint32_t* smem_out) {
+  const bool odd = kh % 2 == 1 && kw % 2 == 1;
+  const bool patch = kh == stride && kw == stride;  // an even window at its own stride
   if (n <= 0 || h <= 0 || width <= 0 || cin <= 0 || cin % 16 != 0 || cout <= 0 || kh <= 0 ||
-      kw <= 0 || kh % 2 == 0 || kw % 2 == 0 || dil <= 0)
+      kw <= 0 || !(odd || patch) || dil <= 0 || stride < 1 || stride > 8)
     return int(cudaErrorInvalidValue);
   const int bk = cin % 128 == 0 ? 128 : cin % 64 == 0 ? 64 : 32;
+  const int ho = int(ceil_div(h, stride)), wo = int(ceil_div(width, stride));
   int tw = 1;
-  while (tw < width && tw < 64) tw *= 2;
+  while (tw < wo && tw < 64 && 2 * tw * stride <= 256) tw *= 2;
+  while ((kTileM / tw) * stride > 256) tw *= 2;  // TH u <= 256
   Params p{};
-  p.h = h;
-  p.w = width;
+  p.h = ho;
+  p.w = wo;
   p.cout = cout;
   p.kw = kw;
   p.taps = kh * kw;
   p.dil = dil;
-  p.pad_h = dil * (kh / 2);
-  p.pad_w = dil * (kw / 2);
+  p.stride = stride;
+  p.pad_h = same_pad_low(h, kh, dil, stride);
+  p.pad_w = same_pad_low(width, kw, dil, stride);
   p.chunks = (cin + bk - 1) / bk;
   p.tw = tw;
   p.th = kTileM / tw;
-  p.tiles_w = (width + p.tw - 1) / p.tw;
-  p.tiles_h = (h + p.th - 1) / p.th;
+  p.tiles_w = (wo + p.tw - 1) / p.tw;
+  p.tiles_h = (ho + p.th - 1) / p.th;
   const long long tiles_m = static_cast<long long>(n) * p.tiles_h * p.tiles_w;
   const int bn = choose_bn(cout, tiles_m, sms);
   const long long n_tiles = tiles_m * ceil_div(cout, bn);
@@ -581,7 +605,8 @@ int make_plan(int n, int h, int width, int cin, int cout, int kh, int kw, int di
 // cudaErrorInvalidValue for arguments it does not take).
 extern "C" int qconv_int8_fwd(const void* x, const void* w, const void* ws, const void* bias,
                               float s, void* out, int n, int h, int width, int cin, int cout,
-                              int kh, int kw, int dil, int relu, int out_kind, void* stream) {
+                              int kh, int kw, int dil, int stride, int relu, int out_kind,
+                              void* stream) {
   if (out_kind < 0 || out_kind > 2 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(w) & 15) != 0)
     return int(cudaErrorInvalidValue);
@@ -592,8 +617,8 @@ extern "C" int qconv_int8_fwd(const void* x, const void* w, const void* ws, cons
   int bk = 0, bn = 0;
   bool halo = false;
   uint32_t smem = 0;
-  const int err = make_plan(n, h, width, cin, cout, kh, kw, dil, sms, &p, &bk, &bn, &halo,
-                            &smem);
+  const int err = make_plan(n, h, width, cin, cout, kh, kw, dil, stride, sms, &p, &bk, &bn,
+                            &halo, &smem);
   if (err) return err;
   p.ws = static_cast<const float*>(ws);
   p.bias = static_cast<const float*>(bias);
@@ -603,17 +628,21 @@ extern "C" int qconv_int8_fwd(const void* x, const void* w, const void* ws, cons
   p.out_kind = out_kind;
 
   // xq as (Cin, W, H, N) bytes, w8 as (Cin, kh kw, Cout); the halo
-  // schedule's A box is the halo tile
+  // schedule's A box is the halo tile, the per-tap one's a tile's pixels
+  // at the stride
   CUtensorMap x_map, w_map;
   const uint64_t x_dims[4] = {uint64_t(cin), uint64_t(width), uint64_t(h), uint64_t(n)};
   const uint64_t x_strides[3] = {uint64_t(cin), uint64_t(cin) * width,
                                  uint64_t(cin) * width * h};
-  const uint32_t x_box[4] = {uint32_t(bk), uint32_t(p.tw + (halo ? 2 * p.pad_w : 0)),
-                             uint32_t(p.th + (halo ? 2 * p.pad_h : 0)), 1};
+  const uint32_t x_box[4] = {uint32_t(bk),
+                             uint32_t(halo ? p.tw + 2 * p.pad_w : p.tw * stride),
+                             uint32_t(halo ? p.th + 2 * p.pad_h : p.th * stride), 1};
+  const uint32_t x_elem[4] = {1, uint32_t(stride), uint32_t(stride), 1};
   const uint64_t w_dims[3] = {uint64_t(cin), uint64_t(p.taps), uint64_t(cout)};
   const uint64_t w_strides[2] = {uint64_t(cin), uint64_t(cin) * p.taps};
   const uint32_t w_box[3] = {uint32_t(bk), 1, uint32_t(bn)};
-  if (!make_map_nd(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, 4, x_dims, x_strides, x_box, bk) ||
+  if (!make_map_nd(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, 4, x_dims, x_strides, x_box, bk,
+                   x_elem) ||
       !make_map_nd(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 3, w_dims, w_strides, w_box, bk))
     return int(cudaErrorInvalidValue);
   // the halo schedule's bf16 output as (Cout, W, H, N), 64-column boxes of
@@ -622,9 +651,9 @@ extern "C" int qconv_int8_fwd(const void* x, const void* w, const void* ws, cons
   p.tma_store = halo && out_kind == kOutBF16 && cout % 8 == 0 &&
                 (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   if (p.tma_store) {
-    const uint64_t o_dims[4] = {uint64_t(cout), uint64_t(width), uint64_t(h), uint64_t(n)};
-    const uint64_t o_strides[3] = {2 * uint64_t(cout), 2 * uint64_t(cout) * width,
-                                   2 * uint64_t(cout) * width * h};
+    const uint64_t o_dims[4] = {uint64_t(cout), uint64_t(p.w), uint64_t(p.h), uint64_t(n)};
+    const uint64_t o_strides[3] = {2 * uint64_t(cout), 2 * uint64_t(cout) * p.w,
+                                   2 * uint64_t(cout) * p.w * p.h};
     const uint32_t o_box[4] = {64, uint32_t(p.tw), uint32_t(p.th), 1};
     if (!make_map_nd(&out_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, 4, o_dims, o_strides,
                      o_box, 128))
@@ -641,15 +670,15 @@ extern "C" int qconv_int8_fwd(const void* x, const void* w, const void* ws, cons
 // out[0..5] = halo (1) or per tap (0), BN, kBK, TW, TH, stages (the halo
 // ring's; 0 for the per-tap schedule, whose ring is fixed by BN and kBK).
 extern "C" int qconv_int8_plan(int n, int h, int width, int cin, int cout, int kh, int kw,
-                               int dil, int* out) {
+                               int dil, int stride, int* out) {
   const int sms = sm_count();
   if (sms <= 0) return int(cudaErrorNoDevice);
   Params p;
   int bk = 0, bn = 0;
   bool halo = false;
   uint32_t smem = 0;
-  const int err = make_plan(n, h, width, cin, cout, kh, kw, dil, sms, &p, &bk, &bn, &halo,
-                            &smem);
+  const int err = make_plan(n, h, width, cin, cout, kh, kw, dil, stride, sms, &p, &bk, &bn,
+                            &halo, &smem);
   if (err) return err;
   out[0] = halo;
   out[1] = bn;

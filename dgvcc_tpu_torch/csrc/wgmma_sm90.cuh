@@ -688,10 +688,13 @@ inline bool make_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint6
 // read or written in boxes of box[0..rank) elements with `swizzle_bytes`
 // (32, 64 or 128; box[0]'s bytes must not exceed it). Elements of a box
 // outside the tensor, on either side, arrive as zeros, and are not written
-// by a store. Returns false if the CUDA driver refuses.
+// by a store. `elem_strides` (default all 1): a traversal stride of 1..8
+// for each dimension past the first; box[i] then spans box[i] elements of
+// dims[i] and brings box[i] / elem_strides[i] of them, packed. Returns false
+// if the CUDA driver refuses.
 inline bool make_map_nd(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
                         const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
-                        int swizzle_bytes) {
+                        int swizzle_bytes, const uint32_t* elem_strides = nullptr) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || rank < 1 || rank > 5) return false;
   cuuint64_t d[5], s[4];
@@ -699,7 +702,7 @@ inline bool make_map_nd(CUtensorMap* map, CUtensorMapDataType type, const void* 
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
-    elem[i] = 1;
+    elem[i] = elem_strides == nullptr ? 1 : elem_strides[i];
     if (i + 1 < rank) s[i] = strides[i];
   }
   const CUtensorMapSwizzle swz = swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B

@@ -207,7 +207,9 @@ class ALTGVT(nn.Module):
                  sr_ratios: Sequence[int] = (8, 4, 2, 1), pretrained: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.depths = tuple(depths)
+        # the geometry the int8 graph reads (nn/quant_cctrans.py)
+        self.depths, self.num_heads = tuple(depths), tuple(num_heads)
+        self.wss, self.sr_ratios = tuple(wss), tuple(sr_ratios)
         cin = 3
         self.patch_embeds = nn.ModuleList()
         self.pos_block = nn.ModuleList()

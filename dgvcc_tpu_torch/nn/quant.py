@@ -1,10 +1,11 @@
 """Int8 post-training quantization (PTQ) serving graphs, counterpart of
 dgvcc_tpu/nn/quant.py.
 
-The DG family (``QuantizedDG``) and the feed-forward conv(+BN) baselines
-csrnet, mcnn, bl, sasnet and dssinet (``QuantizedConvNet``, one fold and one
-forward spec a family, sites below ``min_ch`` channels left in bf16) become
-an eval-only serving graph, built by ``build_quantized``:
+The DG family (``QuantizedDG``), the feed-forward conv(+BN) baselines
+csrnet, mcnn, bl, sasnet and dssinet, and CCTrans (``QuantizedConvNet``, one
+fold and one forward spec a family, sites below ``min_ch`` channels left in
+bf16; CCTrans's graph is ``nn/quant_cctrans.py``) become an eval-only
+serving graph, built by ``build_quantized``:
 
   1. batch norm folded into its convolution (``fold_bn``): exact up to
      float rounding;
@@ -39,9 +40,8 @@ caller asks for ``"cpu"``, and raises when CUDA is asked for and absent.
 ``weight_only``: int8 weights dequantized to the serving dtype at use,
 bf16 activations, cuDNN's convolution; no calibration.
 
-Not ported: CCTrans (``quant_cctrans.py``, ROADMAP.md Queue 1 item 2). The
-whitening counters are refused as in the JAX package: they compute instance
-statistics at eval, which no fold can take.
+The whitening counters are refused as in the JAX package: they compute
+instance statistics at eval, which no fold can take.
 """
 
 from __future__ import annotations
@@ -56,14 +56,16 @@ import torch.nn.functional as F
 from dgvcc_tpu_torch.nn.layers import resize_bilinear_ac, upsample
 from dgvcc_tpu_torch.nn.vgg import VGG16_CFG, VGG19_CFG, feature_layout
 from dgvcc_tpu_torch.ops.mem_attention import memory_attention_fused
-from dgvcc_tpu_torch.ops.qconv import pad_cin, qconv_int8, quantize_activation
+from dgvcc_tpu_torch.ops.qconv import pad_cin, qconv_int8, quantize_activation, same_padding
 from dgvcc_tpu_torch.serve import resolve_device
 
 _DEC_BLOCKS = ("dec3_0", "dec3_1", "dec2_0", "dec2_1", "dec1_0", "dec1_1")
 # sites that stay fp (tiny 1x1 heads; quantizing them saves nothing)
 _FP_SITES = frozenset({"den_head", "cls_conv2"})
-_CCTRANS = ("cctrans int8 (nn/quant_cctrans.py) is not ported to dgvcc_tpu_torch yet; see "
-            "ROADMAP.md, Queue 1 item 2")
+# CCTrans's batch floor for quantize="auto" (the JAX package's measurement on
+# a TPU v5e: its int8 graph ran 0.68x bf16 at B=1, 1.10-1.16x at B=8;
+# dgvcc_tpu/nn/quant.py:980-991)
+CCTRANS_MIN_BATCH = 8
 
 
 # ---------------------------------------------------------------------------
@@ -188,8 +190,13 @@ class _Graph:
             return []
         return sorted(n for n, s in self.qparams["sites"].items() if "w8" in s)
 
-    def _qconv(self, x, name: str, relu: bool = True, dilation: int = 1):
-        """``x``: an NHWC tensor, or a list of the parts of a channel concat."""
+    def _qconv(self, x, name: str, relu: bool = True, dilation: int = 1, stride: int = 1,
+               padding=None, groups: int = 1):
+        """``x``: an NHWC tensor, or a list of the parts of a channel concat.
+        ``padding``: None for flax's 'SAME' at the stride, else ((top,
+        bottom), (left, right)); ``groups``: an fp site's feature groups (the
+        depthwise PEG: its one input channel a group keeps it below any
+        ``min_ch``)."""
         site = self.qparams["sites"][name]
         parts = list(x) if isinstance(x, (list, tuple)) else None
         if self._capture is not None and name not in self.fp_sites:
@@ -198,26 +205,35 @@ class _Graph:
             prev = self._capture.get(name)
             self._capture[name] = m if prev is None else torch.maximum(prev, m)
         dt = self.dtype
+        window = (site["w8"] if "w8" in site else site["kernel"]).shape[1:3]
+        same = tuple(same_padding(n, k, dilation, stride)
+                     for n, k in zip((parts or [x])[0].shape[1:3], window))
+        padding = same if padding is None else tuple(tuple(p) for p in padding)
         if "w8" not in site or self.weight_only:  # fp activations
             if parts is not None:
                 x = torch.cat(parts, dim=-1)
             if "w8" in site:  # weight-only: dequantize at use (without the padding)
-                w8 = site["w8"][..., :x.shape[-1]]
+                w8 = site["w8"][..., :x.shape[-1] // groups]
                 kernel = w8.to(dt) * site["ws"].to(dt)[:, None, None, None]
             else:
                 kernel = site["kernel"]
-            kh, kw = kernel.shape[1:3]
-            y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), kernel.permute(0, 3, 1, 2),
-                         padding=(dilation * (kh // 2), dilation * (kw // 2)),
-                         dilation=dilation).permute(0, 2, 3, 1)
+            (t, b), (l, r) = padding
+            xc = x.to(dt).permute(0, 3, 1, 2)
+            if (t, l) != (b, r):  # uneven: the zeros go in first
+                xc, t, l = F.pad(xc, (l, r, t, b)), 0, 0
+            y = F.conv2d(xc, kernel.permute(0, 3, 1, 2), stride=stride, padding=(t, l),
+                         dilation=dilation, groups=groups).permute(0, 2, 3, 1)
             y = y + site["bias"].to(dt)
             return F.relu(y) if relu else y
+        if groups != 1 or padding != same:
+            raise ValueError(f"int8 site {name}: the int8 convolution takes one group and "
+                             "SAME padding")
         s = self.scales[name]
         xq = (torch.cat([quantize_activation(p, s) for p in parts], dim=-1)
               if parts is not None else quantize_activation(x, s))
         xq = pad_cin(xq, site["w8"].shape[-1])
         return qconv_int8(xq, site["w8"], site["ws"], s, site["bias"], relu=relu,
-                          dilation=dilation, out_dtype=dt)
+                          dilation=dilation, out_dtype=dt, stride=stride)
 
     @contextlib.contextmanager
     def capturing(self):
@@ -228,6 +244,20 @@ class _Graph:
             yield self._capture
         finally:
             self._capture = None
+
+
+class GraphModule(torch.nn.Module):
+    """An int8 graph as an NCHW module (frames in, the density out): what
+    ``ops/tiling.py::TiledCounter`` drives (the trainer's
+    ``test_quantized``)."""
+
+    def __init__(self, graph: "_Graph"):
+        super().__init__()
+        self.graph = graph
+
+    def forward(self, x):
+        out = self.graph(x.permute(0, 2, 3, 1))
+        return (out[0] if isinstance(out, tuple) else out).permute(0, 3, 1, 2)
 
 
 @contextlib.contextmanager
@@ -409,9 +439,7 @@ class QuantizedConvNet(_Graph):
         self.forward_fn = forward_fn
         self.fp_sites = frozenset(fp_sites)
         if extras is not None:
-            self.qparams["extras"] = {
-                k: torch.as_tensor(np.asarray(v, np.float32)).reshape(-1).to(self.device)
-                for k, v in extras.items()}
+            self.qparams["extras"] = _tree_to(extras, self.device)
 
     @classmethod
     def from_folded(cls, folded, scales, forward_fn, fp_sites, dtype=torch.bfloat16,
@@ -429,6 +457,18 @@ class QuantizedConvNet(_Graph):
         if "extras" in self.qparams:
             return self.forward_fn(qconv, x, self.qparams["extras"])
         return self.forward_fn(qconv, x)
+
+
+def tree_map(fn, tree):
+    """``fn`` on each leaf of a nested dict (an artifact's ``extras``)."""
+    return {k: tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def _tree_to(tree, device):
+    """A nested dict of arrays as float32 tensors on ``device``; a leaf of
+    one value (a PReLU slope) as shape (1,)."""
+    return tree_map(lambda v: torch.as_tensor(np.asarray(v, np.float32)).reshape(
+        np.shape(v) or (1,)).to(device), tree)
 
 
 def calibrate_graph(folded: Dict, forward_fn, fp_sites, calib_frames,
@@ -697,8 +737,8 @@ def dssinet_forward(qconv, x, extras):
 
 
 _WHITENING = ("int8 quantization supports the DG family and the conv(+BN) baselines "
-              "csrnet/mcnn/bl/sasnet/dssinet; got {} (whitening counters need instance "
-              "statistics at eval and stay fp)")
+              "csrnet/mcnn/bl/sasnet/dssinet/cctrans; got {} (whitening counters need "
+              "instance statistics at eval and stay fp)")
 
 
 def _family_spec(model):
@@ -728,13 +768,26 @@ def _family_spec(model):
                        | {f"pw{k}" for k in range(1, 5)})
         return dssinet_fold, dssinet_forward, fp
     if isinstance(model, ALTGVT):
-        raise NotImplementedError(_CCTRANS)
+        from dgvcc_tpu_torch.nn.quant_cctrans import cctrans_fold, cctrans_forward
+
+        geometry = dict(depths=model.depths, heads=model.num_heads, wss=model.wss,
+                        sr_ratios=model.sr_ratios)
+        return (cctrans_fold, lambda qc, x, ex: cctrans_forward(qc, x, ex, **geometry),
+                frozenset({"reg_res2"}))
     return None
+
+
+def family_min_batch(model) -> int:
+    """The smallest dispatch batch at which ``quantize="auto"`` serves a
+    family's int8 graph: CCTrans's ``CCTRANS_MIN_BATCH``, else 1."""
+    from dgvcc_tpu_torch.models.baselines.cctrans import ALTGVT
+
+    return CCTRANS_MIN_BATCH if isinstance(model, ALTGVT) else 1
 
 
 def check_quantizable(model) -> None:
     """Raise unless ``build_quantized`` takes ``model``: ValueError for a
-    family without an int8 graph, NotImplementedError for CCTrans."""
+    family without an int8 graph."""
     from dgvcc_tpu_torch.models.dg import DGModel
 
     if not isinstance(model, DGModel) and _family_spec(model) is None:
@@ -744,10 +797,12 @@ def check_quantizable(model) -> None:
 def build_quantized(model, calib_frames, dtype=torch.bfloat16, device="cuda",
                     min_ch: int = 128):
     """Quantize a supported model for serving: the DG family ->
-    ``QuantizedDG``; csrnet / mcnn / bl / sasnet / dssinet ->
+    ``QuantizedDG``; csrnet / mcnn / bl / sasnet / dssinet / cctrans ->
     ``QuantizedConvNet``, whose sites with fewer than ``min_ch`` input or
     output channels stay in the serving dtype (MCNN, 48 channels at most,
-    keeps none). ``calib_frames``: NHWC float frames, normalised."""
+    keeps none; CCTrans's depthwise PEG, one input channel a group, always).
+    The graph carries its family's ``int8_min_batch``. ``calib_frames``: NHWC
+    float frames, normalised."""
     from dgvcc_tpu_torch.models.dg import DGModel
 
     if isinstance(model, DGModel):
@@ -763,4 +818,6 @@ def build_quantized(model, calib_frames, dtype=torch.bfloat16, device="cuda",
         _, _, cin, cout = folded[k]["kernel"].shape
         if min(cin, cout) >= min_ch:
             scales[k] = max(v, 1e-12) / 127.0
-    return QuantizedConvNet.from_folded(folded, scales, fwd_fn, fp_sites, dtype, device)
+    q = QuantizedConvNet.from_folded(folded, scales, fwd_fn, fp_sites, dtype, device)
+    q.int8_min_batch = family_min_batch(model)
+    return q

@@ -12,14 +12,16 @@ The document is the JAX package's: ``format``, ``model_name``,
 ``scales`` (site -> activation scale), ``sites`` in the JAX layout (an int8
 site's ``w8`` HWIO int8 with ``ws`` and ``bias`` f32; an fp site's
 ``kernel`` HWIO and ``bias``, f32), the DG bank ``mem`` (K, S) f32 and a
-convnet's PReLU ``extras`` f32. So an artifact crosses between the packages
+convnet's ``extras`` f32 (dssinet's PReLU slopes; CCTrans's LayerNorm
+parameters, a ``{scale, bias}`` dict a norm). So an artifact crosses between the packages
 both ways (``utils/msgpack.py`` reads and writes flax's encoding; the port
 turns the sites into the kernel's layout when it places them).
 
 Beyond the JAX package (whose faults ROADMAP.md Queue 3 records), the port's
 artifact also stores ``weight_only`` and ``int8_min_batch`` and honours
 them on load; a JAX artifact, which has neither, loads as a full-int8 graph
-with a batch floor of 1.
+with its family's batch floor (``nn/quant.py::family_min_batch``: CCTrans
+8, the others 1).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def save_quantized(q, path: str, model_name: str,
     ``model_name`` / ``model_params``: the registry identity
     (``MODELS.build(model_name, **model_params)``) the loader rebuilds the
     model's flags from."""
-    from dgvcc_tpu_torch.nn.quant import QuantizedConvNet, QuantizedDG
+    from dgvcc_tpu_torch.nn.quant import QuantizedConvNet, QuantizedDG, tree_map
 
     params = {k: v for k, v in dict(model_params or {}).items() if k != "dtype"}
     doc: Dict[str, Any] = {
@@ -74,7 +76,7 @@ def save_quantized(q, path: str, model_name: str,
     elif isinstance(q, QuantizedConvNet):
         doc["family"] = "convnet"
         if "extras" in q.qparams:
-            doc["extras"] = {k: v.float().cpu().numpy() for k, v in q.qparams["extras"].items()}
+            doc["extras"] = tree_map(lambda t: t.float().cpu().numpy(), q.qparams["extras"])
     else:
         raise TypeError(f"not a quantized serving graph: {type(q).__name__}")
     with open(path, "wb") as f:
@@ -95,7 +97,8 @@ def load_quantized(path: str, dtype: Optional[torch.dtype] = None,
     device, for its flags alone: nothing of it is allocated."""
     import dgvcc_tpu_torch.models  # noqa: F401  (registry population)
     from dgvcc_tpu_torch.core.registry import MODELS
-    from dgvcc_tpu_torch.nn.quant import QuantizedConvNet, QuantizedDG, _family_spec
+    from dgvcc_tpu_torch.nn.quant import (QuantizedConvNet, QuantizedDG, _family_spec,
+                                          family_min_batch)
 
     with open(path, "rb") as f:
         doc = msgpack.unpackb(f.read())
@@ -117,5 +120,5 @@ def load_quantized(path: str, dtype: Optional[torch.dtype] = None,
                              doc.get("extras"), dt, device)
     else:
         raise ValueError(f"{path}: unknown family {doc['family']!r}")
-    q.int8_min_batch = int(doc.get("int8_min_batch", 1))
+    q.int8_min_batch = int(doc.get("int8_min_batch", family_min_batch(model)))
     return LoadedArtifact(q, model, doc)

@@ -8,11 +8,12 @@ it, so that a library that is up to date still has its report. A library
 is rebuilt when its source, or a header under ``csrc/``, is newer. Nothing is
 built when this module is imported: the first call that needs a kernel
 builds it, and ``build_all`` builds every stale library at once, one
-``nvcc`` process per source, all started together. The build holds an
-exclusive ``flock`` on ``build/torch_ext/build.lock``, so the ranks of a
-data-parallel job that find a library stale build it once: the first
-builds, the others wait and find it up to date. The operating system
-releases the lock of a process that dies mid-build.
+``nvcc`` process per source, all started together. The build of a library
+holds an exclusive ``flock`` on ``build/torch_ext/build.NAME.lock``, so the
+ranks of a data-parallel job that find a library stale build it once: the
+first builds, the others wait and find it up to date; two processes build
+two different libraries at once. The operating system releases the locks
+of a process that dies mid-build.
 
 A failed build raises ``RuntimeError`` carrying nvcc's output.
 """
@@ -80,22 +81,24 @@ def _stale(name: str) -> bool:
 
 
 @contextlib.contextmanager
-def _build_lock():
+def _build_lock(names):
+    """One exclusive ``flock`` a library, taken in name order."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as f:
-        fcntl.flock(f, fcntl.LOCK_EX)
-        try:
-            yield
-        finally:
-            fcntl.flock(f, fcntl.LOCK_UN)
+    with contextlib.ExitStack() as stack:
+        for name in sorted(names):
+            f = stack.enter_context(open(BUILD_DIR / f"build.{name}.lock", "w"))
+            fcntl.flock(f, fcntl.LOCK_EX)
+            stack.callback(fcntl.flock, f, fcntl.LOCK_UN)
+        yield
 
 
 def build_all(names=None) -> Dict[str, str]:
     """Compile every stale library in parallel; returns nvcc's log per
     library built (its ``-Xptxas -v`` register and shared-memory report).
-    One process builds at a time (``_build_lock``)."""
-    with _build_lock():
-        return _build_stale(list(SOURCES if names is None else names))
+    One process builds a library at a time (``_build_lock``)."""
+    names = list(SOURCES if names is None else names)
+    with _build_lock(names):
+        return _build_stale(names)
 
 
 def _build_stale(names) -> Dict[str, str]:

@@ -1,7 +1,12 @@
 """Int8 convolution with a fused epilogue: the int8 serving path's convolution.
 
-    acc = conv(xq, w8)                    int8 x int8 -> int32, SAME, stride 1
+    acc = conv(xq, w8)                    int8 x int8 -> int32, SAME, stride u
     y   = float(acc) * (ws * s) + bias    [, ReLU]  -> f32 or bf16
+
+SAME is flax's / XLA's: ceil(n / u) outputs on a side of n, the zeros
+``max((ceil(n / u) - 1) u + (k - 1) d + 1 - n, 0)`` split with the smaller
+half low (``same_padding``). Windows are odd, or even at their own stride
+(k x k at stride k: CCTrans's patch embeddings and GSA's sr convolutions).
 
 No Pallas kernel of the JAX package computes this: there XLA runs it
 (``dgvcc_tpu/nn/quant.py:290-295`` and ``:508-514``, ``conv_general_dilated``
@@ -20,7 +25,8 @@ call pads only its activations.
 
 Layouts: ``xq`` (N, H, W, Cin) int8 (channels last, as the JAX graph's
 NHWC), ``w8`` (Cout, kh, kw, Cin) int8, ``ws`` and ``bias`` (Cout,) f32,
-``s`` the site's activation scale; the output is (N, H, W, Cout).
+``s`` the site's activation scale; the output is (N, ceil(H / u),
+ceil(W / u), Cout).
 ``quantize_activation`` is the JAX graph's ``q8``:
 ``clip(round(x_f32 / s), -127, 127)``, a true division and rounding half to
 even.
@@ -32,6 +38,7 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +46,9 @@ import torch.nn.functional as F
 from dgvcc_tpu_torch.ops import _build
 
 LAUNCHES = 0
+# the largest stride: TMA's element strides, by which the kernel reads a
+# strided window, stop at 8
+MAX_STRIDE = 8
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -51,12 +61,20 @@ def quantize_activation(x: torch.Tensor, s: float) -> torch.Tensor:
     return torch.clamp(torch.round(x.float() / st), -127, 127).to(torch.int8)
 
 
-def conv_acc_reference(xq: torch.Tensor, w8: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+def same_padding(n: int, k: int, dilation: int = 1, stride: int = 1) -> Tuple[int, int]:
+    """(low, high) zeros of flax's / XLA's 'SAME' on a side of ``n``."""
+    total = max((-(-n // stride) - 1) * stride + (k - 1) * dilation + 1 - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_acc_reference(xq: torch.Tensor, w8: torch.Tensor, dilation: int = 1,
+                       stride: int = 1) -> torch.Tensor:
     """The int32 accumulator: ``F.conv2d`` in float64 on the int8 values,
     which is exact (|acc| <= 127^2 kh kw Cin < 2^53), rounded and cast."""
-    y = F.conv2d(xq.permute(0, 3, 1, 2).double(), w8.permute(0, 3, 1, 2).double(),
-                 padding=(dilation * (w8.shape[1] // 2), dilation * (w8.shape[2] // 2)),
-                 dilation=dilation)
+    (t, b), (l, r) = (same_padding(xq.shape[1], w8.shape[1], dilation, stride),
+                      same_padding(xq.shape[2], w8.shape[2], dilation, stride))
+    x = F.pad(xq.permute(0, 3, 1, 2).double(), (l, r, t, b))
+    y = F.conv2d(x, w8.permute(0, 3, 1, 2).double(), stride=stride, dilation=dilation)
     return torch.round(y).to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
@@ -73,9 +91,10 @@ def epilogue_reference(acc: torch.Tensor, ws: torch.Tensor, s: float, bias: torc
 
 
 def qconv_int8_reference(xq, w8, ws, s, bias, relu: bool = True, dilation: int = 1,
-                         out_dtype: torch.dtype = torch.bfloat16, acc: bool = False):
+                         out_dtype: torch.dtype = torch.bfloat16, acc: bool = False,
+                         stride: int = 1):
     """Plain version of ``qconv_int8`` (same arguments)."""
-    a = conv_acc_reference(xq, w8, dilation)
+    a = conv_acc_reference(xq, w8, dilation, stride)
     return a if acc else epilogue_reference(a, ws, s, bias, relu, out_dtype)
 
 
@@ -93,9 +112,9 @@ def _kernel():
         lib = _build.load("qconv")
         lib.qconv_int8_fwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-            ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.qconv_int8_fwd.restype = ctypes.c_int
-        lib.qconv_int8_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+        lib.qconv_int8_plan.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
         lib.qconv_int8_plan.restype = ctypes.c_int
         lib.qconv_int8_error_string.argtypes = [ctypes.c_int]
         lib.qconv_int8_error_string.restype = ctypes.c_char_p
@@ -103,7 +122,7 @@ def _kernel():
     return _lib
 
 
-def plan(xq_shape, w8_shape, dilation: int = 1) -> dict:
+def plan(xq_shape, w8_shape, dilation: int = 1, stride: int = 1) -> dict:
     """The schedule and tiling the kernel takes for these shapes (it needs
     the card: the choice reads its SM count): {schedule ("halo" or
     "per_tap"), bn, bk, tw, th, stages}; Cin padded as ``qconv_int8`` pads
@@ -111,7 +130,8 @@ def plan(xq_shape, w8_shape, dilation: int = 1) -> dict:
     n, h, w, cin = xq_shape
     cout, kh, kw, _ = w8_shape
     out = (ctypes.c_int * 6)()
-    err = _kernel().qconv_int8_plan(n, h, w, -(-cin // 16) * 16, cout, kh, kw, dilation, out)
+    err = _kernel().qconv_int8_plan(n, h, w, -(-cin // 16) * 16, cout, kh, kw, dilation, stride,
+                                    out)
     if err:
         raise ValueError(f"qconv_int8: no schedule for {xq_shape}, {w8_shape}: "
                          + _kernel().qconv_int8_error_string(err).decode())
@@ -121,10 +141,12 @@ def plan(xq_shape, w8_shape, dilation: int = 1) -> dict:
 
 def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
                bias: torch.Tensor, relu: bool = True, dilation: int = 1,
-               out_dtype: torch.dtype = torch.bfloat16, acc: bool = False) -> torch.Tensor:
-    """xq (N, H, W, Cin) int8, w8 (Cout, kh, kw, Cin) int8 with odd kh, kw,
-    ws / bias (Cout,) f32, s the activation scale -> y (N, H, W, Cout) in
-    ``out_dtype`` (f32 or bf16). ``acc=True``: the int32 accumulator alone."""
+               out_dtype: torch.dtype = torch.bfloat16, acc: bool = False,
+               stride: int = 1) -> torch.Tensor:
+    """xq (N, H, W, Cin) int8, w8 (Cout, kh, kw, Cin) int8 with odd kh, kw
+    (or kh = kw = ``stride``), ws / bias (Cout,) f32, s the activation
+    scale -> y (N, ceil(H / stride), ceil(W / stride), Cout) in ``out_dtype``
+    (f32 or bf16), SAME padding. ``acc=True``: the int32 accumulator alone."""
     global LAUNCHES
     if xq.dim() != 4 or w8.dim() != 4 or xq.shape[-1] != w8.shape[-1]:
         raise ValueError(f"qconv_int8: xq {tuple(xq.shape)} and w8 {tuple(w8.shape)} do not "
@@ -132,9 +154,11 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
     if xq.dtype != torch.int8 or w8.dtype != torch.int8:
         raise TypeError(f"qconv_int8 takes int8 xq and w8; got {xq.dtype} and {w8.dtype}")
     cout, kh, kw, _ = w8.shape
-    if kh % 2 == 0 or kw % 2 == 0 or dilation < 1:
-        raise ValueError(f"qconv_int8: a {kh}x{kw} window, dilation {dilation}; SAME padding "
-                         "at stride 1 needs odd windows and dilation >= 1")
+    if (dilation < 1 or not 1 <= stride <= MAX_STRIDE
+            or not (kh % 2 == kw % 2 == 1 or kh == kw == stride)):
+        raise ValueError(f"qconv_int8: a {kh}x{kw} window, dilation {dilation}, stride "
+                         f"{stride}; it takes dilation >= 1, stride 1 to {MAX_STRIDE}, and odd "
+                         "windows or a k x k window at stride k")
     if not acc and (ws.shape != (cout,) or bias.shape != (cout,)):
         raise ValueError(f"qconv_int8: ws {tuple(ws.shape)}, bias {tuple(bias.shape)} for "
                          f"Cout={cout}")
@@ -142,7 +166,7 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
         raise TypeError(f"qconv_int8 writes f32 or bf16, not {out_dtype}")
     tensors = (xq, w8) if acc else (xq, w8, ws, bias)
     if all(t.device.type == "cpu" for t in tensors):
-        return qconv_int8_reference(xq, w8, ws, s, bias, relu, dilation, out_dtype, acc)
+        return qconv_int8_reference(xq, w8, ws, s, bias, relu, dilation, out_dtype, acc, stride)
     if xq.device.type != "cuda" or any(t.device != xq.device for t in tensors):
         raise ValueError("qconv_int8: every tensor must be on one CUDA device, or all on "
                          "the CPU")
@@ -152,15 +176,15 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
     if not acc:
         ws = ws.to(torch.float32).contiguous()
         bias = bias.to(torch.float32).contiguous()
-    out = torch.empty((n, h, w, cout), dtype=torch.int32 if acc else out_dtype,
-                      device=xq.device)
+    out = torch.empty((n, -(-h // stride), -(-w // stride), cout),
+                      dtype=torch.int32 if acc else out_dtype, device=xq.device)
     lib = _kernel()
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.qconv_int8_fwd(
             xq.data_ptr(), w8.data_ptr(), 0 if acc else ws.data_ptr(),
             0 if acc else bias.data_ptr(), 0.0 if acc else float(s), out.data_ptr(),
-            n, h, w, xq.shape[-1], cout, kh, kw, dilation, int(relu),
+            n, h, w, xq.shape[-1], cout, kh, kw, dilation, stride, int(relu),
             2 if acc else _OUT_KIND[out_dtype], stream)
     if err:
         raise RuntimeError("qconv_int8 kernel launch failed: "

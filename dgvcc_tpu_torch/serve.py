@@ -21,7 +21,7 @@ mesh (``mesh`` / ``shard``) raises ``NotImplementedError`` (ROADMAP.md,
 Queue 1 item 1). It serves every counting family of the port: the DG
 family, the whitening counters, the regressors and the classic baselines
 (a model that predicts at a coarser stride is masked at its own grid); int8
-the DG family and csrnet, mcnn, bl, sasnet and dssinet. For the HTTP server
+the DG family and csrnet, mcnn, bl, sasnet, dssinet and cctrans. For the HTTP server
 (``serve_http.py``) a counter keeps ``quantized`` (None: no int8 graph) and
 ``dispatches``, its batches by precision.
 """
@@ -193,9 +193,14 @@ class VideoCounter:
         return b
 
     def _family_min_batch(self) -> int:
-        """The graph's own batch floor (an artifact stores it); 1 before
-        calibration (no family the port quantizes has a higher one)."""
-        return getattr(self.quantized, "int8_min_batch", 1)
+        """The graph's own batch floor (an artifact stores it); before
+        calibration the family's (CCTrans 8): a CCTrans stream below it must
+        not pay for a fold and a calibration the rule would never dispatch."""
+        if self.quantized is not None:
+            return getattr(self.quantized, "int8_min_batch", 1)
+        from dgvcc_tpu_torch.nn.quant import family_min_batch
+
+        return family_min_batch(self._fold_model)
 
     def _prefers_int8(self, frames: np.ndarray) -> bool:
         """quantize="auto"'s choice for this dispatch: int8 from the dispatch

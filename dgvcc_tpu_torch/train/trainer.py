@@ -103,9 +103,12 @@ test share each image's tiles over the ranks, the model unsharded
 
 Outside torchrun, or with another number of ranks, a mesh raises; the 2-D
 and spatial meshes run on one node. The JAX trainer's refusals are kept
-(``check_ported``, ``DGTrainer.build``), and so are its messages; the JAX
-package's other config keys not ported raise with a pointer to ROADMAP.md
-(``UNPORTED_KEYS``).
+(``check_ported``, ``DGTrainer.build``), and so are its messages.
+
+``test_quantized: true`` tests through the int8 serving graph
+(``nn/quant.py``), calibrated on the first 4 test samples, as the JAX
+trainer does, but of the weights the test evaluates (the EMA shadow under
+``ema:``).
 """
 
 from __future__ import annotations
@@ -113,6 +116,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import inspect
+import itertools
 import math
 import os
 import random
@@ -147,9 +151,6 @@ from dgvcc_tpu_torch.train.steps import build_train_step
 from dgvcc_tpu_torch.utils.misc import (AverageMeter, DictAvgMeter, denormalize,
                                         get_current_datetime, progress, seed_everything)
 
-# extra keys of the JAX trainer whose modules are not ported, and where
-# ROADMAP.md lists them
-UNPORTED_KEYS = {"test_quantized": "Queue 1 item 2 (int8)"}
 # models the reference drives through main_base.py / BaseTrainer
 # (main_base.py:36-52): they test after every epoch and tile evaluation at
 # 800 px whatever the config's patch_size (basetrainer.py:51-66, 149-173)
@@ -183,13 +184,8 @@ CUSTOM_LOSS_MODES = ("regression", "discrimination", "generation")
 
 
 def check_ported(cfg: Config):
-    """Raise on what the config asks of modules the port does not have, and
-    on the mesh combinations the JAX trainer refuses (its ``:115-148``,
-    ``:326-330``), with its messages."""
-    for key, where in UNPORTED_KEYS.items():
-        if cfg.extra.get(key):
-            raise NotImplementedError(f"config key {key!r} is not ported to "
-                                      f"dgvcc_tpu_torch yet; see ROADMAP.md, {where}")
+    """Raise on the mesh combinations the JAX trainer refuses (its
+    ``:115-148``, ``:326-330``), with its messages."""
     dp, mp, sp = (mesh_size(cfg, a) for a in ("data", "model", "spatial"))
     if sp > 1 and (dp > 1 or mp > 1):
         raise ValueError("mesh: {spatial: N} does not compose with data/model axes — "
@@ -874,9 +870,18 @@ class DGTrainer:
             return {}
         meter = DictAvgMeter()
         rows = []
+        counter, samples = self.counter, loader
         with self.state.ema_weights(), self._whole_model():
-            for i, sample in enumerate(self._progress(loader, "Testing...")):
-                pred = self.counter.count(sample["img1"])
+            if self.cfg.extra.get("test_quantized"):
+                # a local counter on each rank (validate() keeps the fp one);
+                # the calibration samples are replayed into the metric loop
+                it = iter(loader)
+                calib = list(itertools.islice(it, 4))
+                counter = self._quantized_counter(calib)
+                samples = itertools.chain(calib, it)
+                self.log("Testing through the int8 PTQ serving graph")
+            for i, sample in enumerate(self._progress(samples, "Testing...")):
+                pred = counter.count(sample["img1"])
                 gt_count = float(len(sample["gt"]))
                 meter.update({"mae": abs(pred - gt_count), "mse": (pred - gt_count) ** 2})
                 rows.append((str(sample.get("name", i)), gt_count, pred))
@@ -900,6 +905,24 @@ class DGTrainer:
             self.tb.scalars(meter.avg, getattr(self, "_epoch", 0), prefix="test/")
             self.tb.flush()
         return meter.avg
+
+    def _quantized_counter(self, calib_samples) -> TiledCounter:
+        """``test_quantized: true``: a TiledCounter over the int8 serving graph
+        (``nn/quant.py::build_quantized``) of the weights the test evaluates
+        (the EMA shadow when ``ema:`` is on; the JAX trainer quantizes the raw
+        parameters, ROADMAP.md Queue 3), calibrated on square top-left crops
+        of min(256, the shortest side) of the given test samples."""
+        from dgvcc_tpu_torch.nn.quant import GraphModule, build_quantized
+
+        imgs = [s["img1"] for s in calib_samples]
+        if not imgs:
+            raise ValueError("test_quantized: empty test loader — nothing to calibrate "
+                             "activation scales on")
+        side = min(256, *(min(i.shape[0], i.shape[1]) for i in imgs))
+        q = build_quantized(self.model, np.stack([i[:side, :side] for i in imgs]),
+                            device=self.device)
+        return TiledCounter(GraphModule(q), self.log_para, self.eval_patch_size,
+                            device=self.device)
 
     def _test_report(self, rows):
         """`test_report: true` (or a path): a per-image CSV (name, gt, pred,

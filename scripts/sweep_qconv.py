@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The int8 convolution ``qconv_int8`` of two trees, timed in turns at the
-shapes of `final`'s 21 int8 sites.
+shapes of `final`'s 21 int8 sites, and CCTrans's strided sites.
 
 Imports ``dgvcc_tpu_torch.ops.qconv`` of this checkout ("C") and, with
 ``--parent DIR``, of another tree ("P", e.g. the parent commit unpacked with
@@ -20,6 +20,11 @@ each site it prints:
     qconv_bound_ms);
   * C's plan (``ops/qconv.py::plan``: the schedule, BN, kBK, the tile).
 
+Then CCTrans's strided sites (chip_smoke.py's CCTRANS_STRIDED_SITES, k x k
+windows at stride k) at CCTrans's int8 batch floor (``nn/quant.py``'s
+CCTRANS_MIN_BATCH), the same way; a tree whose kernel takes no stride is not
+timed there.
+
 Before timing it holds each tree's int32 accumulator and bf16 output bit for
 bit against the plain version (chip_smoke.py's check_qconv), and prints
 ptxas's report and the SASS instruction counts of C's kernel bodies. Needs
@@ -33,6 +38,7 @@ The last line is a JSON object of every reading.
 
 import argparse
 import importlib
+import inspect
 import json
 import os
 import shutil
@@ -83,6 +89,7 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--calls", type=int, default=cs.QCONV_CALLS)
     args = ap.parse_args()
+    from dgvcc_tpu_torch.nn.quant import CCTRANS_MIN_BATCH  # load_tree drops the package
     if not torch.cuda.is_available():
         raise SystemExit("sweep_qconv.py times the kernel on an NVIDIA GPU; none is visible")
     gpu = cs.card()
@@ -131,8 +138,35 @@ def main():
         f"{label} {', '.join(f'{t:.3f}' for t in v)} ms" for label, v in total.items())
         + f"; cuDNN bf16 {total_lib:.3f} ms; bound {sum(r['bound_ms'] for r in rows):.3f} ms "
         f"[{gpu}]")
+    strided = []
+    nb = CCTRANS_MIN_BATCH
+    for i, (h, w, cin, cout, k, n) in enumerate(cs.CCTRANS_STRIDED_SITES):
+        site = cs.qconv_site(nb, h, w, cin, cout, k, 1700 + i, relu=False, stride=k)
+        times = {}
+        for label in order:
+            qc = trees[label][0]
+            if "stride" not in inspect.signature(qc.qconv_int8).parameters:
+                continue
+            if label not in times:
+                cs.check_qconv(qc, site)
+            times.setdefault(label, []).append(
+                cs.device_ms_cold(lambda: qc.qconv_int8(**site), args.calls))
+        _, lib = cs.timed_against_cudnn(trees["C"][0], site)
+        bound, by, _ = cs.qconv_bound_ms(nb, h, w, cin, cout, k, stride=k)
+        row = dict(shape=[nb, h, w, cin, cout, k], stride=k, sites=n, ms=times,
+                   cudnn_bf16_ms=lib, bound_ms=bound, bound_by=by,
+                   plan=trees["C"][0].plan(site["xq"].shape, site["w8"].shape, stride=k))
+        strided.append(row)
+        print(f"strided {tuple(site['xq'].shape)} -> {cout} {k}x{k}/{k} (x{n}): "
+              + "; ".join(f"{label} {', '.join(f'{t:.4f}' for t in v)} ms"
+                          for label, v in times.items())
+              + f"; cuDNN bf16 {lib:.4f}; bound {bound:.4f} ({by}); plan {row['plan']} [{gpu}]",
+              flush=True)
+        del site
+        torch.cuda.empty_cache()
     print(json.dumps({"gpu": gpu, "batch": b, "ptxas": lines, "sass": bodies, "sites": rows,
-                      "total_ms": total, "total_cudnn_bf16_ms": total_lib}))
+                      "total_ms": total, "total_cudnn_bf16_ms": total_lib,
+                      "strided_batch": nb, "strided": strided}))
 
 
 if __name__ == "__main__":

@@ -986,6 +986,59 @@ def test_qconv_int8_plans_the_halo_schedule_for_final_full_size_sites(cuda):
     assert qconv.plan((4, 96, 128, 1024), (512, 3, 3, 1024))["schedule"] == "per_tap"
 
 
+# CCTrans's 14 strided int8 sites at alt_gvt_large's widths, B=8, 768x1024
+# (under min_ch=128): name -> (x shape, Cout, window = stride)
+QCONV_STRIDED_SITES = {"b0_1_sr": ((8, 192, 256, 128), 128, 8), "pe1": ((8, 192, 256, 128), 256, 2),
+                       "b1_1_sr": ((8, 96, 128, 256), 256, 4), "pe2": ((8, 96, 128, 256), 512, 2),
+                       "pe3": ((8, 48, 64, 512), 1024, 2),
+                       **{f"b2_{i}_sr": ((8, 48, 64, 512), 512, 2) for i in range(1, 18, 2)}}
+# strided edges: H and W the stride does not divide (SAME pads low and
+# high), Cin 16 and 67 (padded to 80), Cout 8 and 300, N = 3, tile widths
+# from 4 to 64 at stride 8 to 2, and a 3x3 window at stride 2
+# (n, h, w, cin, cout, k, stride)
+QCONV_STRIDED_EDGES = [(3, 13, 11, 16, 8, 2, 2), (1, 37, 29, 67, 300, 4, 4),
+                       (3, 21, 45, 16, 300, 8, 8), (2, 9, 70, 67, 8, 2, 2),
+                       (1, 100, 67, 67, 8, 8, 8), (3, 30, 250, 16, 300, 4, 4),
+                       (2, 15, 17, 16, 8, 3, 2)]
+
+
+def _qconv_strided_check(xq, w8, ws, bias, stride):
+    from dgvcc_tpu_torch.ops import qconv
+
+    before = qconv.LAUNCHES
+    acc = qconv.qconv_int8(xq, w8, None, 0.0123, None, acc=True, stride=stride)
+    ref = qconv.conv_acc_reference(xq, w8, 1, stride)
+    torch.cuda.synchronize()
+    assert qconv.LAUNCHES == before + 1
+    assert acc.shape == ref.shape and torch.equal(acc, ref)
+    for dtype in (torch.float32, torch.bfloat16):
+        y = qconv.qconv_int8(xq, w8, ws, 0.0123, bias, relu=False, out_dtype=dtype,
+                             stride=stride)
+        assert torch.equal(y, qconv.epilogue_reference(ref, ws, 0.0123, bias, False, dtype))
+
+
+@pytest.mark.parametrize("name", sorted(QCONV_STRIDED_SITES))
+def test_qconv_int8_strided_sites_match_plain_bit_for_bit(cuda, name):
+    """CCTrans's patch embeddings and GSA's sr convolutions at full width:
+    the per-tap schedule with a TMA box at the stride (element strides)."""
+    from dgvcc_tpu_torch.ops import qconv
+
+    (n, h, w, cin), cout, k = QCONV_STRIDED_SITES[name]
+    xq, w8, ws, bias = _qconv_case(cuda, n, h, w, cin, cout, k, h + cin + cout + k)
+    got = qconv.plan(xq.shape, w8.shape, stride=k)
+    assert got["schedule"] == "per_tap" and got["tw"] * k <= 256, got
+    _qconv_strided_check(xq, w8, ws, bias, k)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride", QCONV_STRIDED_EDGES)
+def test_qconv_int8_strided_edges_match_plain_bit_for_bit(cuda, n, h, w, cin, cout, k, stride):
+    from dgvcc_tpu_torch.ops import qconv
+
+    xq, w8, ws, bias = _qconv_case(cuda, n, h, w, cin, cout, k, n + h * w + cin + cout)
+    assert qconv.plan(xq.shape, w8.shape, stride=stride)["schedule"] == "per_tap"
+    _qconv_strided_check(xq, w8, ws, bias, stride)
+
+
 def test_qconv_int8_rejects_what_it_cannot_take(cuda):
     from dgvcc_tpu_torch.ops import qconv
 
@@ -994,5 +1047,9 @@ def test_qconv_int8_rejects_what_it_cannot_take(cuda):
         qconv.qconv_int8(xq.float(), w8, ws, 0.1, bias)
     with pytest.raises(ValueError):
         qconv.qconv_int8(xq, w8[:, :2], ws, 0.1, bias)  # an even window
+    with pytest.raises(ValueError):  # an even window at another stride than its own
+        qconv.qconv_int8(xq, w8[:, :2, :2], ws, 0.1, bias, stride=4)
+    with pytest.raises(ValueError):  # TMA's element strides stop at 8
+        qconv.qconv_int8(xq, w8[:, :1, :1], ws, 0.1, bias, stride=9)
     with pytest.raises(ValueError):
         qconv.qconv_int8(xq, w8.cpu(), ws, 0.1, bias)

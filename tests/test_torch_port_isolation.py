@@ -130,18 +130,13 @@ def _queue1_items():
 
 
 def test_every_queue_1_item_the_port_cites_exists():
-    """Literal "Queue 1 item N" in the port's files and chip_smoke.py, and
-    the item numbers its refusal tables hold."""
-    from dgvcc_tpu_torch.train import trainer
-
+    """Literal "Queue 1 item N" in the port's files and chip_smoke.py."""
     items = _queue1_items()
     assert items == set(range(1, len(items) + 1)) and len(items) >= 3
     cited = {}
     for f in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for n in re.findall(r"Queue 1 items? (\d+)", f.read_text()):
             cited.setdefault(int(n), []).append(str(f.relative_to(REPO)))
-    for where in trainer.UNPORTED_KEYS.values():
-        cited.setdefault(int(re.search(r"item (\d+)", where).group(1)), []).append(where)
     assert cited and not {n: w for n, w in cited.items() if n not in items}
 
 

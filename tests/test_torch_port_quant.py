@@ -79,30 +79,54 @@ def final():
 
 # ---- the int8 convolution ------------------------------------------------------
 
-@pytest.mark.parametrize("dil", [1, 2])
-@pytest.mark.parametrize("k", [1, 3])
-@pytest.mark.parametrize("cin", [3, 64, 67])
-def test_plain_int8_conv_matches_xla_bit_for_bit(cin, k, dil):
-    rng = np.random.default_rng(cin * 10 + k + dil)
-    xq = rng.integers(-127, 128, (2, 13, 11, cin), dtype=np.int8)
+# (cin, k, dilation, stride, H, W): the stride-1 cases at 13x11, then CCTrans's
+# strided windows (k x k at stride k, 2 / 4 / 8) on sizes the stride divides
+# and does not (SAME pads them low and high), and a 3x3 window at stride 2
+PLAIN_CASES = [(cin, k, dil, 1, 13, 11) for cin in (3, 64, 67) for k in (1, 3) for dil in (1, 2)]
+PLAIN_CASES += [(cin, k, 1, k, h, w) for cin, k, h, w in (
+    (64, 2, 12, 10), (3, 2, 13, 11), (67, 4, 16, 8), (16, 4, 13, 11), (64, 8, 16, 24),
+    (16, 8, 13, 21), (67, 8, 5, 3))] + [(16, 3, 1, 2, 13, 11)]
+
+
+@pytest.mark.parametrize("cin,k,dil,stride,h,w", PLAIN_CASES, ids=[
+    f"{c[0]}-{c[1]}-{c[2]}" if c[3] == 1 else "{}-{}-{}-s{}-{}x{}".format(*c)
+    for c in PLAIN_CASES])
+def test_plain_int8_conv_matches_xla_bit_for_bit(cin, k, dil, stride, h, w):
+    rng = np.random.default_rng(cin * 10 + k + dil + (stride > 1) * (100 * stride + h))
+    xq = rng.integers(-127, 128, (2, h, w, cin), dtype=np.int8)
     w8 = rng.integers(-127, 128, (k, k, cin, 5), dtype=np.int8)  # HWIO
     ws = (rng.random(5) * 1e-3).astype(np.float32)
     bias = rng.normal(size=5).astype(np.float32)
     s = 0.0371
     want = jax.lax.conv_general_dilated(
-        jnp.asarray(xq), jnp.asarray(w8), (1, 1), "SAME", rhs_dilation=(dil, dil),
+        jnp.asarray(xq), jnp.asarray(w8), (stride, stride), "SAME", rhs_dilation=(dil, dil),
         dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
     y_want = jax.nn.relu(want.astype(jnp.float32) * (jnp.asarray(ws) * s) + jnp.asarray(bias))
     w8_port = torch.from_numpy(np.ascontiguousarray(w8.transpose(3, 0, 1, 2)))
-    acc = qconv.qconv_int8(torch.from_numpy(xq), w8_port, None, s, None, dilation=dil, acc=True)
+    acc = qconv.qconv_int8(torch.from_numpy(xq), w8_port, None, s, None, dilation=dil, acc=True,
+                           stride=stride)
     assert acc.dtype == torch.int32 and np.array_equal(acc.numpy(), np.asarray(want))
     y = qconv.qconv_int8(torch.from_numpy(xq), w8_port, torch.from_numpy(ws), s,
-                         torch.from_numpy(bias), dilation=dil, out_dtype=torch.float32)
+                         torch.from_numpy(bias), dilation=dil, out_dtype=torch.float32,
+                         stride=stride)
     assert np.array_equal(y.numpy(), np.asarray(y_want))
     x = rng.normal(size=(2, 5, 7, 3)).astype(np.float32) * 4
     want_q = jnp.clip(jnp.round(jnp.asarray(x) / s), -127, 127).astype(jnp.int8)
     assert np.array_equal(qconv.quantize_activation(torch.from_numpy(x), s).numpy(),
                           np.asarray(want_q))
+
+
+@pytest.mark.parametrize("k,dil,stride", [(1, 1, 9), (1, 1, 0), (2, 1, 4), (2, 1, 1),
+                                          (3, 0, 1)])
+def test_plain_int8_conv_refuses_what_the_kernel_refuses(k, dil, stride):
+    """On the CPU the entry point refuses what it refuses on the card: a
+    stride outside 1..8 (TMA's element strides), an even window at another
+    stride than its own, a dilation below 1."""
+    xq = torch.zeros(1, 16, 16, 16, dtype=torch.int8)
+    w8 = torch.zeros(8, k, k, 16, dtype=torch.int8)
+    with pytest.raises(ValueError, match="stride"):
+        qconv.qconv_int8(xq, w8, torch.ones(8), 0.1, torch.zeros(8), dilation=dil,
+                         stride=stride)
 
 
 def test_fold_bn_and_quantize_weight_match_bit_for_bit():
@@ -175,8 +199,8 @@ def test_build_quantized_refuses_what_it_cannot_fold():
 
     with pytest.raises(ValueError, match="instance"):
         pq.build_quantized(MODELS.build("sw"), np.zeros((1, 32, 32, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        pq.check_quantizable(MODELS.build("cctrans"))
+    # CCTrans is taken now (tests/test_torch_port_quant_cctrans.py holds its graph)
+    pq.check_quantizable(MODELS.build("cctrans", **CASES["cctrans"][1]))
 
 
 # ---- the conv families -----------------------------------------------------------

@@ -250,17 +250,13 @@ def test_checkpoint_load_is_nonstrict_unless_asked(root, tmp_path):
         t.load_ckpt([path, path, path])
 
 
-@pytest.mark.parametrize("key,value", [
-    *((k, 1 if k != "ema" else 0.999) for k in ptrainer.UNPORTED_KEYS),
-    ("mesh", {"spatial": 2}), ("mesh", {"model": 2})])
+@pytest.mark.parametrize("key,value", [("mesh", {"spatial": 2}), ("mesh", {"model": 2})])
 def test_unported_config_keys_raise(root, tmp_path, key, value):
+    """Every key of the JAX trainer is ported; the mesh's spatial and model
+    axes, outside a torchrun job, raise naming the command that starts one."""
     cfg = _cfg(root, tmp_path, "x")
     cfg[key] = value
-    # the mesh's spatial and model axes are ported: outside a torchrun job
-    # they raise, naming the command that starts one
-    error, match = ((RuntimeError, r"torchrun --nproc_per_node=2 -m dgvcc_tpu_torch")
-                    if key == "mesh" else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(RuntimeError, match=r"torchrun --nproc_per_node=2 -m dgvcc_tpu_torch"):
         DGTrainer(Config.from_dict(cfg), device="cpu")
 
 

@@ -223,7 +223,20 @@ Phases, each of which exits non-zero on failure:
    the int8 sites of a B=4 forward, whose shapes must be FINAL_INT8_SITES',
    against cuDNN's bf16 convolution at the same shapes, and the three
    heaviest sites, on the seeded inputs scripts/sweep_qconv.py times, against
-   their bound at the site's own Cin.
+   their bound at the site's own Cin;
+15. AOT serving (``nn/aot.py``; kernel #1 and ``qconv_int8`` as the custom
+   ops ``dgvcc_tpu_torch::memory_attention`` and ``::qconv_int8`` inside
+   ``torch.export`` programs): phase 3's bf16 `final` exported on the card
+   at 4x768x1024 and 1x768x1024, saved, loaded and served (B=4, B=1 padded
+   into its program, a stream) against the live counter (2e-3 of each
+   count), one #1 launch a program call; phase 14's int8 counter exported at
+   4x768x1024, its counts against the live int8 counter's bit for bit (or
+   else 1e-4 of the mass, saying which), one #1 and 21 ``qconv_int8``
+   launches a call; an artifact exported from a counter built on the CPU
+   for cuda,cpu, served on the card with the same checks; ``count_frames``
+   frames/s at B=4 in turns AOT, live, live, AOT; export and load seconds
+   and bytes; ``--task serve --aot`` on phase 6's test JPEGs through the
+   command line's main against the AOT counter.
 
 Each phase's seconds and the total are printed before the result lines.
 The line before the last is a JSON object with one entry per kernel; the
@@ -4383,7 +4396,168 @@ def int8_phase(ma, counter, tmp, gpu):
                  fps={str(b): v for b, v in fps.items()}, count_errs=errs,
                  families={k: v["fps"] for k, v in fam.items()})
     log(f"phase 14 (int8 serving): {time.perf_counter() - t_phase:.1f}s")
-    return entry, launches
+    return entry, launches, q_counter
+
+
+# ---- phase 15: AOT serving -----------------------------------------------------
+# an artifact's counts against the live counter it was exported from, relative
+# (to the count, floored at one): the same aten ops and kernels on the same
+# weights; a convolution's cuDNN algorithm may differ between the two
+# callers' first calls. Int8: bit for bit, or else 1e-4 of the map's mass
+AOT_TOL = 2e-3
+AOT_INT8_MASS = 1e-4
+AOT_FPS_ITERS = 24                  # count_frames calls a turn at B=4
+
+
+def _aot_counts(label, got, want):
+    err = float((np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max())
+    log(f"{label}: counts {np.round(got, 3).tolist()}, live {np.round(want, 3).tolist()}: "
+        f"largest |diff| / count {err:.3e} (tol {AOT_TOL})")
+    if not np.isfinite(got).all() or err > AOT_TOL:
+        fail(f"{label}: the artifact's counts disagree with the live counter's")
+    return err
+
+
+def _aot_launches(label, ma, qc, a, n_sites=0):
+    """#1 (and qconv_int8) launches since they were zeroed, against the
+    AOT counter ``a``'s program calls."""
+    n = sum(a.dispatches.values())
+    got = {"memory_attention_fused": ma.LAUNCHES}
+    if n_sites:
+        got["qconv_int8"] = qc.LAUNCHES
+    log(f"{label}: {n} program calls, launches {got}")
+    if n == 0 or ma.LAUNCHES != n or (n_sites and qc.LAUNCHES != n_sites * n):
+        fail(f"{label}: {got} over {n} program calls, not one #1"
+             + (f" and {n_sites} qconv_int8" if n_sites else "") + " a call")
+    return got
+
+
+def aot_phase(ma, counter, q_counter, tmp, gpu):
+    """Phase 15: AOT serving (nn/aot.py). `final` bf16 (phase 3's counter)
+    exported on the card at 4x768x1024 and 1x768x1024, saved, loaded and
+    served against the live counter; phase 14's int8 counter at 4x768x1024;
+    an artifact exported from a counter built on the CPU for cuda,cpu, served
+    on the card; frames/s AOT against live in turns; --task serve --aot on
+    phase 6's test JPEGs through the command line's main. Returns its
+    numbers and the launches by path."""
+    from PIL import Image
+
+    from dgvcc_tpu_torch.nn import aot
+    from dgvcc_tpu_torch.ops import qconv as qc
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    t_phase = time.perf_counter()
+    frames = np.random.default_rng(150).integers(0, 256, (4,) + FRAME + (3,), dtype=np.uint8)
+    shape4, shape1 = (4,) + FRAME, (1,) + FRAME
+    out, launches = {}, {}
+
+    # ---- 1. bf16, exported on the card
+    t0 = time.perf_counter()
+    doc = aot.export_serving(counter, [shape4, shape1])
+    out["export_s"] = time.perf_counter() - t0
+    path = os.path.join(tmp, "final.aot")
+    aot.save_aot(doc, path)
+    out["bytes"] = os.path.getsize(path)
+    t0 = time.perf_counter()
+    a = aot.AotCounter.load(path)
+    out["load_s"] = time.perf_counter() - t0
+    log(f"AOT bf16 final: exported {sorted(doc['programs'])} in {out['export_s']:.2f}s "
+        f"(program bytes {[len(b) for b in doc['programs'].values()]}), saved "
+        f"{out['bytes']} bytes, loaded in {out['load_s']:.2f}s")
+    with torch.inference_mode():
+        live = counter.count_frames(frames)
+        ma.LAUNCHES = 0
+        got = np.concatenate([a.count_frames(frames), a.count_frames(frames[:1]),
+                              np.concatenate(list(a.stream(iter([frames[:3], frames]),
+                                                           prefetch=1)))])
+        launches["AOT bf16"] = _aot_launches("AOT bf16 (B=4, B=1, stream of 3 and 4)", ma,
+                                             qc, a)
+    out["max_rel_diff"] = _aot_counts("AOT bf16 final 768x1024", got,
+                                      np.concatenate([live, live[:1], live[:3], live]))
+
+    # ---- 2. int8: phase 14's counter
+    t0 = time.perf_counter()
+    doc8 = aot.export_serving(q_counter, [shape4])
+    out["int8_export_s"] = time.perf_counter() - t0
+    path8 = os.path.join(tmp, "final_int8.aot")
+    aot.save_aot(doc8, path8)
+    out["int8_bytes"] = os.path.getsize(path8)
+    t0 = time.perf_counter()
+    a8 = aot.AotCounter.load(path8)
+    out["int8_load_s"] = time.perf_counter() - t0
+    with torch.inference_mode():
+        live8 = q_counter.count_frames(frames)
+        ma.LAUNCHES = qc.LAUNCHES = 0
+        got8 = a8.count_frames(frames)
+        launches["AOT int8"] = _aot_launches("AOT int8 final", ma, qc, a8, INT8_SITES_FINAL)
+        if np.array_equal(got8, live8):
+            out["int8_match"] = "bit for bit"
+        else:
+            mass = np.maximum(_mass(counter, frames), 1.0)
+            err = float((np.abs(got8 - live8) / mass).max())
+            out["int8_match"] = f"{err:.3e} of the mass"
+            if err > AOT_INT8_MASS:
+                fail(f"AOT int8: counts {got8} against live {live8}, {err:.3e} of the mass")
+    log(f"AOT int8 final 768x1024: exported in {out['int8_export_s']:.2f}s, "
+        f"{out['int8_bytes']} bytes, loaded in {out['int8_load_s']:.2f}s; counts "
+        f"{np.round(got8, 3).tolist()} against live {np.round(live8, 3).tolist()}: "
+        f"{out['int8_match']}")
+
+    # ---- 3. exported on the CPU for cuda and cpu, served on the card
+    cpu = VideoCounter.from_checkpoint("final", None, dtype=torch.bfloat16, seed=0,
+                                       device="cpu")
+    t0 = time.perf_counter()
+    doc_cpu = aot.export_serving(cpu, [shape4], platforms=["cuda", "cpu"])
+    out["cpu_export_s"] = time.perf_counter() - t0
+    del cpu
+    a_cpu = aot.AotCounter(doc_cpu)
+    with torch.inference_mode():
+        ma.LAUNCHES = 0
+        got_cpu = a_cpu.count_frames(frames)
+        launches["AOT exported on the CPU"] = _aot_launches(
+            "AOT bf16 exported on the CPU, served on the card", ma, qc, a_cpu)
+    out["cpu_export_max_rel_diff"] = _aot_counts(
+        f"AOT bf16 exported on the CPU ({out['cpu_export_s']:.2f}s), on the card", got_cpu, live)
+
+    # ---- 4. frames/s, count_frames B=4, in turns AOT, live, live, AOT
+    fps = {"aot": [], "live": []}
+    with torch.inference_mode():
+        for label, c in (("aot", a), ("live", counter), ("live", counter), ("aot", a)):
+            c.count_frames(frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(AOT_FPS_ITERS):
+                c.count_frames(frames)
+            fps[label].append(4 * AOT_FPS_ITERS / (time.perf_counter() - t0))
+    out["fps_b4"] = fps
+    log(f"count_frames B=4 768x1024 bf16 frames/s in turns AOT, live, live, AOT: "
+        f"{fps['aot'][0]:.2f}, {fps['live'][0]:.2f}, {fps['live'][1]:.2f}, {fps['aot'][1]:.2f} "
+        f"[{gpu}]")
+
+    # ---- 5. --task serve --aot through the command line's main
+    jpegs = os.path.join(tmp, "data", "test")
+    names = sorted(fn for fn in os.listdir(jpegs) if fn.endswith(".jpg"))
+    decoded = np.stack([np.asarray(Image.open(os.path.join(jpegs, fn)).convert("RGB"))
+                        for fn in names])
+    want = a.count_frames(decoded)
+    t0 = time.perf_counter()
+    ma.LAUNCHES = 0
+    lines = cli_in_process(["--config", os.path.join(ROOT, "configs", "sta_final.yml"),
+                            "--task", "serve", "--aot", path, "--frames", jpegs,
+                            "--batch", "4"]).strip().splitlines()
+    launches["AOT CLI serve"] = {"memory_attention_fused": ma.LAUNCHES}
+    counts = np.array([float(ln.split()[1]) for ln in lines[:-1]])
+    log(f"CLI --task serve --aot ({time.perf_counter() - t0:.1f}s): {lines[-1]}; #1 "
+        f"launched {ma.LAUNCHES}x")
+    if len(counts) != len(names) or ma.LAUNCHES == 0:
+        fail(f"--task serve --aot printed {len(counts)} counts for {len(names)} frames")
+    check_counts("CLI serve --aot sta_final.yml, phase 6's test JPEGs", counts, want,
+                 "AotCounter")
+    del a, a8, a_cpu
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 (AOT serving): {out['phase_s']:.1f}s")
+    return out, launches
 
 
 def log_build(logs, t0):
@@ -4664,8 +4838,14 @@ def main():
 
         # ---- 14. int8 serving: final, its artifact, HTTP, the conv families ----
         t_phase = time.perf_counter()
-        int8, int8_launches = int8_phase(ma, counter, tmp, gpu)
+        int8, int8_launches, q_counter = int8_phase(ma, counter, tmp, gpu)
         phase_done("14 (int8 serving)", t_phase)
+
+        # ---- 15. AOT serving: bf16 and int8 artifacts, one exported on the CPU --
+        t_phase = time.perf_counter()
+        aot_out, aot_launches = aot_phase(ma, counter, q_counter, tmp, gpu)
+        del q_counter
+        phase_done("15 (AOT serving)", t_phase)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     total_s = time.perf_counter() - t_start
@@ -4686,7 +4866,8 @@ def main():
                "generator and baselines (phase 11)": generator_launches,
                "data parallel ranks (phase 12)": dp_launches,
                "2-D mesh and spatial ranks (phase 13)": mesh_launches,
-               **{f"{k} (phase 14)": n for k, n in int8_launches.items()}}
+               **{f"{k} (phase 14)": n for k, n in int8_launches.items()},
+               **{f"{k} (phase 15)": n for k, n in aot_launches.items()}}
 
     def total(name):
         return sum(n.get(name, 0) for n in by_path.values())
@@ -4709,7 +4890,7 @@ def main():
         "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
         "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
         "ms_b1": times[1]["ms"], "library_ms_b1": times[1]["library_ms"],
-        "bound_ms_b1": times[1]["bound_ms"],
+        "bound_ms_b1": times[1]["bound_ms"], "aot_serving": aot_out,
         "shape": {"B": 4, "P": P, "K": K, "S": S, "dtype": "bfloat16"}}, {
         "name": "memory_attention_train_fwd", "route": "cuda", "source": source,
         "replaces": "dgvcc_tpu/ops/mem_attention_train.py:134",
@@ -4743,7 +4924,8 @@ def main():
         "replaces": "dgvcc_tpu/nn/quant.py:290 (XLA int8 convolution; not a pl.pallas_call)",
         "launches": total("qconv_int8"), "launches_by_path": paths("qconv_int8"), "ok": True,
         "max_abs_err": 0.0, "max_err": 0.0, "ptxas": sorted(set(ptxas_qconv)),
-        "sass": sass_qconv, **int8}]}))
+        "sass": sass_qconv, "aot_serving": {k: aot_out[k] for k in (
+            "int8_export_s", "int8_bytes", "int8_load_s", "int8_match")}, **int8}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

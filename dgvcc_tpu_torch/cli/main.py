@@ -1,9 +1,10 @@
 """Command line of the port.
 
     python -m dgvcc_tpu_torch --config configs/X.yml \
-        --task {train,test,vis,train_test,generate,serve,quantize} [--ckpt x.pth]
-        [--device cpu] [--frames DIR | --http PORT] [--batch N]
-        [--quantize [auto] | --artifact FILE] [--out FILE]
+        --task {train,test,vis,train_test,generate,serve,quantize,aot,export}
+        [--ckpt x.pth] [--device cpu] [--frames DIR | --http PORT] [--batch N]
+        [--quantize [auto] | --artifact FILE | --aot FILE] [--out FILE]
+        [--shapes BxHxW[,...] --platforms cuda,cpu] [--template ref.pth]
     torchrun --nproc_per_node=N -m dgvcc_tpu_torch --config X.yml \
         --task {train,test,train_test} [--dist-backend gloo]
         (N: the mesh's ranks, data x model, or spatial)
@@ -36,11 +37,19 @@ model axis, ``mesh: {spatial: N}`` with the crop's height sharded. Rank r
 takes ``cuda:{LOCAL_RANK}`` and NCCL; ``--device cpu`` takes gloo, and
 ``--dist-backend gloo`` lets ranks share a card (NCCL with more local ranks
 than cards raises). Outside torchrun, or with another number of ranks, it
-raises; ``vis``, ``generate`` and ``serve`` run in one process and refuse
-a mesh (serving on a mesh is ROADMAP.md, Queue 1 item 1). ``aot`` and
-serving's ``--aot`` are not ported yet (ROADMAP.md, Queue 1 item 2);
-``export`` is refused: the port's checkpoints are reference ``.pth`` files
-already.
+raises; ``vis``, ``generate``, ``serve``, ``quantize``, ``aot`` and
+``export`` run in one process and refuse a mesh (serving on a mesh is
+ROADMAP.md, Queue 1 item 1).
+
+AOT (``nn/aot.py``): ``--task aot --shapes BxHxW[,...] --out FILE
+[--platforms cuda,cpu]`` exports the serving program of the checkpoint
+(int8 with ``--quantize`` and ``--frames``) or of an int8 ``--artifact``,
+one ``torch.export`` program a shape; ``--task serve --aot FILE`` serves
+one with no model built and no checkpoint read. ``--task export --ckpt
+X --template ref.pth --out dest.pth`` writes a checkpoint (a JAX ``.ckpt``
+or a ``.pth``, strict-loaded through the trainer; a joint config's
+regressor) under the template's keys and shapes, for the reference's
+``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -76,15 +85,24 @@ def _load_calib(frames_dir: str, n: int = 4):
 
 
 def _build_counter(cfg, device: str, quantize=False, artifact: str = None,
-                   frames_dir: str = None, batch: int = 4):
-    """An int8 ``artifact``, or the config's checkpoint (a reference or port
-    ``.pth``; seeded random weights when it names none) in its
-    ``compute_dtype``, int8 with ``quantize`` (calibrated on the first
-    frames of ``frames_dir``)."""
+                   frames_dir: str = None, batch: int = 4, aot: str = None):
+    """An AOT artifact's ``AotCounter`` (no model built), an int8
+    ``artifact``, or the config's checkpoint (a reference or port ``.pth``;
+    seeded random weights when it names none) in its ``compute_dtype``, int8
+    with ``quantize`` (calibrated on the first frames of ``frames_dir``)."""
     import torch
 
     from dgvcc_tpu_torch.serve import VideoCounter
 
+    if aot is not None:
+        from dgvcc_tpu_torch.nn.aot import AotCounter
+
+        if not os.path.isfile(aot):
+            raise SystemExit(f"--aot {aot}: no such file (--task aot writes one)")
+        try:
+            return AotCounter.load(aot, device=device)
+        except ValueError as e:
+            raise SystemExit(f"--aot {aot}: {e}")
     if artifact is not None:
         if quantize == "auto":
             # an artifact holds only the int8 graph: no fp weights for the
@@ -129,8 +147,83 @@ def _quantize(cfg, frames_dir: str, out: str, device: str):
     print(f"[quantize] wrote {out}: {n8} int8 sites (+{len(q.sites) - n8} fp)")
 
 
+def _parse_shapes(shapes: str):
+    try:
+        parsed = [tuple(int(x) for x in tok.lower().split("x")) for tok in shapes.split(",")]
+    except ValueError:
+        parsed = None
+    if not parsed or any(len(t) != 3 or min(t) < 1 for t in parsed):
+        raise SystemExit(f"--shapes must be BxHxW[,BxHxW...], got {shapes!r}")
+    return parsed
+
+
+def _aot_export(cfg, shapes: str, platforms: str, out: str, device: str, quantize=False,
+                artifact: str = None, frames_dir: str = None, batch: int = 4):
+    """``--task aot``: one ``torch.export`` serving program for each --shapes
+    entry (BxHxW), for the --platforms devices (default: this run's), of
+    the checkpoint (int8 with --quantize) or of an int8 --artifact; the file
+    serves with ``--task serve --aot OUT``."""
+    from dgvcc_tpu_torch.nn.aot import export_serving, save_aot
+
+    if out is None or shapes is None:
+        raise SystemExit("--task aot requires --out FILE and --shapes BxHxW[,BxHxW...] "
+                         "(e.g. --shapes 1x1080x1920,4x720x1280)")
+    if quantize == "auto":
+        raise SystemExit("--task aot exports ONE program per shape — pick the precision: "
+                         "--quantize (int8) or none (bf16); export both files to serve "
+                         "adaptively")
+    if artifact is None and cfg.checkpoint is None:
+        raise SystemExit("--task aot requires a checkpoint (config key 'checkpoint' or "
+                         "--ckpt) or an int8 --artifact")
+    parsed = _parse_shapes(shapes)
+    plats = [p.strip() for p in platforms.split(",") if p.strip()] if platforms else None
+    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch)
+    try:
+        doc = export_serving(counter, parsed, platforms=plats)
+    except ValueError as e:
+        raise SystemExit(f"--task aot: {e}")
+    save_aot(doc, out)
+    print(f"[aot] wrote {out}: {len(doc['programs'])} programs {sorted(doc['programs'])} "
+          f"for platforms {doc['platforms']}{' (int8)' if doc['quantized'] else ''}")
+
+
+def _export(cfg, template: str, out: str, device: str):
+    """``--task export``: the checkpoint, strict-loaded through the trainer,
+    written under the template's keys and shapes (``nn/convert.py::
+    export_reference_state_dict``); a joint config exports its regressor."""
+    import torch
+
+    from dgvcc_tpu_torch.nn.convert import export_reference_state_dict, load_reference_pth
+    from dgvcc_tpu_torch.train.trainer import DGTrainer
+
+    if cfg.checkpoint is None:
+        raise SystemExit("--task export requires a checkpoint (config key 'checkpoint' "
+                         "or --ckpt)")
+    if template is None or out is None:
+        raise SystemExit("--task export requires --template ref.pth (a same-architecture "
+                         "reference state_dict, for torch key names/shapes) and --out "
+                         "dest.pth")
+    # the weights as stored, not rounded to a bf16 compute dtype
+    cfg.compute_dtype = "float32"
+    trainer = DGTrainer(cfg, device=device)
+    if trainer.joint:
+        # export targets the counting regressor: a [gen]-only checkpoint
+        # would export its random initial weights
+        if isinstance(cfg.checkpoint, (list, tuple)) and len(cfg.checkpoint) < 2:
+            raise SystemExit("--task export on a joint config needs the regressor "
+                             "checkpoint too: checkpoint: [gen.ckpt, reg.ckpt]. To export "
+                             "the generator, use a gen-family config.")
+        print("[export] joint config: exporting the counting regressor (use a gen-family "
+              "config to export the generator)")
+    trainer.build()
+    trainer.load_ckpt(cfg.checkpoint, strict=True)
+    sd = export_reference_state_dict(trainer.model, load_reference_pth(template))
+    torch.save(sd, out)
+    print(f"[export] wrote {len(sd)} tensors to {out}")
+
+
 def _serve(cfg, frames_dir: str, batch: int, device: str, quantize=False,
-           artifact: str = None):
+           artifact: str = None, aot: str = None):
     """Stream per-frame crowd counts over a directory of images: decode on
     the host, batch consecutive same-shape frames, pipeline them through
     VideoCounter.stream."""
@@ -139,7 +232,7 @@ def _serve(cfg, frames_dir: str, batch: int, device: str, quantize=False,
     from PIL import Image
 
     names = _list_images(frames_dir)
-    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch)
+    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch, aot)
     # a stream has few shapes (one per bucket): let cuDNN time its choices
     torch.backends.cudnn.benchmark = True
 
@@ -176,14 +269,15 @@ def _serve(cfg, frames_dir: str, batch: int, device: str, quantize=False,
 
 
 def _serve_http(cfg, port: int, batch: int, device: str, block: bool = True,
-                quantize=False, artifact: str = None, frames_dir: str = None):
+                quantize=False, artifact: str = None, frames_dir: str = None,
+                aot: str = None):
     """``--task serve --http PORT``: POST /count with image bytes returns
     {"count": N} (serve_http.py); ``batch`` bounds the request
     micro-batch (and the number of calibration frames). ``block=False``
     serves on a daemon thread and returns the server (tests, embedding)."""
     from dgvcc_tpu_torch.serve_http import CountingServer
 
-    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch)
+    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch, aot)
     srv = CountingServer(counter, host="0.0.0.0", port=port,
                          model_name=cfg.model["name"], max_batch=batch)
     if not block:
@@ -236,18 +330,11 @@ def _mesh_task(cfg, config_path: str, task: str, device: str, backend):
 def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         ckpt: str = None, device: str = None, http: int = None,
         quantize=False, artifact: str = None, aot: str = None, block: bool = True,
-        dist_backend: str = None, out: str = None):
+        dist_backend: str = None, out: str = None, shapes: str = None,
+        platforms: str = None, template: str = None):
     from dgvcc_tpu_torch.core.config import load_config
     from dgvcc_tpu_torch.train.trainer import config_device, mesh_size
 
-    if task == "export":
-        raise SystemExit("--task export has nothing to convert in dgvcc_tpu_torch: its "
-                         "checkpoints are reference DGVCC .pth files already (ROADMAP.md, "
-                         "Queue 1 item 2)")
-    if task == "aot" or aot:
-        raise SystemExit(f"{'--task aot' if task == 'aot' else '--aot'} is not ported to "
-                         "dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 2 (use python -m "
-                         "dgvcc_tpu for it)")
     cfg = load_config(config_path)
     if cfg.extra.get("compile_cache"):
         # the JAX package turns on XLA's persistent compilation cache from it
@@ -258,15 +345,19 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
     if ckpt is not None:
         # a comma pair is a joint run's [gen, reg] checkpoint
         cfg.checkpoint = ckpt.split(",") if "," in ckpt else ckpt
-    if task in ("serve", "quantize") and isinstance(cfg.checkpoint, (list, tuple)):
-        raise SystemExit(f"--task {task} takes a single checkpoint path")
+    if task in ("serve", "quantize", "aot") and isinstance(cfg.checkpoint, (list, tuple)):
+        raise SystemExit(f"--task {task} takes a single checkpoint path; for a joint run "
+                         "pass the counting regressor's checkpoint (the _reg one)")
     axes = {a: mesh_size(cfg, a) for a in ("data", "model", "spatial")}
     axes = {a: n for a, n in axes.items() if n > 1}
     if task == "serve" and cfg.extra.get("serve_shard", "batch") == "spatial" and not axes:
         # `serve_shard: spatial` slices each frame's height over a mesh
         raise SystemExit("serve_shard: spatial needs a mesh — set mesh: {spatial: N} (or "
                          "mesh: {data: N}) in the config")
-    if axes and task in ("vis", "generate", "serve", "quantize"):
+    if axes and task == "serve" and aot is not None:
+        raise SystemExit("--aot serves single-device programs; for data-parallel deployment "
+                         "run one replica process per card, each loading the same AOT file")
+    if axes and task in ("vis", "generate", "serve", "quantize", "aot", "export"):
         where = ("serving on a mesh (mesh / serve_shard) is ROADMAP.md, Queue 1 item 1"
                  if task == "serve" else "it runs in one process on one card")
         mesh = ", ".join(f"{a}: {n}" for a, n in axes.items())
@@ -274,6 +365,11 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
                          "mesh key for it")
     if task == "quantize":
         return _quantize(cfg, frames, out, config_device(cfg, device))
+    if task == "aot":
+        return _aot_export(cfg, shapes, platforms, out, config_device(cfg, device), quantize,
+                           artifact, frames, batch)
+    if task == "export":
+        return _export(cfg, template, out, config_device(cfg, device))
     if task != "serve":
         if axes:
             return _mesh_task(cfg, config_path, task, config_device(cfg, device),
@@ -281,10 +377,10 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         return _trainer_task(cfg, config_path, task, config_device(cfg, device))
     if http is not None:
         return _serve_http(cfg, http, batch, config_device(cfg, device), block=block,
-                           quantize=quantize, artifact=artifact, frames_dir=frames)
+                           quantize=quantize, artifact=artifact, frames_dir=frames, aot=aot)
     if frames is None:
         raise SystemExit("--task serve requires --frames DIR (or --http PORT)")
-    _serve(cfg, frames, batch, config_device(cfg, device), quantize, artifact)
+    _serve(cfg, frames, batch, config_device(cfg, device), quantize, artifact, aot)
 
 
 def build_parser():
@@ -308,9 +404,20 @@ def build_parser():
                         help="--task serve: an int8 artifact (--task quantize's output), "
                              "served without checkpoint or calibration")
     parser.add_argument("--out", type=str, default=None,
-                        help="--task quantize: the artifact to write")
+                        help="--task quantize / aot: the artifact to write; --task export: "
+                             "the .pth to write")
     parser.add_argument("--aot", type=str, default=None,
-                        help="AOT program artifact: not ported (ROADMAP.md, Queue 1 item 2)")
+                        help="--task serve: an AOT artifact (--task aot's output), served "
+                             "with no model built and no checkpoint read")
+    parser.add_argument("--shapes", type=str, default=None,
+                        help="--task aot: BxHxW[,BxHxW...], the batches and frame sizes to "
+                             "export (padded to the 64-bucket)")
+    parser.add_argument("--platforms", type=str, default=None,
+                        help="--task aot: the devices the artifact may serve on, from "
+                             "cuda,cpu (default: the export's device)")
+    parser.add_argument("--template", type=str, default=None,
+                        help="--task export: a same-architecture reference .pth for the "
+                             "torch key names and shapes")
     parser.add_argument("--ckpt", type=str, default=None,
                         help="override the config's checkpoint: key (.pth; gen,reg for a "
                              "joint run's pair)")
@@ -327,7 +434,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     run(args.config, args.task, frames=args.frames, batch=args.batch,
         ckpt=args.ckpt, device=args.device, http=args.http, quantize=args.quantize,
-        artifact=args.artifact, aot=args.aot, dist_backend=args.dist_backend, out=args.out)
+        artifact=args.artifact, aot=args.aot, dist_backend=args.dist_backend, out=args.out,
+        shapes=args.shapes, platforms=args.platforms, template=args.template)
 
 
 if __name__ == "__main__":

@@ -439,6 +439,32 @@ def drop_reference_unused(sd: Dict[str, torch.Tensor], model: torch.nn.Module):
     return {k: v for k, v in sd.items() if not k.startswith(unused)} if unused else sd
 
 
+def export_reference_state_dict(model: torch.nn.Module,
+                                template: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``model``'s weights under ``template``'s keys and shapes (the
+    reference's key layout is the port's): each floating tensor as float32,
+    the template's other entries (``num_batches_tracked``, the keys the
+    model never reads, as isw's ``layer4``) as the template has them, as
+    the JAX package's ``nn/torch_export.py`` passes them through. Raises on
+    a weight the template lacks or holds at another shape."""
+    sd = model.state_dict()
+    lacking = sorted(k for k, v in sd.items() if v.is_floating_point() and k not in template)
+    if lacking:
+        raise ValueError(f"the template lacks {len(lacking)} of the model's weights "
+                         f"({lacking[:3]}...): not a same-architecture reference .pth")
+    out = {}
+    for key, ref in template.items():
+        v = sd.get(key)
+        if v is None or not v.is_floating_point():
+            out[key] = ref.clone()
+        elif v.shape != ref.shape:
+            raise ValueError(f"{key}: the model's {tuple(v.shape)} against the template's "
+                             f"{tuple(ref.shape)}")
+        else:
+            out[key] = v.detach().to("cpu", torch.float32).clone()
+    return out
+
+
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     """A reference DGVCC (or port) ``.pth`` state_dict, on the CPU. The
     port's key layout is the reference's, so the result goes straight

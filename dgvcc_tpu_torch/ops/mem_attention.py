@@ -10,6 +10,13 @@ the kernel launches or the call raises.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
 that its main path went through the kernel.
+
+The function is also the ``torch.library`` custom op
+``dgvcc_tpu_torch::memory_attention`` (its CPU implementation the plain
+version, its CUDA one the kernel, a fake one for the output's shape), which
+``memory_attention_fused`` emits only while ``torch.export`` traces
+(``nn/aot.py``): an exported program then holds the op and launches the
+kernel on whatever device it is moved to. Eager calls skip the dispatcher.
 """
 
 from __future__ import annotations
@@ -55,12 +62,19 @@ def _kernel():
 def memory_attention_fused(y: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
     """y: (B, P, K) pixel features; mem: (K, S) prototypes -> (B, P, K)
     in y's dtype. Any P; K in ``KERNEL_WIDTHS``; bf16 or f32."""
-    global LAUNCHES
     if y.dim() != 3 or mem.dim() != 2 or y.shape[-1] != mem.shape[0]:
         raise ValueError(f"memory_attention_fused: y {tuple(y.shape)} and "
                          f"mem {tuple(mem.shape)} do not form (B,P,K), (K,S)")
+    if torch.compiler.is_exporting():
+        return torch.ops.dgvcc_tpu_torch.memory_attention(y, mem)
     if y.device.type == "cpu" and mem.device.type == "cpu":
         return memory_attention_reference(y, mem)
+    return _launch(y, mem)
+
+
+def _launch(y: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors (checked here); counts the launch."""
+    global LAUNCHES
     if y.device.type != "cuda" or mem.device != y.device:
         raise ValueError(f"memory_attention_fused: y on {y.device}, mem on "
                          f"{mem.device}; both must be on one CUDA device or "
@@ -96,3 +110,17 @@ def memory_attention_fused(y: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
                            + lib.mem_attention_error_string(err).decode())
     LAUNCHES += 1
     return out
+
+
+@torch.library.custom_op("dgvcc_tpu_torch::memory_attention", mutates_args=(),
+                         device_types="cpu")
+def _memory_attention_op(y: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
+    return memory_attention_reference(y, mem)
+
+
+_memory_attention_op.register_kernel("cuda")(_launch)
+
+
+@_memory_attention_op.register_fake
+def _(y, mem):
+    return torch.empty_like(y, memory_format=torch.contiguous_format)

@@ -33,6 +33,13 @@ even.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
 that its main path went through the kernel.
+
+``qconv_int8`` is also the ``torch.library`` custom op
+``dgvcc_tpu_torch::qconv_int8`` (CPU: the plain version; CUDA: the kernel;
+a fake implementation for the output's shape and dtype), which the wrapper
+emits only while ``torch.export`` traces (``nn/aot.py``), so that an
+exported int8 graph holds the op and not a float64 convolution. Eager calls
+skip the dispatcher: an int8 forward makes one call a site.
 """
 
 from __future__ import annotations
@@ -147,7 +154,6 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
     (or kh = kw = ``stride``), ws / bias (Cout,) f32, s the activation
     scale -> y (N, ceil(H / stride), ceil(W / stride), Cout) in ``out_dtype``
     (f32 or bf16), SAME padding. ``acc=True``: the int32 accumulator alone."""
-    global LAUNCHES
     if xq.dim() != 4 or w8.dim() != 4 or xq.shape[-1] != w8.shape[-1]:
         raise ValueError(f"qconv_int8: xq {tuple(xq.shape)} and w8 {tuple(w8.shape)} do not "
                          "form (N, H, W, Cin), (Cout, kh, kw, Cin)")
@@ -164,13 +170,26 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
                          f"Cout={cout}")
     if not acc and out_dtype not in _OUT_KIND:
         raise TypeError(f"qconv_int8 writes f32 or bf16, not {out_dtype}")
+    if torch.compiler.is_exporting():
+        return torch.ops.dgvcc_tpu_torch.qconv_int8(xq, w8, ws, float(s), bias, relu, dilation,
+                                                    out_dtype, acc, stride)
     tensors = (xq, w8) if acc else (xq, w8, ws, bias)
     if all(t.device.type == "cpu" for t in tensors):
         return qconv_int8_reference(xq, w8, ws, s, bias, relu, dilation, out_dtype, acc, stride)
+    return _launch(xq, w8, ws, s, bias, relu, dilation, out_dtype, acc, stride)
+
+
+def _launch(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
+            bias: torch.Tensor, relu: bool, dilation: int, out_dtype: torch.dtype,
+            acc: bool, stride: int) -> torch.Tensor:
+    """The kernel on CUDA tensors (checked here); counts the launch."""
+    global LAUNCHES
+    tensors = (xq, w8) if acc else (xq, w8, ws, bias)
     if xq.device.type != "cuda" or any(t.device != xq.device for t in tensors):
         raise ValueError("qconv_int8: every tensor must be on one CUDA device, or all on "
                          "the CPU")
     n, h, w, _ = xq.shape
+    cout, kh, kw, _ = w8.shape
     xq, w8 = pad_cin(xq).contiguous(), pad_cin(w8).contiguous()
     xq, w8 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xq, w8))
     if not acc:
@@ -191,3 +210,20 @@ def qconv_int8(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
                            + lib.qconv_int8_error_string(err).decode())
     LAUNCHES += 1
     return out
+
+
+@torch.library.custom_op("dgvcc_tpu_torch::qconv_int8", mutates_args=(), device_types="cpu")
+def _qconv_int8_op(xq: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor, s: float,
+                   bias: torch.Tensor, relu: bool, dilation: int, out_dtype: torch.dtype,
+                   acc: bool, stride: int) -> torch.Tensor:
+    return qconv_int8_reference(xq, w8, ws, s, bias, relu, dilation, out_dtype, acc, stride)
+
+
+_qconv_int8_op.register_kernel("cuda")(_launch)
+
+
+@_qconv_int8_op.register_fake
+def _(xq, w8, ws, s, bias, relu, dilation, out_dtype, acc, stride):
+    n, h, w, _ = xq.shape
+    return xq.new_empty((n, -(-h // stride), -(-w // stride), w8.shape[0]),
+                        dtype=torch.int32 if acc else out_dtype)

@@ -37,7 +37,7 @@ rows. The port writes that by hand, one process a rank:
 The halo exchange and the mean over ranks are in ``nn/collectives.py``
 (``halo_transport`` names how the rows travel). Other model families, and
 the modes with a loss function of their own, raise (ROADMAP.md, Queue 1
-item 1).
+item 2).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ IMAGE_KEYS = frozenset({"img1", "img2", "frames_u8"})
 STRIDE = 16
 # the modes whose every loss term is a mean over equal shares of the pixels
 MODES = ("simple", "base", "add", "cls", "final")
-UNPORTED = "see ROADMAP.md, Queue 1 item 1 (spatial sharding for the rest)"
+UNPORTED = "see ROADMAP.md, Queue 1 item 2 (spatial sharding for the rest)"
 
 
 def make_spatial_mesh(n: int):

@@ -66,6 +66,22 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def upload(array: np.ndarray, device: torch.device, h2d) -> torch.Tensor:
+    """``array`` as a tensor on ``device``; to the card from pinned memory,
+    a non-blocking copy on the side stream ``h2d`` that the compute stream
+    waits for."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return host
+    host = host.pin_memory()
+    with torch.cuda.stream(h2d):
+        dev = host.to(device, non_blocking=True)
+    compute = torch.cuda.current_stream(device)
+    compute.wait_stream(h2d)
+    dev.record_stream(compute)
+    return dev
+
+
 class _Pending:
     """A dispatched batch's counts: a device-to-host copy in flight."""
 
@@ -138,6 +154,7 @@ class VideoCounter:
                              "(quantized=) under the default quantize")
         self.device = resolve_device(device)
         self.model = None if model is None else model.to(self.device).eval()
+        self._h2d = None
         if self.device.type == "cuda":
             if self.model is not None:
                 # NHWC is the tensor cores' layout, and it makes the memory
@@ -280,16 +297,7 @@ class VideoCounter:
     # ---- device-side steps ------------------------------------------------
 
     def _to_device(self, frames: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(np.ascontiguousarray(frames))
-        if self.device.type != "cuda":
-            return host
-        host = host.pin_memory()
-        with torch.cuda.stream(self._h2d):
-            dev = host.to(self.device, non_blocking=True)
-        compute = torch.cuda.current_stream(self.device)
-        compute.wait_stream(self._h2d)
-        dev.record_stream(compute)
-        return dev
+        return upload(frames, self.device, self._h2d)
 
     def masked_counts(self, frames_u8: torch.Tensor, vh: torch.Tensor,
                       vw: torch.Tensor, use_q: bool = False) -> torch.Tensor:

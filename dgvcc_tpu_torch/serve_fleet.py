@@ -2,11 +2,12 @@
 counterpart of dgvcc_tpu/serve_fleet.py (stdlib only).
 
     python -m dgvcc_tpu_torch.serve_fleet --config cfg.yml --port 8000 \\
-        --replicas 4 --devices 0,1,2,3 [--artifact m.int8 | --quantize [auto] --frames DIR]
+        --replicas 4 --devices 0,1,2,3
+        [--aot m.aot | --artifact m.int8 | --quantize [auto] --frames DIR]
 
 Each replica is the command line's HTTP endpoint,
 ``python -m dgvcc_tpu_torch --task serve --http P --batch B [--device D]
-[--ckpt X] [--artifact A] [--quantize [auto]] [--frames DIR]``, pinned to
+[--ckpt X] [--aot F] [--artifact A] [--quantize [auto]] [--frames DIR]``, pinned to
 its card by ``utils/devices.py::chip_env`` (``CUDA_VISIBLE_DEVICES``;
 ``--devices 0,0`` puts two replicas on one card). The proxy:
 
@@ -22,13 +23,12 @@ its card by ``utils/devices.py::chip_env`` (``CUDA_VISIBLE_DEVICES``;
   out of the rotation; with ``restart`` it respawns a dead replica on a
   new port, with exponential backoff.
 
-Int8 replicas serve an artifact (``--artifact``, ``--task quantize``'s
-output) or calibrate their own graph (``--quantize [auto]`` with
-``--frames``). ``--quantize auto`` with ``--artifact`` and ``--quantize`` with neither
-frames nor an artifact are refused here, as the command line refuses them,
-and so is the JAX fleet's ``--aot`` (AOT
-replicas are not ported: ROADMAP.md, Queue 1 item 2), before any replica
-starts.
+AOT replicas serve an AOT artifact (``--aot``, ``--task aot``'s output:
+no model built, no checkpoint read). Int8 replicas serve an artifact
+(``--artifact``, ``--task quantize``'s output) or calibrate their own graph
+(``--quantize [auto]`` with ``--frames``). ``--quantize auto`` with
+``--artifact`` and ``--quantize`` with neither frames nor an artifact are
+refused here, as the command line refuses them, before any replica starts.
 """
 
 from __future__ import annotations
@@ -50,8 +50,6 @@ from dgvcc_tpu_torch.serve_http import Server
 from dgvcc_tpu_torch.utils.devices import chip_env
 
 _STAT_KEYS = ("frames", "batches", "device_s", "dispatch_fp", "dispatch_int8")
-_AOT = ("the fleet's --aot is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 "
-        "item 2 (use python -m dgvcc_tpu.serve_fleet for it)")
 
 
 def _free_port() -> int:
@@ -149,8 +147,6 @@ class FleetServer:
                  request_timeout: float = 300.0, aot: Optional[str] = None,
                  artifact: Optional[str] = None, quantize=False,
                  frames_dir: Optional[str] = None):
-        if aot:
-            raise NotImplementedError(_AOT)
         if artifact and quantize == "auto":
             # fail in the parent, not in N replicas' crash loops: an int8
             # artifact has no fp weights for auto's bf16 dispatches
@@ -176,6 +172,8 @@ class FleetServer:
                 cmd += ["--device", device]
             if ckpt:
                 cmd += ["--ckpt", ckpt]
+            if aot:
+                cmd += ["--aot", aot]
             if artifact:
                 cmd += ["--artifact", artifact]
             if quantize:
@@ -407,7 +405,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt", default=None, help="checkpoint passed to every replica")
     ap.add_argument("--restart", action="store_true", help="respawn dead replicas")
     ap.add_argument("--probe-s", type=float, default=2.0)
-    ap.add_argument("--aot", default=None, help="not ported (ROADMAP.md, Queue 1 item 2)")
+    ap.add_argument("--aot", default=None, help="an AOT artifact for every replica")
     ap.add_argument("--artifact", default=None, help="an int8 artifact for every replica")
     ap.add_argument("--quantize", nargs="?", const=True, default=False,
                     choices=[True, False, "auto"], metavar="auto",
@@ -422,7 +420,7 @@ def main(argv=None) -> int:
             port=args.port, batch=args.batch, device=args.device, ckpt=args.ckpt,
             restart=args.restart, probe_s=args.probe_s, aot=args.aot,
             artifact=args.artifact, quantize=args.quantize, frames_dir=args.frames)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         raise SystemExit(str(e))
     fleet.serve_forever()
     return 0

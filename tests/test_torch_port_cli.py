@@ -65,9 +65,11 @@ def test_cli_serve_prints_name_count_lines(served, capsys, via):
 
 
 def test_cli_refuses_unported_tasks_and_missing_frames(served):
-    root, _, _, _ = served
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--config", _config(root, "cpu"), "--task", "export"])
+    root, _, ckpt, _ = served
+    with pytest.raises(SystemExit, match="requires --template"):
+        main(["--config", _config(root, "cpu"), "--task", "export", "--ckpt", str(ckpt)])
+    with pytest.raises(SystemExit, match="requires --out FILE and --shapes"):
+        main(["--config", _config(root, "cpu"), "--task", "aot", "--ckpt", str(ckpt)])
     with pytest.raises(SystemExit, match="--frames"):
         main(["--config", _config(root, "cpu"), "--task", "serve"])
 

@@ -186,7 +186,7 @@ def test_mesh_data_outside_torchrun_raises_with_the_command(data_root, tmp_path,
 
 @pytest.mark.parametrize("mesh,mode,error,message", [
     ({"model": 2}, "regression", ValueError, "not supported for mode 'regression'"),
-    ({"spatial": 8}, "generation", NotImplementedError, "Queue 1 item 1"),
+    ({"spatial": 8}, "generation", NotImplementedError, "Queue 1 item 2"),
     ({"data": 2, "model": 2}, "discrimination", ValueError,
      "not supported for mode 'discrimination'"),
     ({"data": 2, "spatial": 2}, "final", ValueError, "does not compose"),

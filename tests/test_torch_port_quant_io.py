@@ -222,8 +222,10 @@ def test_cli_quantize_then_serve_the_artifact(tmp_path, capsys):
         main(["--config", str(cfg), "--task", "serve", "--http", "0", "--quantize"])
     with pytest.raises(SystemExit, match="requires a checkpoint"):
         main(["--config", str(bare), "--task", "quantize", "--frames", str(frames), "--out", art])
-    with pytest.raises(SystemExit, match="reference DGVCC .pth"):
+    with pytest.raises(SystemExit, match="requires --template"):
         main(["--config", str(cfg), "--task", "export"])
-    for argv in (["--task", "aot"], ["--task", "serve", "--aot", "m.aot"]):
-        with pytest.raises(SystemExit, match="Queue 1 item 2"):
+    for argv, why in ((["--task", "aot"], "requires --out FILE and --shapes"),
+                      (["--task", "serve", "--frames", str(frames), "--aot", "m.aot"],
+                       "no such file")):
+        with pytest.raises(SystemExit, match=why):
             main(["--config", str(cfg), *argv])

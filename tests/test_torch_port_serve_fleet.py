@@ -182,32 +182,25 @@ def test_startup_failure_stops_the_replicas(tmp_path, monkeypatch):
                                      ({"quantize": "auto"}, "--quantize"),
                                      ({"quantize": True}, "--quantize")])
 def test_deploy_flags_are_refused_before_any_replica(kw, flag, monkeypatch):
-    """--aot is not ported (Queue 1 item 2); --artifact and --quantize reach
-    every replica's command line, and --quantize auto with --artifact is
-    refused (an artifact has no fp weights), before any replica starts."""
+    """--aot, --artifact and --quantize reach every replica's command line,
+    and --quantize auto with --artifact is refused (an artifact has no fp
+    weights), before any replica starts."""
     spawned = []
     monkeypatch.setattr("dgvcc_tpu_torch.serve_fleet.subprocess.Popen",
                         lambda *a, **k: spawned.append(a))
-    argv = ["--config", "cfg.yml", "--replicas", "2", flag] + (
-        [] if flag == "--quantize" else ["x"])
-    if flag == "--aot":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            FleetServer("cfg.yml", replicas=2, port=0, **kw)
-        with pytest.raises(SystemExit, match="Queue 1 item 2"):
-            main(argv)
-    else:
-        fleet = FleetServer("cfg.yml", replicas=2, port=0, frames_dir="calib", **kw)
-        try:
-            cmd = fleet.replicas[0].make_cmd(1234)
-        finally:
-            fleet._httpd.server_close()
+    fleet = FleetServer("cfg.yml", replicas=2, port=0, frames_dir="calib", **kw)
+    try:
+        cmds = [rep.make_cmd(1234 + i) for i, rep in enumerate(fleet.replicas)]
+    finally:
+        fleet._httpd.server_close()
+    for cmd in cmds:
         assert cmd[cmd.index(flag) + 1:][:1] == (
-            [kw["artifact"]] if flag == "--artifact" else ["auto"] if kw["quantize"] == "auto"
-            else ["--frames"])
-        both = dict(artifact="m.i8", quantize="auto")
-        with pytest.raises(ValueError, match="artifact"):
-            FleetServer("cfg.yml", replicas=2, port=0, **both)
-        with pytest.raises(SystemExit, match="artifact"):
-            main(["--config", "cfg.yml", "--replicas", "2", "--artifact", "m.i8",
-                  "--quantize", "auto"])
+            [kw[flag[2:]]] if flag in ("--aot", "--artifact")
+            else ["auto"] if kw["quantize"] == "auto" else ["--frames"])
+    both = dict(artifact="m.i8", quantize="auto")
+    with pytest.raises(ValueError, match="artifact"):
+        FleetServer("cfg.yml", replicas=2, port=0, **both)
+    with pytest.raises(SystemExit, match="artifact"):
+        main(["--config", "cfg.yml", "--replicas", "2", "--artifact", "m.i8",
+              "--quantize", "auto"])
     assert spawned == []

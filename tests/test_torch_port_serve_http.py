@@ -245,12 +245,12 @@ def test_cli_serves_http_without_blocking(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--quantize"], ["--artifact", "m.i8"], ["--aot", "m.aot"]])
 def test_cli_refuses_the_deploy_flags(tmp_path, flag):
-    """--aot is not ported (Queue 1 item 2); --quantize needs calibration
-    frames and --artifact a file (int8 serving: test_torch_port_quant_io.py)."""
+    """--quantize needs calibration frames, --artifact and --aot a file
+    (int8 serving: test_torch_port_quant_io.py; AOT: test_torch_port_aot_cli.py)."""
     from dgvcc_tpu_torch.cli.main import main
 
     why = {"--quantize": "needs --frames", "--artifact": "no such file",
-           "--aot": "Queue 1 item 2"}[flag[0]]
+           "--aot": "no such file"}[flag[0]]
     with pytest.raises(SystemExit, match=why):
         main(["--config", _config(tmp_path), "--task", "serve", "--http", "0", *flag])
 

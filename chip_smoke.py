@@ -236,7 +236,23 @@ Phases, each of which exits non-zero on failure:
    for cuda,cpu, served on the card with the same checks; ``count_frames``
    frames/s at B=4 in turns AOT, live, live, AOT; export and load seconds
    and bytes; ``--task serve --aot`` on phase 6's test JPEGs through the
-   command line's main against the AOT counter.
+   command line's main against the AOT counter;
+16. serving on a mesh (``parallel/serving.py``; ``VideoCounter(mesh=,
+   shard=)``) of 2 gloo ranks sharing cuda:0 (NCCL refuses two ranks a
+   card), phase 3's weights at full width: batch-sharded bf16 at B=4 and 3
+   and spatial bf16 at B=2 and on a 1080x1920 frame through the tiled path
+   against phase 3's one-process counter (2e-3 of each count), spatial f32
+   at B=1 against an f32 twin (1e-4, TF32 off on both sides), spatial int8
+   on ``--task quantize``'s artifact (each rank's density rows bit for bit against
+   the same rows of one process's int8 graph, counts 1e-5); #1 once a rank
+   a dispatch and ``qconv_int8`` 21 times a rank an int8 dispatch, each
+   path's counts set to 0 just before it; frames/s and the halo exchanges'
+   share; 8 HTTP requests from 4 clients through the command line's 2-rank
+   leader; then ``torchrun --task serve`` with mesh: {spatial: 2} and
+   serve_shard: spatial on 4 seeded JPEGs against a fresh one process's
+   ``--task serve`` (2e-3 plus the 2 printed decimals). It runs right
+   after phase 3, beside mem_attention_train's nvcc build, on a checkpoint,
+   JPEGs, an artifact and HTTP bodies it makes itself.
 
 Each phase's seconds and the total are printed before the result lines.
 The line before the last is a JSON object with one entry per kernel; the
@@ -4560,6 +4576,316 @@ def aot_phase(ma, counter, q_counter, tmp, gpu):
     return out, launches
 
 
+# ---- phase 16: serving on a mesh ----------------------------------------------
+MS_RANKS = 2                        # gloo ranks sharing cuda:0: NCCL refuses two ranks a card
+MS_TOL_BF16 = 2e-3                  # bf16 counts on the mesh vs one process, relative (phase
+#                                     15's gate for a program at another batch)
+MS_TOL_F32 = 1e-4                   # spatial f32 B=1 vs one process, TF32 off on both sides
+MS_TOL_INT8 = 1e-5                  # spatial int8 counts vs one process; density rows bit for bit
+MS_TOL_CLI = (2e-3, 0.01)           # torchrun's printed counts vs a fresh one process's:
+#                                     relative, plus the 2 decimals printed
+MS_BIG = (1080, 1920)               # the tiled frame: tile_threshold 1024, 2x3 tiles of 768
+MS_TILE_THRESHOLD = 1024
+MS_HTTP = 8                         # requests to the 2-rank leader, from 4 clients
+MS_TIMED = 4                        # count_frames calls a rank times for frames/s
+# per rank and path: (kernel #1, qconv_int8) launches; one dispatch each
+MS_PATHS = {"batch bf16 B=4": (1, 0), "batch bf16 B=3": (1, 0),
+            "spatial bf16 B=2": (1, 0), "spatial bf16 tiled 1080x1920": (1, 0),
+            "spatial f32 B=1": (1, 0), "spatial int8 B=2": (1, INT8_SITES_FINAL)}
+
+
+def ms_rank(rank, workdir):
+    """Phase 16's ranks (gloo on cuda:0): phase 3's weights served on a
+    2-rank mesh through ``VideoCounter(mesh=, shard=)``: each path's counts
+    and its launches (counts set to 0 just before it), the int8 graph's
+    density on this rank's rows, frames/s and the halo exchanges' share,
+    then ``--task serve --http`` through the command line's ``run`` (rank
+    0 posts MS_HTTP JPEGs from 4 clients to its own leader). Writes
+    ``workdir/rank{rank}.pt``."""
+    import torch.distributed as dist
+    import urllib.request
+
+    from dgvcc_tpu_torch.cli.main import run as cli_run
+    from dgvcc_tpu_torch.nn import collectives
+    from dgvcc_tpu_torch.ops import mem_attention as ma
+    from dgvcc_tpu_torch.ops import qconv as qc
+    from dgvcc_tpu_torch.parallel.mesh import make_mesh
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    torch.cuda.set_device(0)
+    spec = torch.load(os.path.join(workdir, "spec.pt"), weights_only=False)
+    frames, ckpt = spec["frames"], spec["ckpt"]
+    group = make_mesh(MS_RANKS)
+    out = {"transport": collectives.halo_transport(group, "cuda"), "counts": {},
+           "launches": {}}
+
+    def path(label, fn):
+        ma.LAUNCHES = qc.LAUNCHES = 0
+        out["counts"][label] = fn()
+        out["launches"][label] = (ma.LAUNCHES, qc.LAUNCHES)
+
+    def counter(dtype=torch.bfloat16, **kw):
+        return VideoCounter.from_checkpoint("final", ckpt, dtype=dtype, fused_mem=True,
+                                            mesh=group, **kw)
+
+    batch = counter(shard="batch")
+    path("batch bf16 B=4", lambda: batch.count_frames(frames["b4"]))
+    path("batch bf16 B=3", lambda: batch.count_frames(frames["b4"][:3]))
+    spatial = counter(shard="spatial", tile_threshold=MS_TILE_THRESHOLD)
+    path("spatial bf16 B=2", lambda: spatial.count_frames(frames["b4"][:2]))
+    path("spatial bf16 tiled 1080x1920", lambda: spatial.count_frames(frames["big"]))
+    with tf32_off():
+        f32 = counter(torch.float32, shard="spatial")
+        path("spatial f32 B=1", lambda: f32.count_frames(frames["b4"][:1]))
+    del f32
+    q = VideoCounter.from_artifact(spec["artifact"], mesh=group, shard="spatial")
+    path("spatial int8 B=2", lambda: q.count_frames(frames["b4"][:2]))
+    rows = FRAME[0] // MS_RANKS
+    with torch.inference_mode():
+        x = torch.from_numpy(frames["b4"][:2, rank * rows:(rank + 1) * rows]).cuda()
+        x = ((x.float() / 255.0 - 0.5) / 0.5).to(q.dtype)
+        out["int8_rows"] = q.quantized(x)[0].float().cpu()
+
+    def fps(c, f):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MS_TIMED):
+            c.count_frames(f)
+        return len(f) * MS_TIMED / (time.perf_counter() - t0)
+
+    out["fps"] = {"batch bf16 B=4": fps(batch, frames["b4"]),
+                  "spatial bf16 B=2": fps(spatial, frames["b4"][:2])}
+    swap, clock = collectives._swap, [0.0, 0]
+
+    def clocked(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = swap(*args)
+        torch.cuda.synchronize()
+        clock[0] += time.perf_counter() - t0
+        clock[1] += 1
+        return got
+
+    collectives._swap = clocked
+    try:
+        out["fps_clocked"] = fps(spatial, frames["b4"][:2])
+    finally:
+        collectives._swap = swap
+    # the exchanges' seconds over the clocked calls' seconds
+    out["halo_share"] = clock[0] / (2 * MS_TIMED / out["fps_clocked"])
+    out["halo_ms"], out["halo_calls"] = 1e3 * clock[0] / MS_TIMED, clock[1] // MS_TIMED
+    del batch, spatial, q
+    torch.cuda.empty_cache()
+
+    # ---- HTTP: the command line's leader and follower
+    ma.LAUNCHES = 0
+    srv = cli_run(spec["http_config"], "serve", http=0, batch=4, ckpt=ckpt, block=False)
+    if rank == 0:
+        def post(body):
+            req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/count", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.load(r)["count"]
+
+        t0 = time.perf_counter()
+        try:
+            with concurrent.futures.ThreadPoolExecutor(4) as pool:
+                out["http"] = list(pool.map(post, spec["bodies"]))
+            out["http_s"] = time.perf_counter() - t0
+            out["http_stats"] = srv.stats()
+        finally:
+            srv.shutdown()
+    out["http_launches"] = ma.LAUNCHES
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def _ms_close(label, got, want, rel, atol=0.0):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{label}: counts {got} against {want}")
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0)))
+    log(f"serving mesh, {label}: {np.round(got, 3).tolist()} against one process's "
+        f"{np.round(want, 3).tolist()}: max relative diff {err:.3e} (tol {rel}"
+        f"{f' + {atol}' if atol else ''})")
+    if np.any(np.abs(got - want) > rel * np.maximum(np.abs(want), 1.0) + atol):
+        fail(f"{label}: the mesh's counts disagree with one process's")
+    return err
+
+
+def _served_lines(text):
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"^(\S+\.jpg) (-?\d+\.\d+)$", text, re.M)}
+
+
+def mesh_serve_phase(counter, gpu):
+    """Phase 16: serving on a mesh of MS_RANKS gloo ranks sharing cuda:0 at
+    full width (`final`, 768x1024, phase 3's seed-0 weights through a
+    checkpoint of them): batch-sharded bf16 at B=4 and 3, spatial f32 at
+    B=1, bf16 at B=2 and tiled at 1080x1920, spatial int8 on ``--task
+    quantize``'s artifact (its density rows bit for bit against one
+    process's), frames/s a rank and the halo exchanges' share, HTTP through
+    a 2-rank leader; and torchrun ``--task serve`` with mesh: {spatial: 2}
+    on 4 seeded JPEGs against a fresh one process's. It runs right after
+    phase 3, while mem_attention_train's nvcc build runs (phase 2b waits for
+    it), and makes its own inputs, as phases 6, 9 and 14 make theirs.
+    Returns the launches by path."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        return _mesh_serve_phase(counter, gpu, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mesh_serve_phase(counter, gpu, tmp):
+    import yaml
+    from PIL import Image
+
+    from dgvcc_tpu_torch.cli.main import main as cli_main
+    from dgvcc_tpu_torch.parallel.launch import run_ranks
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    ckpt, art = os.path.join(tmp, "final_seed0.pth"), os.path.join(tmp, "final.int8")
+    torch.save(counter.model.state_dict(), ckpt)
+    write_dataset(os.path.join(tmp, "data"), seed=16, counts=(0, 0, 4))
+    jpegs = os.path.join(tmp, "data", "test")
+    work = os.path.join(tmp, "mesh_serve")
+    os.makedirs(work)
+    with open(os.path.join(ROOT, "configs", "sta_final.yml")) as f:
+        raw = yaml.safe_load(f)
+    raw.update(mesh={"spatial": MS_RANKS}, serve_shard="spatial")
+    sp_cfg = os.path.join(work, "sta_final_serve_spatial.yml")
+    with open(sp_cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+
+    # ---- the command line, in fresh processes on both sides, started first
+    outdir = os.path.join(work, "cli_ranks")
+    os.makedirs(outdir)
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={MS_RANKS}", os.path.abspath(__file__), "--cli-rank", outdir,
+         "--config", sp_cfg, "--task", "serve", "--frames", jpegs, "--ckpt", ckpt,
+         "--dist-backend", "gloo"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    one = subprocess.Popen(
+        [sys.executable, "-m", "dgvcc_tpu_torch", "--config",
+         os.path.join(ROOT, "configs", "sta_final.yml"), "--task", "serve", "--frames", jpegs,
+         "--ckpt", ckpt], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+    # ---- the int8 artifact (phase 14's command, in this process) and the
+    # HTTP bodies
+    with no_autotune():
+        cli_main(["--config", os.path.join(ROOT, "configs", "sta_final.yml"), "--task",
+                  "quantize", "--ckpt", ckpt, "--frames", jpegs, "--out", art])
+    bodies = _stress_tool().encode_frames(MS_HTTP, *FRAME, seed=160, quality=90)
+    decoded = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in bodies]
+
+    # ---- the API's ranks
+    rng = np.random.default_rng(160)
+    frames = {"b4": rng.integers(0, 256, (4,) + FRAME + (3,), dtype=np.uint8),
+              "big": rng.integers(0, 256, (1,) + MS_BIG + (3,), dtype=np.uint8)}
+    torch.save({"frames": frames, "ckpt": ckpt, "artifact": art, "http_config": sp_cfg,
+                "bodies": bodies}, os.path.join(work, "spec.pt"))
+    t0 = time.perf_counter()
+    run_ranks(ms_rank, MS_RANKS, (work,), init_file=os.path.join(work, "init"), timeout=600)
+    rank_s = time.perf_counter() - t0
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(MS_RANKS)]
+    log(f"serving mesh: {MS_RANKS} ranks ({res[0]['transport']}) ran in {rank_s:.1f} s "
+        f"with start-up")
+
+    # ---- one process: phase 3's counter, an f32 twin, the artifact
+    with no_autotune():
+        want = {"batch bf16 B=4": counter.count_frames(frames["b4"]),
+                "batch bf16 B=3": counter.count_frames(frames["b4"][:3]),
+                "spatial bf16 B=2": counter.count_frames(frames["b4"][:2])}
+        threshold = counter.tile_threshold
+        counter.tile_threshold = MS_TILE_THRESHOLD
+        try:
+            want["spatial bf16 tiled 1080x1920"] = counter.count_frames(frames["big"])
+        finally:
+            counter.tile_threshold = threshold
+        with tf32_off():
+            f32 = VideoCounter.from_checkpoint("final", ckpt, dtype=torch.float32,
+                                               fused_mem=True)
+            want["spatial f32 B=1"] = f32.count_frames(frames["b4"][:1])
+        del f32
+        q = VideoCounter.from_artifact(art)
+        want["spatial int8 B=2"] = q.count_frames(frames["b4"][:2])
+        with torch.inference_mode():
+            x = torch.from_numpy(frames["b4"][:2]).cuda()
+            rows_want = q.quantized(((x.float() / 255.0 - 0.5) / 0.5).to(q.dtype))[0]
+            rows_want = rows_want.float().cpu()
+        http_want = [float(counter.count_frames(f[None])[0]) for f in decoded]
+    del q
+    tols = {"spatial f32 B=1": MS_TOL_F32, "spatial int8 B=2": MS_TOL_INT8}
+    launches = {"memory_attention_fused": 0, "qconv_int8": 0}
+    for r, o in enumerate(res):
+        for label, (n1, n8) in MS_PATHS.items():
+            _ms_close(f"rank {r} {label}", o["counts"][label], want[label],
+                      tols.get(label, MS_TOL_BF16))
+            if o["launches"][label] != (n1, n8):
+                fail(f"rank {r} {label}: launches (#1, qconv_int8) {o['launches'][label]}, "
+                     f"not {(n1, n8)}")
+            launches["memory_attention_fused"] += n1
+            launches["qconv_int8"] += n8
+        rows = FRAME[0] // MS_RANKS
+        mine = rows_want[:, r * rows:(r + 1) * rows]
+        if not torch.equal(o["int8_rows"], mine):
+            diff = (o["int8_rows"] - mine).abs()
+            fail(f"rank {r}: the int8 graph's density rows differ from one process's rows "
+                 f"(max |diff| {float(diff.max()):.3e} at {int((diff > 0).sum())} pixels)")
+        log(f"serving mesh rank {r}: frames/s (each rank returns every count) "
+            f"{', '.join(f'{k} {v:.2f}' for k, v in o['fps'].items())}; spatial B=2 with "
+            f"each of its {o['halo_calls']} halo exchanges a call clocked "
+            f"{o['fps_clocked']:.2f} frames/s, the exchanges {o['halo_ms']:.1f} ms a call "
+            f"= {o['halo_share']:.3f} of it [{gpu}]")
+    log(f"serving mesh, spatial int8: each rank's density rows bit for bit against the "
+        f"same rows of one process's int8 graph ({tuple(rows_want.shape)})")
+
+    # ---- HTTP through the 2-rank leader
+    o0 = res[0]
+    _check_http_counts(f"serving mesh HTTP ({MS_HTTP} requests, 4 clients)",
+                       {i: [c] for i, c in enumerate(o0["http"])},
+                       dict(enumerate(http_want)))
+    batches = o0["http_stats"]["batches"]
+    if o0["http_stats"]["frames"] != MS_HTTP or any(
+            o["http_launches"] != batches for o in res):
+        fail(f"serving mesh HTTP: stats {o0['http_stats']}, launches of #1 a rank "
+             f"{[o['http_launches'] for o in res]} for {batches} batches")
+    launches["memory_attention_fused"] += MS_RANKS * batches
+    log(f"serving mesh HTTP: {MS_HTTP / o0['http_s']:.2f} req/s, {batches} batches, #1 "
+        f"launched once a batch on each rank [{gpu}]")
+
+    # ---- the command line: torchrun's rank 0 against a fresh one process
+    cli_out, cli_err = cli.communicate(timeout=600)
+    one_out, one_err = one.communicate(timeout=600)
+    cli_s = time.perf_counter() - t_cli
+    if cli.returncode or one.returncode:
+        fail(f"--task serve on the mesh exited {cli.returncode}, one process "
+             f"{one.returncode}:\n{cli_err[-3000:]}\n{one_err[-3000:]}")
+    got, ref = _served_lines(cli_out), _served_lines(one_out)
+    names = sorted(n for n in os.listdir(jpegs) if n.endswith(".jpg"))
+    if sorted(got) != names or sorted(ref) != names or "x 2 ranks (spatial)" not in cli_out:
+        fail(f"--task serve on the mesh printed {sorted(got)} for {names}:\n{cli_out[-2000:]}")
+    _ms_close("torchrun --task serve (mesh: {spatial: 2}, serve_shard: spatial)",
+              [got[n] for n in names], [ref[n] for n in names], *MS_TOL_CLI)
+    per_rank = []
+    for r in range(MS_RANKS):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            per_rank.append(json.load(f)["memory_attention_fused"])
+    dispatches = math.ceil(len(names) / 4)
+    if per_rank != [dispatches] * MS_RANKS:
+        fail(f"torchrun --task serve: #1 launched {per_rank} times on the ranks for "
+             f"{dispatches} dispatches")
+    launches["memory_attention_fused"] += sum(per_rank)
+    log(f"serving mesh CLI: torchrun --nproc_per_node={MS_RANKS} -m dgvcc_tpu_torch --task "
+        f"serve --dist-backend gloo ({len(names)} JPEGs): {cli_s:.1f} s with start-up, "
+        f"beside the one-process run; #1 launches per rank {per_rank}")
+    return launches
+
+
 def log_build(logs, t0):
     for name, text in logs.items():
         for line in text.splitlines():
@@ -4705,6 +5031,12 @@ def main():
         check_counts(name, fused_counts, run(plain))
     check_cli(frames, VideoCounter)
     phase_done("3 (serving)", t_phase)
+
+    # ---- 16. serving on a mesh (2 ranks: batch and spatial, int8, HTTP, the
+    # CLI), while mem_attention_train builds -------------------------------
+    t_phase = time.perf_counter()
+    mesh_serve_launches = mesh_serve_phase(counter, gpu)
+    phase_done("16 (serving on a mesh, beside the training kernels' build)", t_phase)
 
     # ---- 2b. the training kernels, built beside phases 1-3 ----------------
     t_phase = time.perf_counter()
@@ -4867,7 +5199,8 @@ def main():
                "data parallel ranks (phase 12)": dp_launches,
                "2-D mesh and spatial ranks (phase 13)": mesh_launches,
                **{f"{k} (phase 14)": n for k, n in int8_launches.items()},
-               **{f"{k} (phase 15)": n for k, n in aot_launches.items()}}
+               **{f"{k} (phase 15)": n for k, n in aot_launches.items()},
+               "serving mesh ranks (phase 16)": mesh_serve_launches}
 
     def total(name):
         return sum(n.get(name, 0) for n in by_path.values())

@@ -6,8 +6,8 @@
         [--quantize [auto] | --artifact FILE | --aot FILE] [--out FILE]
         [--shapes BxHxW[,...] --platforms cuda,cpu] [--template ref.pth]
     torchrun --nproc_per_node=N -m dgvcc_tpu_torch --config X.yml \
-        --task {train,test,train_test} [--dist-backend gloo]
-        (N: the mesh's ranks, data x model, or spatial)
+        --task {train,test,train_test,serve} [--dist-backend gloo]
+        (N: the mesh's ranks, data x model, or spatial; serve: the serving mesh's)
 
 Reads the JAX package's YAML configs (core/config.py). ``train``, ``test``,
 ``vis``, ``train_test`` and ``generate`` drive
@@ -37,9 +37,18 @@ model axis, ``mesh: {spatial: N}`` with the crop's height sharded. Rank r
 takes ``cuda:{LOCAL_RANK}`` and NCCL; ``--device cpu`` takes gloo, and
 ``--dist-backend gloo`` lets ranks share a card (NCCL with more local ranks
 than cards raises). Outside torchrun, or with another number of ranks, it
-raises; ``vis``, ``generate``, ``serve``, ``quantize``, ``aot`` and
-``export`` run in one process and refuse a mesh (serving on a mesh is
-ROADMAP.md, Queue 1 item 1).
+raises; ``vis``, ``generate``, ``quantize``, ``aot`` and ``export`` run in
+one process and refuse a mesh.
+
+``--task serve`` serves on a mesh of N ranks under ``torchrun
+--nproc_per_node=N`` (``parallel/serving.py``), N by the JAX command
+line's rule: ``mesh.spatial`` under ``serve_shard: spatial`` (each frame's
+height sharded, the DG family), else ``mesh.data`` (the batch sharded);
+N = 1 serves in one process. With ``--frames`` every rank reads the same
+files and counts them together, and rank 0 prints. With ``--http`` rank 0
+serves HTTP and sends each batch to the other ranks, which count it with
+it until rank 0 stops. ``--aot`` serves single-device programs and refuses
+a mesh, as the fleet (one process on one card a replica) refuses one.
 
 AOT (``nn/aot.py``): ``--task aot --shapes BxHxW[,...] --out FILE
 [--platforms cuda,cpu]`` exports the serving program of the checkpoint
@@ -85,11 +94,13 @@ def _load_calib(frames_dir: str, n: int = 4):
 
 
 def _build_counter(cfg, device: str, quantize=False, artifact: str = None,
-                   frames_dir: str = None, batch: int = 4, aot: str = None):
+                   frames_dir: str = None, batch: int = 4, aot: str = None, mesh=None,
+                   shard: str = "batch"):
     """An AOT artifact's ``AotCounter`` (no model built), an int8
     ``artifact``, or the config's checkpoint (a reference or port ``.pth``;
     seeded random weights when it names none) in its ``compute_dtype``, int8
-    with ``quantize`` (calibrated on the first frames of ``frames_dir``)."""
+    with ``quantize`` (calibrated on the first frames of ``frames_dir``);
+    on ``mesh`` (a serving mesh's process group) sharded by ``shard``."""
     import torch
 
     from dgvcc_tpu_torch.serve import VideoCounter
@@ -112,7 +123,8 @@ def _build_counter(cfg, device: str, quantize=False, artifact: str = None,
                              "--quantize auto, or the artifact without it")
         if not os.path.isfile(artifact):
             raise SystemExit(f"--artifact {artifact}: no such file (--task quantize writes one)")
-        return VideoCounter.from_artifact(artifact, log_para=cfg.log_para, device=device)
+        return VideoCounter.from_artifact(artifact, log_para=cfg.log_para, device=device,
+                                          mesh=mesh, shard=shard)
     calib = None
     if quantize:
         if frames_dir is not None:
@@ -125,7 +137,8 @@ def _build_counter(cfg, device: str, quantize=False, artifact: str = None,
     return VideoCounter.from_checkpoint(
         cfg.model["name"], cfg.checkpoint, log_para=cfg.log_para,
         dtype=dtype, device=device, seed=cfg.seed, quantize=quantize, calib_frames=calib,
-        auto_threshold=cfg.extra.get("auto_threshold"), **cfg.model.get("params", {}))
+        auto_threshold=cfg.extra.get("auto_threshold"), mesh=mesh, shard=shard,
+        **cfg.model.get("params", {}))
 
 
 def _quantize(cfg, frames_dir: str, out: str, device: str):
@@ -223,16 +236,19 @@ def _export(cfg, template: str, out: str, device: str):
 
 
 def _serve(cfg, frames_dir: str, batch: int, device: str, quantize=False,
-           artifact: str = None, aot: str = None):
+           artifact: str = None, aot: str = None, mesh=None, shard: str = "batch"):
     """Stream per-frame crowd counts over a directory of images: decode on
     the host, batch consecutive same-shape frames, pipeline them through
-    VideoCounter.stream."""
+    VideoCounter.stream. On a mesh every rank streams the same files and
+    rank 0 alone prints."""
     import numpy as np
     import torch
     from PIL import Image
 
     names = _list_images(frames_dir)
-    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch, aot)
+    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch, aot, mesh,
+                             shard)
+    main = mesh is None or counter.rank == 0
     # a stream has few shapes (one per bucket): let cuDNN time its choices
     torch.backends.cudnn.benchmark = True
 
@@ -261,29 +277,42 @@ def _serve(cfg, frames_dir: str, batch: int, device: str, quantize=False,
     for counts in counter.stream(frame_stream()):
         bn = name_stream.pop(0)
         for n, c in zip(bn, counts):
-            print(f"{n} {float(c):.2f}")
+            if main:
+                print(f"{n} {float(c):.2f}")
         total += len(bn)
     dt = time.perf_counter() - t0
-    print(f"[serve] {total} frames in {dt:.2f}s = {total / dt:.2f} fps "
-          f"on {counter.device}{' (int8)' if counter.quantized is not None else ''}")
+    on = "" if mesh is None else f" x {counter.n_shards} ranks ({shard})"
+    if main:
+        print(f"[serve] {total} frames in {dt:.2f}s = {total / dt:.2f} fps "
+              f"on {counter.device}{on}{' (int8)' if counter.quantized is not None else ''}")
 
 
 def _serve_http(cfg, port: int, batch: int, device: str, block: bool = True,
                 quantize=False, artifact: str = None, frames_dir: str = None,
-                aot: str = None):
+                aot: str = None, mesh=None, shard: str = "batch"):
     """``--task serve --http PORT``: POST /count with image bytes returns
     {"count": N} (serve_http.py); ``batch`` bounds the request
     micro-batch (and the number of calibration frames). ``block=False``
-    serves on a daemon thread and returns the server (tests, embedding)."""
+    serves on a daemon thread and returns the server (tests, embedding).
+    On a mesh rank 0 serves HTTP (a ``Leader``) and the other ranks follow
+    it until it shuts down, which stops them."""
+    from dgvcc_tpu_torch.parallel.serving import Leader, follow
     from dgvcc_tpu_torch.serve_http import CountingServer
 
-    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch, aot)
-    srv = CountingServer(counter, host="0.0.0.0", port=port,
-                         model_name=cfg.model["name"], max_batch=batch)
+    counter = _build_counter(cfg, device, quantize, artifact, frames_dir, batch, aot, mesh,
+                             shard)
+    if mesh is not None and counter.rank > 0:
+        follow(counter)
+        return None
+    srv = CountingServer(counter if mesh is None else Leader(counter), host="0.0.0.0",
+                         port=port, model_name=cfg.model["name"], max_batch=batch)
     if not block:
         srv.start()
         return srv
-    srv.serve_forever()
+    try:
+        srv.serve_forever()
+    finally:
+        srv.shutdown()  # on a mesh: the dispatcher stops the other ranks
 
 
 def _trainer_task(cfg, config_path: str, task: str, device: str):
@@ -350,19 +379,13 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
                          "pass the counting regressor's checkpoint (the _reg one)")
     axes = {a: mesh_size(cfg, a) for a in ("data", "model", "spatial")}
     axes = {a: n for a, n in axes.items() if n > 1}
-    if task == "serve" and cfg.extra.get("serve_shard", "batch") == "spatial" and not axes:
-        # `serve_shard: spatial` slices each frame's height over a mesh
-        raise SystemExit("serve_shard: spatial needs a mesh — set mesh: {spatial: N} (or "
-                         "mesh: {data: N}) in the config")
-    if axes and task == "serve" and aot is not None:
-        raise SystemExit("--aot serves single-device programs; for data-parallel deployment "
-                         "run one replica process per card, each loading the same AOT file")
-    if axes and task in ("vis", "generate", "serve", "quantize", "aot", "export"):
-        where = ("serving on a mesh (mesh / serve_shard) is ROADMAP.md, Queue 1 item 1"
-                 if task == "serve" else "it runs in one process on one card")
+    if task == "serve":
+        return _serve_task(cfg, frames, batch, config_device(cfg, device), http, quantize,
+                           artifact, aot, block, dist_backend)
+    if axes and task in ("vis", "generate", "quantize", "aot", "export"):
         mesh = ", ".join(f"{a}: {n}" for a, n in axes.items())
-        raise SystemExit(f"--task {task} with mesh: {{{mesh}}}: {where}; drop the "
-                         "mesh key for it")
+        raise SystemExit(f"--task {task} with mesh: {{{mesh}}}: it runs in one process on "
+                         "one card; drop the mesh key for it")
     if task == "quantize":
         return _quantize(cfg, frames, out, config_device(cfg, device))
     if task == "aot":
@@ -374,13 +397,43 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
         if axes:
             return _mesh_task(cfg, config_path, task, config_device(cfg, device),
                               dist_backend)
-        return _trainer_task(cfg, config_path, task, config_device(cfg, device))
-    if http is not None:
-        return _serve_http(cfg, http, batch, config_device(cfg, device), block=block,
-                           quantize=quantize, artifact=artifact, frames_dir=frames, aot=aot)
-    if frames is None:
+    return _trainer_task(cfg, config_path, task, config_device(cfg, device))
+
+
+def _serve_task(cfg, frames, batch, device, http, quantize, artifact, aot, block,
+                dist_backend):
+    """``--task serve``: on the config's serving mesh (dgvcc_tpu/cli/main.py:
+    131-158), joined here from torchrun's environment and left here if it
+    was joined here, or in one process."""
+    import torch.distributed as dist
+
+    from dgvcc_tpu_torch.parallel.serving import serving_mesh, serving_mesh_size
+    from dgvcc_tpu_torch.train.trainer import mesh_size
+
+    n, shard = serving_mesh_size(cfg)
+    if shard == "spatial" and n <= 1:
+        # `serve_shard: spatial` slices each frame's height over a mesh
+        raise SystemExit("serve_shard: spatial needs a mesh — set mesh: {spatial: N} (or "
+                         "mesh: {data: N}) in the config")
+    if aot is not None and (mesh_size(cfg, "data") > 1 or mesh_size(cfg, "spatial") > 1):
+        raise SystemExit("--aot serves single-device programs; for data-parallel deployment "
+                         "run one replica process per card, each loading the same AOT file")
+    if http is None and frames is None:
         raise SystemExit("--task serve requires --frames DIR (or --http PORT)")
-    _serve(cfg, frames, batch, config_device(cfg, device), quantize, artifact, aot)
+    owned = not dist.is_initialized()
+    try:
+        mesh = serving_mesh(n, dist_backend, device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"--task serve: {e}")
+    try:
+        if http is not None:
+            return _serve_http(cfg, http, batch, device, block=block, quantize=quantize,
+                               artifact=artifact, frames_dir=frames, aot=aot, mesh=mesh,
+                               shard=shard)
+        _serve(cfg, frames, batch, device, quantize, artifact, aot, mesh, shard)
+    finally:
+        if owned and block and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def build_parser():
@@ -395,7 +448,8 @@ def build_parser():
                              "bound)")
     parser.add_argument("--http", type=int, default=None,
                         help="--task serve: listen on this port instead of reading "
-                             "--frames (POST /count, GET /healthz, /stats, /metrics)")
+                             "--frames (POST /count, GET /healthz, /stats, /metrics); on "
+                             "a mesh rank 0 listens")
     parser.add_argument("--quantize", nargs="?", const=True, default=False,
                         choices=[True, False, "auto"], metavar="auto",
                         help="--task serve: the int8 graph, calibrated on --frames; 'auto' "
@@ -424,9 +478,9 @@ def build_parser():
     parser.add_argument("--device", type=str, default=None,
                         help="cuda[:N] or cpu; overrides the config's device:")
     parser.add_argument("--dist-backend", type=str, default=None, choices=("nccl", "gloo"),
-                        help="a mesh under torchrun: the process group's backend "
-                             "(default nccl on the card, gloo on the CPU; gloo lets ranks "
-                             "share a card)")
+                        help="a mesh under torchrun (training, or --task serve with mesh "
+                             "and serve_shard): the process group's backend (default nccl "
+                             "on the card, gloo on the CPU; gloo lets ranks share a card)")
     return parser
 
 

@@ -76,7 +76,7 @@ def generate(img_fns, sigma: float = 4.0, backend: str = "cuda", device: str = "
         raise NotImplementedError(
             "--backend native (the JAX package's g++ library) is not ported to "
             "dgvcc_tpu_torch; use --backend cuda, cpu or numpy (ROADMAP.md, "
-            "Queue 1 item 4)")
+            "Queue 1 item 3)")
     if backend == "numpy":
         ctx = mp.get_context("spawn")
         with ctx.Pool(workers) as pool:

@@ -40,6 +40,14 @@ caller asks for ``"cpu"``, and raises when CUDA is asked for and absent.
 ``weight_only``: int8 weights dequantized to the serving dtype at use,
 bf16 activations, cuDNN's convolution; no calibration.
 
+On a spatial serving mesh (``parallel/spatial.py::shard_graph_height``)
+the DG graph holds a rank's rows of each frame: each site taller than one
+row exchanges a halo of dilation (kh - 1) / 2 rows with the neighbour ranks
+(int8 rows at an int8 site, quantized first) and runs SAME on the haloed
+block, keeping its own output rows; each bilinear upsample reads one
+neighbour row. Pools, nearest upsampling, 1x1 sites, the classifier's
+threshold and the bank are row-local.
+
 The whitening counters are refused as in the JAX package: they compute
 instance statistics at eval, which no fold can take.
 """
@@ -53,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dgvcc_tpu_torch.nn.collectives import exchange_halo
 from dgvcc_tpu_torch.nn.layers import resize_bilinear_ac, upsample
 from dgvcc_tpu_torch.nn.vgg import VGG16_CFG, VGG19_CFG, feature_layout
 from dgvcc_tpu_torch.ops.mem_attention import memory_attention_fused
@@ -159,8 +168,14 @@ def _maxpool(x):
     return _nchw(F.max_pool2d, x, 2, 2)
 
 
-def _up(x, factor, mode="bilinear"):
-    return _nchw(upsample, x, factor, mode)
+def _up(x, factor, mode="bilinear", group=None):
+    return _nchw(upsample, x, factor, mode, group)
+
+
+def _halo(x, rows: int, group):
+    """NHWC ``x``, this rank's rows, with ``rows`` rows of each neighbour
+    above and below (zeros at the frame's top and bottom)."""
+    return _nchw(exchange_halo, x, rows, group)
 
 
 class _Graph:
@@ -175,6 +190,10 @@ class _Graph:
     # the smallest dispatch batch at which ``quantize="auto"`` serves this
     # graph (serve.py::VideoCounter._prefers_int8); stored in artifacts
     int8_min_batch = 1
+    # the DG graph's rows sharded over a group (parallel/spatial.py::
+    # shard_graph_height): each site taller than one row convolves its
+    # rows with the neighbours' halo and keeps its own output rows
+    spatial_group = None
 
     def _init_sites(self, sites, scales, dtype, device):
         self.dtype = dtype
@@ -209,9 +228,15 @@ class _Graph:
         same = tuple(same_padding(n, k, dilation, stride)
                      for n, k in zip((parts or [x])[0].shape[1:3], window))
         padding = same if padding is None else tuple(tuple(p) for p in padding)
+        group = self.spatial_group if window[0] > 1 else None
+        halo = dilation * (window[0] - 1) // 2
+        if group is not None and (stride != 1 or padding != same):
+            raise ValueError(f"site {name}: only stride-1 SAME sites shard over rows")
         if "w8" not in site or self.weight_only:  # fp activations
             if parts is not None:
                 x = torch.cat(parts, dim=-1)
+            if group is not None:  # SAME on the haloed rows, then its own rows
+                x = _halo(x, halo, group)
             if "w8" in site:  # weight-only: dequantize at use (without the padding)
                 w8 = site["w8"][..., :x.shape[-1] // groups]
                 kernel = w8.to(dt) * site["ws"].to(dt)[:, None, None, None]
@@ -224,16 +249,22 @@ class _Graph:
             y = F.conv2d(xc, kernel.permute(0, 3, 1, 2), stride=stride, padding=(t, l),
                          dilation=dilation, groups=groups).permute(0, 2, 3, 1)
             y = y + site["bias"].to(dt)
-            return F.relu(y) if relu else y
+            y = F.relu(y) if relu else y
+            return y if group is None else y[:, halo:-halo]
         if groups != 1 or padding != same:
             raise ValueError(f"int8 site {name}: the int8 convolution takes one group and "
                              "SAME padding")
         s = self.scales[name]
         xq = (torch.cat([quantize_activation(p, s) for p in parts], dim=-1)
               if parts is not None else quantize_activation(x, s))
+        if group is not None:
+            # the halo travels in int8: the scale is global, and a zero row
+            # is SAME's zero fill (symmetric, no zero point)
+            xq = _halo(xq, halo, group)
         xq = pad_cin(xq, site["w8"].shape[-1])
-        return qconv_int8(xq, site["w8"], site["ws"], s, site["bias"], relu=relu,
-                          dilation=dilation, out_dtype=dt, stride=stride)
+        y = qconv_int8(xq, site["w8"], site["ws"], s, site["bias"], relu=relu,
+                       dilation=dilation, out_dtype=dt, stride=stride)
+        return y if group is None else y[:, halo:-halo]
 
     @contextlib.contextmanager
     def capturing(self):
@@ -356,14 +387,15 @@ class QuantizedDG(_Graph):
 
     @classmethod
     def from_model(cls, model, calib_frames=None, dtype=torch.bfloat16, device="cuda",
-                   weight_only: bool = False) -> "QuantizedDG":
+                   weight_only: bool = False, share=None) -> "QuantizedDG":
         """Fold, calibrate on ``calib_frames`` (NHWC float, normalised), and
-        quantize. ``weight_only`` needs no frames."""
+        quantize. ``weight_only`` needs no frames. ``share``: see
+        ``build_quantized``."""
         folded = fold_variables(model)
         mem = _bank(model)
         if weight_only:
             return cls.from_folded(folded, {}, model, mem, dtype, device, weight_only=True)
-        caps = calibrate(model, folded, mem, calib_frames, device)
+        caps = _shared(lambda: calibrate(model, folded, mem, calib_frames, device), share)
         # floored like quantize_weight: a site dead on every calibration frame
         # would otherwise divide by 0
         scales = {k: max(v, 1e-12) / 127.0 for k, v in caps.items()}
@@ -387,22 +419,23 @@ class QuantizedDG(_Graph):
         """frames (B, H, W, 3) -> (density (B, H, W, 1), cls (B, H/16, W/16, 1)
         or None), in the serving dtype; DGModel.forward's eval path."""
         x = frames.to(self.dtype)
+        g = self.spatial_group
         x1, x2, x3 = self._encoder(x)
         y3 = self._qconv(self._qconv(x3, "dec3_0"), "dec3_1")
-        y2 = self._qconv(self._qconv([_up(y3, 2), x2], "dec2_0"), "dec2_1")
-        y1 = self._qconv(self._qconv([_up(y2, 2), x1], "dec1_0"), "dec1_1")
-        y_den = self._qconv([y1, _up(y2, 2), _up(y3, 4)], "den_dec")
+        y2 = self._qconv(self._qconv([_up(y3, 2, group=g), x2], "dec2_0"), "dec2_1")
+        y1 = self._qconv(self._qconv([_up(y2, 2, group=g), x1], "dec1_0"), "dec1_1")
+        y_den = self._qconv([y1, _up(y2, 2, group=g), _up(y3, 4, group=g)], "den_dec")
         if self.use_mem:
             b, h, w, k = y_den.shape
             y_den = memory_attention_fused(y_den.reshape(b, h * w, k),
                                            self.qparams["mem"]).reshape(b, h, w, k)
         d = self._qconv(y_den, "den_head")
         if not self.use_cls:
-            return _up(d, 4), None
+            return _up(d, 4, group=g), None
         c = self._qconv(x3, "cls_conv1")
         c = torch.sigmoid(self._qconv(c, "cls_conv2", relu=False))
         c_bin = (c >= self.cls_thrs).to(d.dtype)
-        return _up(d * _up(c_bin, 4, "nearest"), 4), c
+        return _up(d * _up(c_bin, 4, "nearest"), 4, group=g), c
 
 
 def calibrate(model, folded: Dict, mem: Optional[np.ndarray], calib_frames,
@@ -794,25 +827,33 @@ def check_quantizable(model) -> None:
         raise ValueError(_WHITENING.format(type(model).__name__))
 
 
+def _shared(calibrate_fn: Callable, share=None):
+    return calibrate_fn() if share is None else share(calibrate_fn)
+
+
 def build_quantized(model, calib_frames, dtype=torch.bfloat16, device="cuda",
-                    min_ch: int = 128):
+                    min_ch: int = 128, share=None):
     """Quantize a supported model for serving: the DG family ->
     ``QuantizedDG``; csrnet / mcnn / bl / sasnet / dssinet / cctrans ->
     ``QuantizedConvNet``, whose sites with fewer than ``min_ch`` input or
     output channels stay in the serving dtype (MCNN, 48 channels at most,
     keeps none; CCTrans's depthwise PEG, one input channel a group, always).
     The graph carries its family's ``int8_min_batch``. ``calib_frames``: NHWC
-    float frames, normalised."""
+    float frames, normalised. ``share``: how the calibration's absmax
+    readings are shared out on a mesh (``share(calibrate)`` runs it on rank
+    0 and returns its result on every rank: ``parallel/serving.py::
+    MeshCounts.rank0``); None: this process calibrates."""
     from dgvcc_tpu_torch.models.dg import DGModel
 
     if isinstance(model, DGModel):
-        return QuantizedDG.from_model(model, calib_frames, dtype, device)
+        return QuantizedDG.from_model(model, calib_frames, dtype, device, share=share)
     spec = _family_spec(model)
     if spec is None:
         raise ValueError(_WHITENING.format(type(model).__name__))
     fold_fn, fwd_fn, fp_sites = spec
     folded = fold_fn(model)
-    caps = calibrate_graph(folded, fwd_fn, fp_sites, calib_frames, device)
+    caps = _shared(lambda: calibrate_graph(folded, fwd_fn, fp_sites, calib_frames, device),
+                   share)
     scales = {}
     for k, v in caps.items():
         _, _, cin, cout = folded[k]["kernel"].shape

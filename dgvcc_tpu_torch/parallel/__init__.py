@@ -12,6 +12,9 @@ dgvcc_tpu/parallel/ (``mesh.py``, ``tp.py``, ``spatial.py``, ``eval.py``,
     rows, the layers' switch and the spatial step;
   * ``eval.py``: ``ShardedTiledCounter``, the tile batch shared out over
     the ranks;
+  * ``serving.py``: serving on a mesh (``serve.py``'s ``mesh`` / ``shard``,
+    ``--task serve`` under torchrun): the config's serving mesh, the
+    counts' collectives, rank 0's scales and the HTTP leader and followers;
   * ``launch.py``: ranks as spawned processes on one host (the tests and
     ``chip_smoke.py``).
 

@@ -59,7 +59,7 @@ BUCKET_BYTES = 64 * 2**20
 
 def torchrun_command(n: int) -> str:
     return (f"torchrun --nproc_per_node={n} -m dgvcc_tpu_torch --config CONFIG "
-            "--task {train,test,train_test}")
+            "--task {train,test,train_test,serve}")
 
 
 def make_mesh(n: int):

@@ -37,7 +37,11 @@ rows. The port writes that by hand, one process a rank:
 The halo exchange and the mean over ranks are in ``nn/collectives.py``
 (``halo_transport`` names how the rows travel). Other model families, and
 the modes with a loss function of their own, raise (ROADMAP.md, Queue 1
-item 2).
+item 1).
+
+Serving (``serve.py``, ``shard="spatial"``) uses the same switch on the
+eval forward, where the batch norms read their running statistics and need
+no group, and ``shard_graph_height`` on the DG family's int8 graph.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ IMAGE_KEYS = frozenset({"img1", "img2", "frames_u8"})
 STRIDE = 16
 # the modes whose every loss term is a mean over equal shares of the pixels
 MODES = ("simple", "base", "add", "cls", "final")
-UNPORTED = "see ROADMAP.md, Queue 1 item 2 (spatial sharding for the rest)"
+UNPORTED = "see ROADMAP.md, Queue 1 item 1 (spatial sharding for the rest)"
 
 
 def make_spatial_mesh(n: int):
@@ -144,6 +148,26 @@ def shard_height(model: nn.Module, group) -> nn.Module:
             raise NotImplementedError(f"{type(m).__name__} does not shard over rows")
     model.spatial_group = group
     return model
+
+
+def check_spatial_family(model) -> None:
+    """Raise unless ``model`` (a module, or an int8 serving graph) has its
+    rows sharded by ``shard_height`` or ``shard_graph_height``."""
+    from dgvcc_tpu_torch.nn.quant import QuantizedDG
+
+    if not isinstance(model, (DGModel, QuantizedDG)):
+        raise NotImplementedError(f"mesh: {{spatial: N}} for model "
+                                  f"'{type(model).__name__}' is not ported; {UNPORTED}")
+
+
+def shard_graph_height(graph, group):
+    """``shard_height`` for the DG family's int8 serving graph
+    (``nn/quant.py::QuantizedDG``): each site taller than one row takes its
+    halo from the neighbours, and each bilinear upsample its neighbour rows,
+    over ``group`` (None: whole rows again). Returns the graph."""
+    check_spatial_family(graph)
+    graph.spatial_group = group
+    return graph
 
 
 def build_spatial_train_step(model, loss, mode: str, log_para: float, group,

@@ -16,19 +16,36 @@ calibrated on ``calib_frames`` or lazily on the first batch;
 ``quantize="auto"`` keeps both graphs and picks one per dispatch
 (``_prefers_int8``); ``from_artifact`` serves a saved int8 graph
 (``nn/quant_io.py``). The int8 graphs run the hand-written int8 convolution
-(``ops/qconv.py``) through the padded and the tiled path alike. A device
-mesh (``mesh`` / ``shard``) raises ``NotImplementedError`` (ROADMAP.md,
-Queue 1 item 1). It serves every counting family of the port: the DG
-family, the whitening counters, the regressors and the classic baselines
-(a model that predicts at a coarser stride is masked at its own grid); int8
-the DG family and csrnet, mcnn, bl, sasnet, dssinet and cctrans. For the HTTP server
+(``ops/qconv.py``) through the padded and the tiled path alike. It serves
+every counting family of the port: the DG family, the whitening counters,
+the regressors and the classic baselines (a model that predicts at a
+coarser stride is masked at its own grid); int8 the DG family and csrnet,
+mcnn, bl, sasnet, dssinet and cctrans. For the HTTP server
 (``serve_http.py``) a counter keeps ``quantized`` (None: no int8 graph) and
 ``dispatches``, its batches by precision.
+
+On a mesh (``mesh``: the process group of ``parallel/mesh.py::make_mesh``,
+one process a rank; ``parallel/serving.py``) every rank calls the counter
+with the same frames and gets the whole batch's counts back:
+
+  * ``shard="batch"``, every family: the batch is padded with zero frames
+    to a multiple of N and each rank forwards its rows (the tiled path: its
+    frames' tiles); the counts are all-gathered and sliced back to B;
+  * ``shard="spatial"``, the DG family (fp and int8): each frame's height
+    is padded to a multiple of lcm(bucket, 16 N), so that each rank's rows
+    pool to whole rows, and each rank forwards its rows with halo
+    exchanges (``parallel/spatial.py::shard_height``; the int8 graph's
+    sites likewise); the tiled path splits each frame's tiles instead,
+    padded with zero tiles of zero extent. Each rank masks its rows at
+    their global offset and the partial sums are all-reduced.
+
+Rank 0 calibrates an int8 graph and every rank takes its scales.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import os
 from typing import Iterable, Iterator, Optional
@@ -37,8 +54,6 @@ import numpy as np
 import torch
 
 from dgvcc_tpu_torch.core.registry import MODELS
-
-_PARALLEL = "is not ported to dgvcc_tpu_torch yet; see ROADMAP.md, Queue 1 item 1"
 
 # quantize="auto": the smallest dispatch batch at which the int8 graph
 # serves. None: int8 measured faster than bf16 at no batch: DGModel final at
@@ -83,9 +98,11 @@ def upload(array: np.ndarray, device: torch.device, h2d) -> torch.Tensor:
 
 
 class _Pending:
-    """A dispatched batch's counts: a device-to-host copy in flight."""
+    """A dispatched batch's counts: a device-to-host copy in flight, and on
+    a mesh the collective that ``finish`` issues once they are read."""
 
-    def __init__(self, counts: torch.Tensor):
+    def __init__(self, counts: torch.Tensor, finish=None):
+        self.finish = finish
         self.event = None
         if counts.is_cuda:
             self.host = torch.empty(counts.shape, dtype=counts.dtype,
@@ -99,7 +116,8 @@ class _Pending:
     def result(self) -> np.ndarray:
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy().copy()
+        counts = self.host.numpy().copy()
+        return counts if self.finish is None else self.finish(counts)
 
 
 def serving_state_dict(path: str, model: torch.nn.Module):
@@ -141,8 +159,12 @@ class VideoCounter:
         graph folds (``from_checkpoint`` builds one); default ``model``.
         ``quantized``: a built int8 graph (a loaded artifact); with one,
         ``model`` may be None, and then the counter holds no fp weights."""
-        if mesh is not None or shard != "batch":
-            raise NotImplementedError(f"mesh / spatial serving {_PARALLEL}")
+        if shard not in ("batch", "spatial"):
+            raise ValueError(f"shard must be 'batch' or 'spatial', got {shard!r}")
+        if mesh is not None and shard == "spatial":
+            from dgvcc_tpu_torch.parallel.spatial import check_spatial_family
+
+            check_spatial_family(model if model is not None else quantized)
         if quantize not in (False, True, "auto"):
             raise ValueError(f"quantize must be False, True or 'auto'; got {quantize!r}")
         self.auto = quantize == "auto"
@@ -152,8 +174,17 @@ class VideoCounter:
         if model is None and (quantized is None or self.auto):
             raise ValueError("a counter without a model serves a built int8 graph "
                              "(quantized=) under the default quantize")
+        from dgvcc_tpu_torch.parallel.serving import MeshCounts, mesh_geometry
+
+        self.mesh, self.shard = mesh, shard
+        self.n_shards, self.rank = mesh_geometry(mesh)
+        self.comm = None if mesh is None else MeshCounts(mesh)
         self.device = resolve_device(device)
         self.model = None if model is None else model.to(self.device).eval()
+        if self._spatial and self.model is not None:
+            from dgvcc_tpu_torch.parallel.spatial import shard_height
+
+            shard_height(self.model, mesh)
         self._h2d = None
         if self.device.type == "cuda":
             if self.model is not None:
@@ -169,7 +200,7 @@ class VideoCounter:
         self.tile_size = tile_size
         self.tile_threshold = tile_threshold
         self.auto_threshold = auto_threshold
-        self.quantized = quantized
+        self.quantized = None if quantized is None else self._place(quantized)
         self._quant_pending = False
         self._fold_model = None
         self.dispatches = {"fp": 0, "int8": 0}  # batches by precision
@@ -195,18 +226,60 @@ class VideoCounter:
             c = (c.astype(np.float32) / 255.0 - 0.5) / 0.5
         ch, cw = min(c.shape[1], 768), min(c.shape[2], 768)
         c = c[:, :max(ch - ch % 64, 64), :max(cw - cw % 64, 64)]
-        self.quantized = build_quantized(self._fold_model, c, dtype=self.dtype,
-                                         device=self.device)
+        share = None if self.comm is None else self.comm.rank0
+        self.quantized = self._place(build_quantized(self._fold_model, c, dtype=self.dtype,
+                                                     device=self.device, share=share))
         self._quant_pending = False
         self._fold_model = None
 
+    @property
+    def _spatial(self) -> bool:
+        return self.mesh is not None and self.shard == "spatial"
+
+    def _place(self, graph):
+        """An int8 graph as this counter serves it: with its sites' rows
+        sharded on a spatial mesh."""
+        if self._spatial:
+            from dgvcc_tpu_torch.parallel.spatial import shard_graph_height
+
+            shard_graph_height(graph, self.mesh)
+        return graph
+
+    @contextlib.contextmanager
+    def _whole_rows(self):
+        """The model and the int8 graph without their rows sharded, for the
+        whole tiles a spatial rank forwards on the tiled path."""
+        from dgvcc_tpu_torch.parallel.spatial import shard_graph_height, shard_height
+
+        def switch(group):
+            if self.model is not None:
+                shard_height(self.model, group)
+            if self.quantized is not None:
+                shard_graph_height(self.quantized, group)
+
+        switch(None)
+        try:
+            yield
+        finally:
+            switch(self.mesh)
+
+    def _tiled(self, h: int, w: int) -> bool:
+        return bool(self.tile_size) and max(h, w) > self.tile_threshold
+
     def _dispatch_batch(self, frames: np.ndarray) -> int:
-        """The batch of the forward a dispatch runs: its frames, or their
-        tiles."""
+        """The batch of the forward a dispatch runs on each rank: its frames,
+        or their tiles, of this rank's share (dgvcc_tpu/serve.py:277-299)."""
         b, h, w, _ = frames.shape
-        if self.tile_size and max(h, w) > self.tile_threshold:
+        n = self.n_shards
+        if self._tiled(h, w):
             t = self.tile_size
-            return b * math.ceil(h / t) * math.ceil(w / t)
+            n_tiles = math.ceil(h / t) * math.ceil(w / t)
+            if self.shard == "spatial" and n > 1:
+                return b * math.ceil(n_tiles / n)  # each rank its share of the tiles
+            b *= n_tiles
+        if n > 1:
+            # spatial: each rank holds 1/n of every frame's rows
+            b = math.ceil(b / n) if self.shard == "batch" else max(math.ceil(b / n), 1)
         return b
 
     def _family_min_batch(self) -> int:
@@ -300,10 +373,11 @@ class VideoCounter:
         return upload(frames, self.device, self._h2d)
 
     def masked_counts(self, frames_u8: torch.Tensor, vh: torch.Tensor,
-                      vw: torch.Tensor, use_q: bool = False) -> torch.Tensor:
+                      vw: torch.Tensor, use_q: bool = False, row0: int = 0) -> torch.Tensor:
         """(N, H, W, 3) uint8 -> (N,) counts over each element's valid
         extent (vh, vw), divided by log_para; ``use_q``: through the int8
-        graph (NHWC in and out)."""
+        graph (NHWC in and out). ``row0``: the frame row of the first of
+        ``frames_u8``'s rows (a spatial rank's share)."""
         x = frames_u8.permute(0, 3, 1, 2).float() / 255.0
         x = ((x - 0.5) / 0.5).to(self.dtype)  # Normalize(0.5, 0.5)
         if use_q:
@@ -316,15 +390,26 @@ class VideoCounter:
         w_idx = torch.arange(d.shape[3], device=d.device)[None, None, None, :]
         scale_h = d.shape[2] / frames_u8.shape[1]
         scale_w = d.shape[3] / frames_u8.shape[2]
-        mask = ((h_idx < vh[:, None, None, None] * scale_h)
+        mask = ((h_idx + row0 * scale_h < vh[:, None, None, None] * scale_h)
                 & (w_idx < vw[:, None, None, None] * scale_w))
         return (d * mask).sum(dim=(1, 2, 3)) / self.log_para
 
-    def _pad(self, frames: torch.Tensor) -> torch.Tensor:
-        """Zero-pad H and W up to multiples of ``bucket``."""
+    def _padded_hw(self, h: int, w: int):
+        """The bucketed (H, W); on a spatial mesh H is a multiple of
+        lcm(bucket, 16 N), each rank's rows a multiple of the U-Net's
+        deepest stride (the JAX package pads to lcm(bucket, N): ROADMAP.md,
+        Queue 3)."""
+        from dgvcc_tpu_torch.parallel.spatial import STRIDE
+
+        hb = math.lcm(self.bucket, STRIDE * self.n_shards) if self._spatial else self.bucket
+        return math.ceil(h / hb) * hb, math.ceil(w / self.bucket) * self.bucket
+
+    def _pad(self, frames: torch.Tensor, rows=None) -> torch.Tensor:
+        """Zero-pad H and W up to the bucketed shape (``rows``: to that many
+        rows instead)."""
         b, h, w, c = frames.shape
-        bh = math.ceil(h / self.bucket) * self.bucket
-        bw = math.ceil(w / self.bucket) * self.bucket
+        bh, bw = self._padded_hw(h, w)
+        bh = bh if rows is None else rows
         if (bh, bw) == (h, w):
             return frames
         out = frames.new_zeros((b, bh, bw, c))
@@ -348,21 +433,79 @@ class VideoCounter:
         vw = vw[None, :].expand(nh, nw).reshape(-1).repeat(b)
         return tiles, vh, vw
 
-    def _launch(self, frames: np.ndarray) -> _Pending:
-        """Dispatch one batch; the counts come back through a pending copy."""
+    def _rank_tiles(self, frames: np.ndarray):
+        """A spatial rank's share of each frame's tiles, cut on the host so
+        that only they are uploaded: (B*k, t, t, 3) uint8 and each tile's
+        valid extents (vh, vw), (B*k,) each. The tile list (row-major) is
+        padded to a multiple of N with zero tiles of zero extent
+        (dgvcc_tpu/serve.py:513-526)."""
+        b, h, w, c = frames.shape
+        t = self.tile_size
+        nh, nw = math.ceil(h / t), math.ceil(w / t)
+        per = math.ceil(nh * nw / self.n_shards)
+        tiles = np.zeros((b, per, t, t, c), frames.dtype)
+        valid = np.zeros((per, 2), np.int64)
+        for k, i in enumerate(range(self.rank * per, (self.rank + 1) * per)):
+            if i < nh * nw:
+                r0, c0 = (i // nw) * t, (i % nw) * t
+                piece = frames[:, r0:r0 + t, c0:c0 + t]
+                tiles[:, k, :piece.shape[1], :piece.shape[2]] = piece
+                valid[k] = piece.shape[1:3]
+        valid = np.tile(valid, (b, 1))
+        return tiles.reshape((b * per, t, t, c)), valid[:, 0], valid[:, 1]
+
+    def _forward(self, frames: np.ndarray, use_q: bool) -> torch.Tensor:
+        """This rank's counts of a batch: the whole batch's in one process;
+        its frames' on a batch mesh; its partial sums of every frame on a
+        spatial one."""
         b, h, w, _ = frames.shape
+        dev = self.device
+        if self._spatial and self._tiled(h, w):
+            tiles, vh, vw = self._rank_tiles(frames)
+            with self._whole_rows():
+                counts = self.masked_counts(self._to_device(tiles),
+                                            torch.from_numpy(vh).to(dev),
+                                            torch.from_numpy(vw).to(dev), use_q)
+            return counts.reshape(b, -1).sum(1)
+        if self._spatial:
+            rows = self._padded_hw(h, w)[0] // self.n_shards
+            row0 = self.rank * rows
+            mine = frames[:, row0:row0 + rows]
+            x = (self._to_device(mine) if mine.shape[1]
+                 else torch.zeros(mine.shape, dtype=torch.uint8, device=dev))
+            vh = torch.full((b,), h, device=dev)
+            vw = torch.full((b,), w, device=dev)
+            return self.masked_counts(self._pad(x, rows), vh, vw, use_q, row0=row0)
+        x = self._to_device(frames)
+        if self._tiled(h, w):
+            tiles, vh, vw = self._tile(x)
+            return self.masked_counts(tiles, vh, vw, use_q).reshape(b, -1).sum(1)
+        vh = torch.full((b,), h, device=dev)
+        vw = torch.full((b,), w, device=dev)
+        return self.masked_counts(self._pad(x), vh, vw, use_q)
+
+    def _launch(self, frames: np.ndarray) -> _Pending:
+        """Dispatch one batch; the counts come back through a pending copy
+        (on a mesh, and the collective that completes them)."""
+        b = frames.shape[0]
         self._maybe_calibrate(frames)
         use_q = self._select(frames)
+        finish = None
+        if self.mesh is not None and self.shard == "batch":
+            from dgvcc_tpu_torch.parallel.mesh import shard_rows
+
+            n = self.n_shards
+            if b % n:  # zero frames, whose counts are dropped
+                frames = np.concatenate(
+                    [frames, np.zeros((n - b % n,) + frames.shape[1:], frames.dtype)])
+            frames = frames[shard_rows(len(frames), self.rank, n)]
+
+            def finish(counts):
+                return self.comm.gather(counts)[:b]
+        elif self.mesh is not None:
+            finish = self.comm.sum
         with torch.inference_mode():
-            dev = self._to_device(frames)
-            if self.tile_size and max(h, w) > self.tile_threshold:
-                tiles, vh, vw = self._tile(dev)
-                counts = self.masked_counts(tiles, vh, vw, use_q).reshape(b, -1).sum(1)
-            else:
-                vh = torch.full((b,), h, device=dev.device)
-                vw = torch.full((b,), w, device=dev.device)
-                counts = self.masked_counts(self._pad(dev), vh, vw, use_q)
-            return _Pending(counts)
+            return _Pending(self._forward(frames, use_q), finish)
 
     # ---- public API -------------------------------------------------------
 

@@ -29,12 +29,18 @@ no model built, no checkpoint read). Int8 replicas serve an artifact
 (``--quantize [auto]`` with ``--frames``). ``--quantize auto`` with
 ``--artifact`` and ``--quantize`` with neither frames nor an artifact are
 refused here, as the command line refuses them, before any replica starts.
+
+A config whose serving mesh has more than one rank (``mesh`` with
+``serve_shard``, ``parallel/serving.py``) is refused up front too: a replica
+is one process on one card, as the JAX fleet pins one chip a replica;
+serve such a config with ``torchrun`` (``--task serve``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import socket
 import subprocess
@@ -135,6 +141,23 @@ class Replica:
                 self.proc.wait(timeout=10)
 
 
+def check_one_card(config: str) -> None:
+    """Raise unless the config serves in one process: a fleet's replica is
+    one process on one card. A config that is not there is left to the
+    replicas, which report it."""
+    if not os.path.isfile(config):
+        return
+    from dgvcc_tpu_torch.core.config import load_config
+    from dgvcc_tpu_torch.parallel.serving import serving_mesh_size
+
+    n, shard = serving_mesh_size(load_config(config))
+    if n > 1:
+        raise ValueError(f"{config} serves on a mesh of {n} ranks ({shard} sharded); a fleet "
+                         "replica is one process on one card. Drop the mesh key to serve "
+                         "replicas, or serve the mesh with torchrun --nproc_per_node="
+                         f"{n} -m dgvcc_tpu_torch --config {config} --task serve")
+
+
 class FleetServer:
     """Round-robin proxy over replica serving processes. ``device``: the
     replicas' ``--device`` (cuda unless it says cpu); ``devices``: one card
@@ -157,6 +180,7 @@ class FleetServer:
                              "calibration")
         if devices and len(devices) != replicas:
             raise ValueError(f"--devices lists {len(devices)} ids for {replicas} replicas")
+        check_one_card(config)
         self.restart = restart
         self.probe_s = probe_s
         self.request_timeout = request_timeout

@@ -14,6 +14,12 @@ dispatcher thread owns the card. Same-shape frames that arrive within
 ``batch_window`` seconds go to the card as one batch of up to
 ``max_batch`` (``_take_batch``); frames of other shapes stay queued for a
 batch of their own. On shutdown the queued requests fail at once.
+
+On a serving mesh (``parallel/serving.py``) rank 0 runs the server over a
+``Leader``: the dispatcher thread, the only thread that issues collectives,
+sends each batch to the other ranks before counting it with them, and its
+last act is the counter's ``close``, which stops them; ``shutdown`` waits
+for it. ``/stats`` and ``dispatches`` are rank 0's.
 """
 
 from __future__ import annotations
@@ -124,6 +130,14 @@ class CountingServer:
         return batch
 
     def _dispatch_loop(self):
+        try:
+            self._dispatch_until_stopped()
+        finally:
+            close = getattr(self.counter, "close", None)
+            if close is not None:  # a mesh's leader: stop the other ranks
+                close()
+
+    def _dispatch_until_stopped(self):
         while not self._stopping:
             batch = self._take_batch()
             if not batch:
@@ -259,9 +273,15 @@ class CountingServer:
                 signal.signal(sig, h)
 
     def shutdown(self):
+        """Stop serving; a counter with ``close`` (a mesh's leader) is
+        closed by the dispatcher, which this waits for (at most as long as
+        a request waits for its count)."""
         self._stopping = True
         with self._cv:
             self._cv.notify_all()
+        if (getattr(self.counter, "close", None) is not None
+                and threading.current_thread() is not self._dispatcher):
+            self._dispatcher.join(300.0)
         if self._serving:
             # BaseServer.shutdown waits for a serve_forever loop: without
             # one it would wait forever

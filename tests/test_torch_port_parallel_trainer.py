@@ -179,14 +179,18 @@ def test_mesh_data_outside_torchrun_raises_with_the_command(data_root, tmp_path,
     path = _yaml(_dp_cfg(data_root, tmp_path, "x"), tmp_path / "x.yml")
     with pytest.raises(RuntimeError, match="torchrun"):
         main(["--config", path, "--task", "train", "--device", "cpu"])
-    for task in ("vis", "generate", "serve"):
+    for task in ("vis", "generate"):
         with pytest.raises(SystemExit, match=f"--task {task} with mesh"):
             main(["--config", path, "--task", task, "--device", "cpu"])
+    # serving on a mesh is ported: outside torchrun it names the command
+    with pytest.raises(SystemExit, match=r"--task serve: .*torchrun --nproc_per_node=2 .*serve"):
+        main(["--config", path, "--task", "serve", "--frames", str(tmp_path), "--device",
+              "cpu"])
 
 
 @pytest.mark.parametrize("mesh,mode,error,message", [
     ({"model": 2}, "regression", ValueError, "not supported for mode 'regression'"),
-    ({"spatial": 8}, "generation", NotImplementedError, "Queue 1 item 2"),
+    ({"spatial": 8}, "generation", NotImplementedError, "Queue 1 item 1"),
     ({"data": 2, "model": 2}, "discrimination", ValueError,
      "not supported for mode 'discrimination'"),
     ({"data": 2, "spatial": 2}, "final", ValueError, "does not compose"),

@@ -61,11 +61,17 @@ def test_pad_and_tile_geometry():
 
 
 def test_unported_options_raise_with_a_pointer():
-    """A mesh is Queue 1 item 1's; int8 serving is ported (test_torch_port_quant_io.py)
-    and refuses a model it cannot fold, and an artifact that is not there."""
-    for kw in (dict(shard="spatial"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VideoCounter(torch.nn.Identity(), device="cpu", **kw)
+    """Spatial serving of a family other than the DG family is Queue 1 item
+    1's (a mesh is ported: test_torch_port_serve_mesh.py); a mesh that is
+    not a process group and an unknown shard are refused. Int8 serving is
+    ported (test_torch_port_quant_io.py) and refuses a model it cannot fold,
+    and an artifact that is not there."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 1"):
+        VideoCounter(torch.nn.Identity(), device="cpu", mesh=object(), shard="spatial")
+    with pytest.raises(TypeError, match="process group"):
+        VideoCounter(torch.nn.Identity(), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="'batch' or 'spatial'"):
+        VideoCounter(torch.nn.Identity(), device="cpu", shard="bogus")
     for kw in (dict(quantize=True), dict(quantize="auto"), dict(quantize="int4")):
         with pytest.raises(ValueError):
             VideoCounter(torch.nn.Identity(), device="cpu", **kw)

@@ -342,8 +342,8 @@ def test_the_spatial_refusals_raise_in_a_job(key, message, ranks):
     ({"spatial": 2, "data": 2}, "final", ValueError, "does not compose with data/model axes"),
     ({"spatial": 2, "model": 2}, "final", ValueError, "does not compose with data/model axes"),
     ({"spatial": 2}, "joint", ValueError, "not supported for joint mode"),
-    ({"spatial": 2}, "isw", NotImplementedError, "Queue 1 item 2"),
-    ({"spatial": 2}, "regression", NotImplementedError, "Queue 1 item 2")])
+    ({"spatial": 2}, "isw", NotImplementedError, "Queue 1 item 1"),
+    ({"spatial": 2}, "regression", NotImplementedError, "Queue 1 item 1")])
 def test_the_spatial_refusals_of_the_config(mesh, mode, error, message,
                                             data_root, tmp_path):  # noqa: F811
     cfg = Config.from_dict(_cfg(data_root, tmp_path, "x", mesh=mesh, mode=mode))
@@ -352,11 +352,11 @@ def test_the_spatial_refusals_of_the_config(mesh, mode, error, message,
 
 
 def test_the_step_and_the_switch_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         spatial.shard_height(MODELS.build("mcnn"), None)
     model = MODELS.build("final", **PARITY)
     for mode, loss in (("isw", LOSSES.build("mse")), ("final", LOSSES.build("bl"))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
             spatial.build_spatial_train_step(model, loss, mode, 1000.0, None)
 
 

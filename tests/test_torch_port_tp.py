@@ -279,10 +279,15 @@ def test_2d_mesh_outside_torchrun_raises_with_the_command(data_root, tmp_path,  
     with pytest.raises(RuntimeError, match=r"torchrun --nproc_per_node=4 -m dgvcc_tpu_torch"):
         DGTrainer(Config.from_dict(_tp_cfg(data_root, tmp_path, "x")), device="cpu")
     path = _yaml(_tp_cfg(data_root, tmp_path, "x"), tmp_path / "x.yml")
-    for task in ("vis", "generate", "serve"):
+    for task in ("vis", "generate"):
         with pytest.raises(SystemExit, match=re.escape(f"--task {task} with mesh: "
                                                        "{data: 2, model: 2}")):
             main(["--config", path, "--task", task, "--device", "cpu"])
+    # serving on a mesh is ported: the data axis's 2 ranks, as the JAX command
+    # line serves it; outside torchrun it names the command
+    with pytest.raises(SystemExit, match=r"--task serve: .*torchrun --nproc_per_node=2 .*serve"):
+        main(["--config", path, "--task", "serve", "--frames", str(tmp_path), "--device",
+              "cpu"])
 
 
 def test_the_tp_modules_stand_alone():

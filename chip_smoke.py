@@ -252,7 +252,24 @@ Phases, each of which exits non-zero on failure:
    serve_shard: spatial on 4 seeded JPEGs against a fresh one process's
    ``--task serve`` (2e-3 plus the 2 printed decimals). It runs right
    after phase 3, beside mem_attention_train's nvcc build, on a checkpoint,
-   JPEGs, an artifact and HTTP bodies it makes itself.
+   JPEGs, an artifact and HTTP bodies it makes itself;
+17. the convolutional baselines on a spatial mesh (``mesh: {spatial: 2}``
+   set in memory on configs/baselines/sta_{mcnn,csrnet,bl,sasnet,
+   dssinet}.yml; 2 gloo ranks sharing cuda:0; run between phases 12 and
+   13): step 1 at full width on 2 crops of 320^2 (160 rows a rank)
+   against one fresh process, f32 under ``exact_f32`` (loss parts 1e-4,
+   gradients 1e-2 in relative norm) and bf16 (the loss 1e-3, its gradients
+   shown), each rank's peak memory beside one process's; serving 2 frames
+   of 768x1024 with ``shard="spatial"``: bf16 (2e-3), f32 (1e-4, TF32 off)
+   and, for csrnet, bl, sasnet and dssinet, int8 on artifacts the one
+   process calibrated, with the sites below 128 channels on PyTorch's own
+   convolutions on both sides (counts 1e-5, each rank's density rows bit
+   for bit) and as served, on cuDNN (counts 1e-2, the rows' difference
+   shown); ``qconv_int8`` once an int8 site a rank and path, its count set
+   to 0 just before each path; frames/s and the halo exchanges' share; and
+   ``torchrun --task train_test`` of sta_bl.yml with mesh: {spatial: 2} on
+   phase 6's files beside the one process, whose test MAE phase 13 holds
+   against a fresh process's ``--task test`` (1e-4).
 
 Each phase's seconds and the total are printed before the result lines.
 The line before the last is a JSON object with one entry per kernel; the
@@ -2439,13 +2456,14 @@ TOL_BASELINE_COUNTS = 2e-2          # bf16 vs f32 counts, relative to the map's 
 TOL_BASELINE_FAMILY = {"dssinet": 5e-2}
 
 
-def baseline_batch(cfg, seed):
-    """A repeated B=8 batch of 320^2 crops for a baseline config: the image,
-    and either the density map summed to the config's stride (MSE) or, for
-    the Bayesian loss, 20-200 head points a crop in padded form with their
-    targets and crop sizes (the bay collate's)."""
+def baseline_batch(cfg, seed, b=None):
+    """A repeated batch of 320^2 crops for a baseline config (B: the
+    config's, 8, unless ``b``): the image, and either the density map
+    summed to the config's stride (MSE) or, for the Bayesian loss, 20-200
+    head points a crop in padded form with their targets and crop sizes
+    (the bay collate's)."""
     ds = cfg.train_dataset["params"]
-    b = cfg.train_loader["batch_size"]
+    b = b or cfg.train_loader["batch_size"]
     full = synthetic_batch(seed, b=b)
     batch = {"img1": full["img1"]}
     if cfg.loss["name"] != "bl":
@@ -4886,6 +4904,302 @@ def _mesh_serve_phase(counter, gpu, tmp):
     return launches
 
 
+# ---- phase 17: the convolutional baselines on a spatial mesh -------------------
+BS_RANKS = 2                        # gloo ranks sharing cuda:0, as phase 16's
+BS_FAMILIES = ("mcnn", "csrnet", "bl", "sasnet", "dssinet")
+BS_INT8 = ("csrnet", "bl", "sasnet", "dssinet")     # mcnn has no site of 128 channels
+BS_B = 2                            # train crops of TRAIN_CROP^2: 160 rows a rank
+BS_SERVE_B = 2                      # serving frames of FRAME: 384 rows a rank
+BS_SEED = 17
+BS_TIMED = 3                        # count_frames calls a rank times for frames/s
+TOL_BS_F32 = (1e-4, 1e-2)           # f32 step 1 vs one process: loss parts, relative;
+#                                     gradients, relative norm (phase 13's f32 gates)
+TOL_BS_BF16 = 1e-3                  # bf16 step 1: the loss, relative (its gradients shown)
+TOL_BS_SERVE = {"bf16": 2e-3, "f32": 1e-4, "int8": 1e-5,   # counts vs one process
+                # int8 as served (cuDNN's plans for the sites below 128 channels): 3x the
+                # first reading of that path (dssinet 3.2e-3 on an H100 80GB HBM3, 700 W),
+                # 10x bf16's largest on the same plans (dssinet 9.78e-4)
+                "int8 cudnn": 1e-2}
+
+
+def bs_train(name, group=None, rank=0):
+    """Step 1 of configs/baselines/sta_{name}.yml at full width, seeded, on
+    BS_B crops of TRAIN_CROP^2 (``baseline_batch``), in f32 (``exact_f32``)
+    and in the config's bf16 with f32 master weights: over ``group``'s rows
+    of the crops (mode simple, MSE or the Bayesian loss on the rank's rows)
+    or in one process. Each dtype's metrics (averaged over the ranks),
+    gradients (rank 0's, the ranks' mean) and peak memory."""
+    import torch.distributed as dist
+
+    import dgvcc_tpu_torch.losses  # noqa: F401
+    import dgvcc_tpu_torch.models  # noqa: F401
+    from dgvcc_tpu_torch.core.config import load_config
+    from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+    from dgvcc_tpu_torch.parallel import mesh, spatial
+    from dgvcc_tpu_torch.train.state import create_train_state
+    from dgvcc_tpu_torch.train.steps import build_train_step
+
+    cfg = load_config(os.path.join(ROOT, "configs", "baselines", f"sta_{name}.yml"))
+    out = {}
+    for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with exact_f32(dtype == torch.float32):
+            model = MODELS.build(name, dtype=dtype, **cfg.model.get("params", {}))
+            model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+            loss = LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
+            batch = baseline_batch(cfg, BS_SEED, b=BS_B)
+            if group is not None:
+                spatial.shard_height(model, group)
+                batch = spatial.shard_batch_spatial(batch, rank, dist.get_world_size(group),
+                                                    dim=2)
+            state = create_train_state(model, cfg.optimizer, cfg.scheduler)
+            step = (build_train_step(model, loss, cfg.mode, cfg.log_para) if group is None
+                    else spatial.build_spatial_train_step(model, loss, cfg.mode, cfg.log_para,
+                                                          group))
+            torch.cuda.reset_peak_memory_stats()
+            _, metrics = step(state, batch, None, 0)
+            if group is not None:
+                metrics = mesh.average_metrics(metrics, group)
+            out[key] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if rank == 0:
+                out[key]["grads"] = _grads(model)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def bs_counters(name, spec, mesh=None):
+    """A family's serving paths, label -> a function that makes its
+    counter: bf16 and f32 from its seeded checkpoint, int8 from its
+    artifact; sharded over ``mesh``'s rows, or in one process."""
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    kw = {} if mesh is None else {"mesh": mesh, "shard": "spatial"}
+    ckpt = spec["ckpts"][name]
+    paths = {"bf16": lambda: VideoCounter.from_checkpoint(name, ckpt, **kw),
+             "f32": lambda: VideoCounter.from_checkpoint(name, ckpt, dtype=torch.float32,
+                                                         **kw)}
+    if name in BS_INT8:
+        paths["int8"] = paths["int8 cudnn"] = lambda: VideoCounter.from_artifact(
+            spec["artifacts"][name], **kw)
+    return paths
+
+
+def bs_serve(name, spec, mesh=None, rank=0):
+    """A family's counts on each path, its launches of qconv_int8 (counts set
+    to 0 just before each), bf16 frames/s, and the int8 graph's density on
+    this rank's rows of the frames. f32 runs with TF32 off. int8 runs twice:
+    with the sites below 128 channels on PyTorch's own convolutions
+    (``exact_f32``), where a rank's rows must equal one process's bit for
+    bit, and as served ("int8 cudnn"), where cuDNN's bf16 plans differ
+    between a rank's haloed rows and the whole frame and an int8 site whose
+    input moves by a rounding quantizes a step apart (on an H100 80GB HBM3:
+    5 of csrnet's density pixels one bf16 step apart, dssinet's counts
+    3.2e-3)."""
+    from dgvcc_tpu_torch.ops import qconv as qc
+
+    frames, world = spec["frames"], 1 if mesh is None else BS_RANKS
+    rows = FRAME[0] // world
+    out = {"counts": {}, "launches": {}}
+    exact = {"bf16": contextlib.nullcontext, "f32": tf32_off, "int8": exact_f32,
+             "int8 cudnn": contextlib.nullcontext}
+    for label, build in bs_counters(name, spec, mesh).items():
+        with exact[label]():
+            c = build()
+            qc.LAUNCHES = 0
+            out["counts"][label] = c.count_frames(frames)
+            out["launches"][label] = qc.LAUNCHES
+        if label.startswith("int8"):
+            out["int8_sites"] = len(c.quantized.int8_sites())
+            with torch.inference_mode(), exact[label]():
+                x = torch.from_numpy(frames[:, rank * rows:(rank + 1) * rows]).cuda()
+                out.setdefault("int8_rows", {})[label] = c.quantized(
+                    ((x.float() / 255.0 - 0.5) / 0.5).to(c.quantized.dtype)).float().cpu()
+        if label == "bf16":
+            out["fps"] = bs_fps(c, frames, mesh)
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
+def bs_fps(counter, frames, mesh):
+    """frames/s of BS_TIMED count_frames calls; on a mesh also the halo
+    exchanges' milliseconds a call and their share of a clocked call."""
+    import torch.distributed as dist
+
+    from dgvcc_tpu_torch.nn import collectives
+
+    def calls():
+        if mesh is not None:
+            dist.barrier()
+        counter.count_frames(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BS_TIMED):
+            counter.count_frames(frames)
+        return time.perf_counter() - t0
+
+    out = {"fps": len(frames) * BS_TIMED / calls()}
+    if mesh is None:
+        return out
+    swap, clock = collectives._swap, [0.0, 0]
+
+    def clocked(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = swap(*args)
+        torch.cuda.synchronize()
+        clock[0] += time.perf_counter() - t0
+        clock[1] += 1
+        return got
+
+    collectives._swap = clocked
+    try:
+        s = calls()
+    finally:
+        collectives._swap = swap
+    out.update(halo_ms=1e3 * clock[0] / BS_TIMED, halo_share=clock[0] / s,
+               halo_calls=clock[1] // BS_TIMED)
+    return out
+
+
+def bs_rank(rank, workdir):
+    """Phase 17's ranks (gloo on cuda:0): each family's spatial train step 1
+    and its spatial serving paths. Writes ``workdir/rank{rank}.pt``."""
+    from dgvcc_tpu_torch.nn import collectives
+    from dgvcc_tpu_torch.parallel import spatial
+
+    torch.cuda.set_device(0)
+    spec = torch.load(os.path.join(workdir, "spec.pt"), weights_only=False)
+    group = spatial.make_spatial_mesh(BS_RANKS)
+    out = {"transport": collectives.halo_transport(group, "cuda"), "train": {}, "serve": {}}
+    with no_autotune():
+        for name in BS_FAMILIES:
+            out["train"][name] = bs_train(name, group, rank)
+        for name in BS_FAMILIES:
+            out["serve"][name] = bs_serve(name, spec, group, rank)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def bs_reference(rank, workdir):
+    """Phase 17's one process (fresh, as the ranks are): each family's
+    seeded f32 checkpoint and int8 artifact (calibrated on the frames),
+    then its step 1 and serving paths. Writes ``workdir/reference.pt``."""
+    from dgvcc_tpu_torch.nn.quant_io import save_quantized
+    from dgvcc_tpu_torch.serve import VideoCounter
+
+    torch.cuda.set_device(0)
+    spec = torch.load(os.path.join(workdir, "spec.pt"), weights_only=False)
+    spec["ckpts"], spec["artifacts"] = {}, {}
+    for i, name in enumerate(BS_FAMILIES):
+        model = VideoCounter.from_checkpoint(name, None, dtype=torch.float32,
+                                             seed=BS_SEED + i).model
+        path = os.path.join(workdir, f"{name}.pth")
+        torch.save(model.state_dict(), path)
+        spec["ckpts"][name] = path
+        if name in BS_INT8:
+            with no_autotune():
+                q = VideoCounter.from_checkpoint(name, path, quantize=True,
+                                                 calib_frames=spec["frames"]).quantized
+            spec["artifacts"][name] = os.path.join(workdir, f"{name}.int8")
+            save_quantized(q, spec["artifacts"][name], name, {})
+        del model
+    torch.save(spec, os.path.join(workdir, "spec.pt"))
+    out = {"train": {}, "serve": {}}
+    with no_autotune():
+        for name in BS_FAMILIES:
+            out["train"][name] = bs_train(name)
+        for name in BS_FAMILIES:
+            out["serve"][name] = bs_serve(name, spec)
+    torch.save(out, os.path.join(workdir, "reference.pt"))
+
+
+def spatial_baselines_phase(tmp, gpu):
+    """Phase 17: mcnn, csrnet, bl, sasnet and dssinet with their crop's
+    height sharded over BS_RANKS gloo ranks sharing cuda:0 (``mesh:
+    {spatial: 2}`` on configs/baselines/sta_*.yml, set in memory). Step 1
+    at full width on BS_B crops of 320^2 (160 rows a rank) against one
+    fresh process: f32 loss parts and gradients, bf16 loss (its gradients
+    shown), each rank's peak memory beside one process's. Serving at
+    BS_SERVE_B x 768x1024 with shard="spatial": bf16, f32 and int8 counts
+    against one process (int8: csrnet, bl, sasnet, dssinet, under exact_f32
+    with the density rows bit for bit, and as served on cuDNN; qconv_int8
+    launched once an int8 site a rank and path),
+    frames/s and the halo's share of a call. And torchrun ``--task
+    train_test`` of sta_bl.yml with mesh: {spatial: 2} on phase 6's files
+    (beside the one process, untimed), whose test MAE phase 13 holds
+    against a fresh process. Returns (launches, the pending test)."""
+    from dgvcc_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    line = ("Spatial parallel over 2 devices (crop height sharded, halo exchange by send/recv "
+            "over torch.distributed)")
+    work = tempfile.mkdtemp(prefix="bs_", dir=tmp)
+    frames = np.random.default_rng(BS_SEED).integers(0, 256, (BS_SERVE_B,) + FRAME + (3,),
+                                                     dtype=np.uint8)
+    torch.save({"frames": frames}, os.path.join(work, "spec.pt"))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(mesh_files_run, tmp, "spatial bl", "baselines/sta_bl", BS_RANKS,
+                          False, lambda raw: raw.update(mesh={"spatial": BS_RANKS},
+                                                        version="sta_bl_spatial"), 4, 0, 0,
+                          line)
+        run_ranks(bs_reference, 1, (work,), init_file=os.path.join(work, "init_ref"),
+                  timeout=600, threads=4)
+        cli_launches, pending = cli.result()
+    ref = torch.load(os.path.join(work, "reference.pt"), weights_only=False)
+    log(f"spatial baselines: one process's steps and serving, and torchrun bl, "
+        f"{time.perf_counter() - t0:.1f}s into phase 17")
+    run_ranks(bs_rank, BS_RANKS, (work,), init_file=os.path.join(work, "init"), timeout=600)
+    outs = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(BS_RANKS)]
+    log(f"spatial baselines: {BS_RANKS} ranks, halo rows by {outs[0]['transport']}; "
+        f"{time.perf_counter() - t0:.1f}s into phase 17")
+    for name in BS_FAMILIES:
+        got, want = outs[0]["train"][name], ref["train"][name]
+        label = f"spatial {name} B={BS_B} {TRAIN_CROP}^2 ({TRAIN_CROP // BS_RANKS} rows a rank)"
+        hold_step1(f"{label} f32", got["f32"], want["f32"], TOL_BS_F32)
+        hold_step1(f"{label} bf16", got["bf16"], want["bf16"], (TOL_BS_BF16, None))
+        log(f"{label}: peak memory per rank (f32, bf16) "
+            f"{max(o['train'][name]['f32']['peak_gib'] for o in outs):.3f}, "
+            f"{max(o['train'][name]['bf16']['peak_gib'] for o in outs):.3f} GiB against one "
+            f"process's {want['f32']['peak_gib']:.3f}, {want['bf16']['peak_gib']:.3f} GiB "
+            f"[{gpu}]")
+    launches = 0
+    for name in BS_FAMILIES:
+        want = ref["serve"][name]
+        for r, o in enumerate(outs):
+            got = o["serve"][name]
+            for label, counts in got["counts"].items():
+                _ms_close(f"spatial {name} rank {r} {label} B={BS_SERVE_B}", counts,
+                          want["counts"][label], TOL_BS_SERVE[label])
+            n8, n_sites = got["launches"], got.get("int8_sites", 0)
+            if any(n8[k] != (n_sites if k.startswith("int8") else 0) for k in n8):
+                fail(f"spatial {name} rank {r}: qconv_int8 launched {n8}; once an int8 site "
+                     f"({n_sites}) on the int8 paths, never on bf16 / f32")
+            launches += sum(n8.values())
+            for label, rows in got.get("int8_rows", {}).items():  # at the family's stride
+                h = rows.shape[1]
+                diff = (rows - want["int8_rows"][label][:, r * h:(r + 1) * h]).abs()
+                log(f"spatial {name} rank {r} {label}: density rows against one process's: "
+                    f"max |diff| {float(diff.max()):.3e} at {int((diff > 0).sum())} of "
+                    f"{diff.numel()} pixels")
+                if label == "int8" and diff.max() > 0:
+                    fail(f"spatial {name} rank {r}: the int8 graph's density rows differ from "
+                         "one process's under exact_f32")
+            f = got["fps"]
+            log(f"spatial {name} rank {r} bf16 B={BS_SERVE_B} 768x1024: {f['fps']:.2f} "
+                f"frames/s (one process {want['fps']['fps']:.2f}); the {f['halo_calls']} halo "
+                f"exchanges a call {f['halo_ms']:.2f} ms = {f['halo_share']:.3f} of a clocked "
+                f"call [{gpu}]")
+        if name in BS_INT8:
+            log(f"spatial {name} int8: each rank's density rows bit for bit against one "
+                f"process's under exact_f32 ({tuple(want['int8_rows']['int8'].shape)}); "
+                f"{outs[0]['serve'][name]['int8_sites']} qconv_int8 launches a rank and path")
+    if not launches:
+        fail("spatial baselines: qconv_int8 never launched")
+    return {"qconv_int8": launches, **cli_launches}, pending
+
+
 def log_build(logs, t0):
     for name, text in logs.items():
         for line in text.splitlines():
@@ -5163,9 +5477,14 @@ def main():
         _, dp_launches, dp_test = dp_phase(mt, tmp, gpu)
         phase_done("12 (data parallel)", t_phase)
 
+        # ---- 17. the convolutional baselines on a spatial mesh -----------------
+        t_phase = time.perf_counter()
+        bs_launches, bs_test = spatial_baselines_phase(tmp, gpu)
+        phase_done("17 (convolutional baselines on a spatial mesh)", t_phase)
+
         # ---- 13. the bank over a 2-D mesh, the crop's height over 8 ranks -----
         t_phase = time.perf_counter()
-        _, mesh_launches = mesh_phase(tmp, gpu, [dp_test])
+        _, mesh_launches = mesh_phase(tmp, gpu, [dp_test, bs_test])
         phase_done("13 (2-D mesh and spatial)", t_phase)
 
         # ---- 14. int8 serving: final, its artifact, HTTP, the conv families ----
@@ -5200,7 +5519,8 @@ def main():
                "2-D mesh and spatial ranks (phase 13)": mesh_launches,
                **{f"{k} (phase 14)": n for k, n in int8_launches.items()},
                **{f"{k} (phase 15)": n for k, n in aot_launches.items()},
-               "serving mesh ranks (phase 16)": mesh_serve_launches}
+               "serving mesh ranks (phase 16)": mesh_serve_launches,
+               "spatial baselines (phase 17)": bs_launches}
 
     def total(name):
         return sum(n.get(name, 0) for n in by_path.values())

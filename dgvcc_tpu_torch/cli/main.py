@@ -37,8 +37,9 @@ model axis, ``mesh: {spatial: N}`` with the crop's height sharded. Rank r
 takes ``cuda:{LOCAL_RANK}`` and NCCL; ``--device cpu`` takes gloo, and
 ``--dist-backend gloo`` lets ranks share a card (NCCL with more local ranks
 than cards raises). Outside torchrun, or with another number of ranks, it
-raises; ``vis``, ``generate``, ``quantize``, ``aot`` and ``export`` run in
-one process and refuse a mesh.
+raises. ``vis``, ``generate``, ``quantize`` and ``export`` run in one
+process on such a config, the mesh ignored (a console line says so), as
+the JAX command line runs them; ``aot`` refuses a mesh.
 
 ``--task serve`` serves on a mesh of N ranks under ``torchrun
 --nproc_per_node=N`` (``parallel/serving.py``), N by the JAX command
@@ -382,10 +383,16 @@ def run(config_path: str, task: str, frames: str = None, batch: int = 4,
     if task == "serve":
         return _serve_task(cfg, frames, batch, config_device(cfg, device), http, quantize,
                            artifact, aot, block, dist_backend)
-    if axes and task in ("vis", "generate", "quantize", "aot", "export"):
-        mesh = ", ".join(f"{a}: {n}" for a, n in axes.items())
-        raise SystemExit(f"--task {task} with mesh: {{{mesh}}}: it runs in one process on "
+    mesh = ", ".join(f"{a}: {n}" for a, n in axes.items())
+    if axes and task == "aot":
+        raise SystemExit(f"--task aot with mesh: {{{mesh}}}: it runs in one process on "
                          "one card; drop the mesh key for it")
+    if axes and task in ("vis", "generate", "quantize", "export"):
+        # what these write does not depend on the mesh (the JAX command line
+        # runs them on such a config too)
+        print(f"[mesh] --task {task} runs in one process on one card: mesh: {{{mesh}}} "
+              "is ignored for it", flush=True)
+        cfg.mesh = {}
     if task == "quantize":
         return _quantize(cfg, frames, out, config_device(cfg, device))
     if task == "aot":

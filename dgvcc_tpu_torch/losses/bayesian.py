@@ -19,36 +19,45 @@ prediction whose side does not divide ``c_size`` raises. The JAX loss
 defaults ``stride: 1`` instead, which fails on any stride-8 model (ROADMAP.md,
 Queue 3). The posterior is float32 and takes no gradient; the loss's
 gradient reaches the prediction only.
+
+On a rank's rows of the crop (``over_rows``, ``mesh: {spatial: N}``) the
+cell centres carry the rank's row offset, each cell's posterior is its own,
+and each point's expected count, the background's and a pointless image's
+sum of the density are summed over the group (``sum_over_ranks``, whose
+backward sums too): every rank computes the one-process loss.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from dgvcc_tpu_torch.core.registry import LOSSES
+from dgvcc_tpu_torch.nn.collectives import sum_over_ranks
 
 NEG = -1e30
 
 
-def _posterior(points, mask, st_sizes, cood, sigma, bg_ratio, use_bg):
-    """(B, N + 1, C * C): each cell's distribution over the points and the
+def _posterior(points, mask, st_sizes, cood_y, cood_x, sigma, bg_ratio, use_bg):
+    """(B, N + 1, R * C): each cell's distribution over the points and the
     background row (last; all zero without ``use_bg``). points (B, N, 2) xy,
-    mask (B, N), cood (C,) cell centres."""
+    mask (B, N), cood_y (R,) and cood_x (C,) the cells' centres."""
     b, n, _ = points.shape
-    c = cood.shape[0]
-    x_dis = (points[..., 0:1] - cood) ** 2                       # (B, N, C)
-    y_dis = (points[..., 1:2] - cood) ** 2
-    dis = (y_dis[..., :, None] + x_dis[..., None, :]).reshape(b, n, c * c)
+    c = cood_y.shape[0] * cood_x.shape[0]
+    x_dis = (points[..., 0:1] - cood_x) ** 2                     # (B, N, C)
+    y_dis = (points[..., 1:2] - cood_y) ** 2                     # (B, N, R)
+    dis = (y_dis[..., :, None] + x_dis[..., None, :]).reshape(b, n, c)
     logits = torch.where(mask[..., None], -dis / (2.0 * sigma ** 2), NEG)
     if use_bg:
         min_dis = torch.where(mask[..., None], dis, -NEG).amin(dim=1, keepdim=True).clamp(min=0)
         bg = -(st_sizes[:, None, None] * bg_ratio - torch.sqrt(min_dis)) ** 2 / (2.0 * sigma ** 2)
         bg = torch.where(mask.any(dim=1)[:, None, None], bg, NEG)
     else:
-        bg = torch.full((b, 1, c * c), NEG, device=points.device)
+        bg = torch.full((b, 1, c), NEG, device=points.device)
     logits = torch.cat([logits, bg], dim=1)
     m = logits.amax(dim=1, keepdim=True)
     e = torch.exp(logits - m.clamp(min=NEG / 2))
@@ -84,10 +93,18 @@ class BayesianLoss:
     use_background: bool = True
 
     kind = "bl"
+    # the spatial group whose ranks hold the prediction's rows (over_rows)
+    group = None
 
     def __post_init__(self):
         if self.stride is not None and self.c_size % self.stride:
             raise ValueError(f"bl: stride {self.stride} does not divide c_size {self.c_size}")
+
+    def over_rows(self, group) -> "BayesianLoss":
+        """This loss on a rank's rows of the crop, over ``group``."""
+        loss = copy.copy(self)
+        loss.group = group
+        return loss
 
     def stride_for(self, h: int) -> int:
         """The stride of a prediction with ``h`` rows on the crop."""
@@ -104,17 +121,25 @@ class BayesianLoss:
 
     def __call__(self, points, masks, targets, st_sizes, pred):
         b, _, h, w = pred.shape
-        if h != w:
-            raise ValueError(f"bl: the prediction is {h}x{w}, not the square crop's")
-        stride = self.stride_for(h)
+        g = self.group
+        world, rank = (1, 0) if g is None else (dist.get_world_size(g), dist.get_rank(g))
+        if h * world != w:
+            raise ValueError(f"bl: the prediction is {h * world}x{w}, not the square crop's")
+        stride = self.stride_for(w)
         dev = pred.device
         cood = torch.arange(0, self.c_size, stride, dtype=torch.float32, device=dev) + stride / 2.0
         mask = masks.bool()
         with torch.no_grad():
-            prob = _posterior(points.float(), mask, st_sizes.float(), cood, self.sigma,
+            prob = _posterior(points.float(), mask, st_sizes.float(),
+                              cood[rank * h:(rank + 1) * h], cood, self.sigma,
                               self.background_ratio, self.use_background)
         den = pred.float().reshape(b, -1)
         expected = torch.einsum("bnp,bp->bn", prob, den)                # (B, N + 1)
+        total = den.sum(dim=1)
+        if g is not None:
+            expected, total = sum_over_ranks(torch.cat([expected, total[:, None]], dim=1),
+                                             g).split([expected.shape[1], 1], dim=1)
+            total = total[:, 0]
         n_pts = mask.sum(dim=1)
         row = torch.arange(expected.shape[1], device=dev)[None]
         tgt = torch.cat([targets.float(), torch.zeros(b, 1, device=dev)], dim=1)
@@ -129,7 +154,7 @@ class BayesianLoss:
             expected = torch.where(row < n_pts[:, None], expected, 0.0)
             count = n_pts
         loss = _trimmed_l1((tgt - expected).abs(), count)
-        loss = torch.where(n_pts == 0, den.sum(dim=1).abs(), loss)
+        loss = torch.where(n_pts == 0, total.abs(), loss)
         return loss.mean()
 
 

@@ -21,6 +21,10 @@ from dgvcc_tpu_torch.nn.vgg import VGG19_CFG, VGGFeatures
 @MODELS.register("bl")
 class BLVGG(nn.Module):
     flax_layout = "bl"
+    # mesh: {spatial: N}: VGG19's four pools (parallel/spatial.py); the x2
+    # upsample reads the rows around a rank's own
+    row_rule = 16
+    spatial_group = None
 
     def __init__(self, pretrained: bool = False, batch_norm: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -36,7 +40,7 @@ class BLVGG(nn.Module):
     def forward(self, x, generator=None):
         """``generator``: the dropout stream of the trainer's steps (no dropout here)."""
         y = self.features(x)
-        y = resize_bilinear_ac(y, (2 * y.shape[2], 2 * y.shape[3]))
+        y = resize_bilinear_ac(y, (2 * y.shape[2], 2 * y.shape[3]), self.spatial_group)
         return self.reg_layer(y).abs()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

@@ -36,6 +36,9 @@ def conv_stack(cfg: Sequence, in_ch: int, dilation: int = 1,
 @MODELS.register("csrnet")
 class CSRNet(nn.Module):
     flax_layout = "csrnet"
+    # mesh: {spatial: N}: the front end's three pools (parallel/spatial.py)
+    row_rule = 8
+    spatial_group = None
 
     def __init__(self, pretrained: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()

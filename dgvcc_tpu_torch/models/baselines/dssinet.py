@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from dgvcc_tpu_torch.core.registry import MODELS
-from dgvcc_tpu_torch.nn.layers import Conv2d, ConvBlock, PReLU, he_normal_, upsample
+from dgvcc_tpu_torch.nn.layers import (Conv2d, ConvBlock, PReLU, he_normal_, resize_bilinear,
+                                       upsample)
 
 # (convs, PReLUs between them) of each front-end stage, make_layers names
 STAGES = ((("0", "2"), ("relu1",)), (("5", "7"), ("relu6",)),
@@ -96,14 +97,14 @@ def conv_bias(cin, cout, k, relu=False, dtype=torch.float32):
     return ConvBlock(cin, cout, k, padding=k // 2, relu=relu, dtype=dtype, bias=True)
 
 
-def _resize(x, hw):
-    return F.interpolate(x, size=hw, mode="bilinear", align_corners=False, antialias=False)
-
-
 @MODELS.register("dssinet")
 class DSSINet(nn.Module):
     flax_layout = "dssinet"
     reference_unused = ("front_end.features.relu8.", "front_end.features.relu15.")
+    # mesh: {spatial: N}: the x0.5 level's three pools (parallel/spatial.py);
+    # the pyramid's resizes and the decoder's upsamples read neighbour rows
+    row_rule = 16
+    spatial_group = None
 
     def __init__(self, pretrained: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -123,8 +124,9 @@ class DSSINet(nn.Module):
     def forward(self, x, generator=None):
         """``generator``: the dropout stream of the trainer's steps (no dropout here)."""
         h, w = x.shape[2:]
+        g = self.spatial_group
         fe = self.front_end
-        s1, s3 = _resize(x, (2 * h, 2 * w)), _resize(x, (h // 2, w // 2))
+        s1, s3 = resize_bilinear(x, (2 * h, 2 * w), g), resize_bilinear(x, (h // 2, w // 2), g)
         feat = fe.features
 
         f1_c2 = fe.stage(1, feat["relu3"](fe.stage(0, s1)))
@@ -147,8 +149,9 @@ class DSSINet(nn.Module):
         dens = self.prelu(self.decoder1(f3_c4))
         for k, agg in zip((2, 3, 4), (agg1, agg2, agg3)):
             dens = self.prelu(getattr(self, f"decoder{k}")(agg)
-                              + getattr(self, f"passing_weight{k - 1}")(upsample(dens, 2)))
-        return F.relu(self.decoder5(agg4) + self.passing_weight4(upsample(dens, 2)))
+                              + getattr(self, f"passing_weight{k - 1}")(
+                                  upsample(dens, 2, group=g)))
+        return F.relu(self.decoder5(agg4) + self.passing_weight4(upsample(dens, 2, group=g)))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         he_normal_(self, generator)

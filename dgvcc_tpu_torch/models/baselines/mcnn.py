@@ -30,6 +30,10 @@ def _column(chans, ksizes, dtype):
 @MODELS.register("mcnn")
 class MCNN(nn.Module):
     flax_layout = "mcnn"
+    # mesh: {spatial: N}: a rank's rows pool to whole rows through the two
+    # pools (parallel/spatial.py); the convolutions take their halos
+    row_rule = 4
+    spatial_group = None
 
     def __init__(self, pretrained: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()

@@ -20,6 +20,7 @@ Keys: the reference's: ``features{1-5}.{i}`` (local indices of vgg16_bn
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -28,7 +29,7 @@ from torch import nn
 
 from dgvcc_tpu_torch.core.registry import MODELS
 from dgvcc_tpu_torch.models.baselines.dssinet import conv_bias
-from dgvcc_tpu_torch.nn.layers import Conv2d, he_normal_, resize_bilinear_ac
+from dgvcc_tpu_torch.nn.layers import BatchNorm2d, Conv2d, he_normal_, resize_bilinear_ac
 from dgvcc_tpu_torch.nn.vgg import VGG16_CFG, VGGFeatures
 
 SPLITS = ((0, 6), (6, 13), (13, 23), (23, 33), (33, 43))
@@ -38,13 +39,27 @@ DECODER = ((512, 1024, 512), (1024, 512, 256), (512, 256, 128), (256, 128, 64),
 CONF_MID = (256, 128, 64, 32, 32)
 
 
+def row_rule(block_size: int) -> int:
+    """mesh: {spatial: N}: a rank's rows pool to whole rows through the four
+    pools and hold whole ``block_size`` cells (parallel/spatial.py)."""
+    return math.lcm(16, block_size)
+
+
+def check_shard_rows(h: int, block_size: int) -> None:
+    """Raises unless a rank's ``h`` rows meet ``row_rule`` (the model's
+    forward and its int8 graph's, nn/quant.py::sasnet_forward)."""
+    if h % row_rule(block_size):
+        raise ValueError(f"sasnet: a rank's {h} rows split a {block_size}-row cell or a "
+                         f"pooled row; shard rows in multiples of {row_rule(block_size)}")
+
+
 class BasicConv(nn.Module):
     """conv (no bias) -> BN (eps 1e-3) -> ReLU."""
 
     def __init__(self, cin, cout, k, dtype):
         super().__init__()
         self.conv = Conv2d(cin, cout, k, padding=k // 2, bias=False, dtype=dtype)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.1)
+        self.bn = BatchNorm2d(cout, eps=1e-3, momentum=0.1)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -79,6 +94,7 @@ def resize_nearest(x, hw):
 @MODELS.register("sasnet")
 class SASNet(nn.Module):
     flax_layout = "sasnet"
+    spatial_group = None
 
     def __init__(self, pretrained: bool = False, block_size: int = 32,
                  dtype: torch.dtype = torch.float32):
@@ -97,9 +113,19 @@ class SASNet(nn.Module):
                 conv_bias(CONF_MID[5 - n], 1, 1, dtype=dtype)))
         self.reset_parameters()
 
+    @property
+    def row_rule(self) -> int:
+        return row_rule(self.block_size)
+
     def forward(self, x, generator=None):
-        """``generator``: the dropout stream of the trainer's steps (no dropout here)."""
+        """``generator``: the dropout stream of the trainer's steps (no dropout here).
+        On a rank's rows (``spatial_group``) the decoder's resizes read the
+        neighbour rows; the cells' pooling and the heads' repeats are the
+        rank's own while no cell straddles two ranks."""
         h, w = x.shape[2:]
+        g = self.spatial_group
+        if g is not None:
+            check_shard_rows(h, self.block_size)
         feats = []
         for k in range(1, 6):
             x = getattr(self, f"features{k}")(x)
@@ -108,7 +134,7 @@ class SASNet(nn.Module):
         outs = [y]
         for n in (4, 3, 2, 1):
             skip = feats[n - 1]
-            y = resize_bilinear_ac(y, skip.shape[2:])
+            y = resize_bilinear_ac(y, skip.shape[2:], g)
             y = getattr(self, f"de_pred{n}")(torch.cat([skip, y], dim=1))
             outs.append(y)
         full = feats[0].shape[2:]

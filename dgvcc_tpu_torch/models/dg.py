@@ -201,6 +201,10 @@ class DGModel(nn.Module):
     three encoder stages in training).
     """
 
+    # mesh: {spatial: N}: a rank's rows pool to whole rows through the
+    # encoder's four pools (parallel/spatial.py)
+    row_rule = 16
+
     def __init__(self, use_mem: bool = False, use_cls: bool = False,
                  mem_size: int = 1024, mem_dim: int = 256,
                  den_dropout: float = 0.5, cls_dropout: float = 0.5,

@@ -178,25 +178,69 @@ def upsample(x: torch.Tensor, scale_factor: int = 2,
     "linear")`` (half-pixel centres, edge clamp); ``nearest`` is the
     floor-index repeat ``out[i] = in[i // scale]``. ``group``: x is this
     rank's rows of the crop (``mesh: {spatial: N}``); a bilinear upsample
-    then reads one neighbour row above and below (an edge copy at the crop's
-    ends, which is the clamp) and keeps its own rows of the output.
+    then reads the neighbour row above and below where there is one (at the
+    crop's ends the clamp, as on the whole crop) and keeps its own rows of
+    the output, each computed as on the whole crop.
     """
     if mode == "nearest":
         return F.interpolate(x, scale_factor=scale_factor, mode="nearest")
-    if group is not None:
-        y = upsample(exchange_halo(x, 1, group, edge=True), scale_factor)
-        return y[:, :, scale_factor:-scale_factor]
-    return F.interpolate(x, scale_factor=scale_factor, mode="bilinear",
-                         align_corners=False)
+    if group is None:
+        return F.interpolate(x, scale_factor=scale_factor, mode="bilinear",
+                             align_corners=False)
+    top = int(torch.distributed.get_rank(group) > 0)
+    bottom = int(torch.distributed.get_rank(group) < torch.distributed.get_world_size(group) - 1)
+    x = exchange_halo(x, 1, group)
+    y = upsample(x[:, :, 1 - top:x.shape[2] - 1 + bottom], scale_factor)
+    return y[:, :, top * scale_factor:y.shape[2] - bottom * scale_factor]
 
 
-def resize_bilinear_ac(x: torch.Tensor, hw) -> torch.Tensor:
+def resize_bilinear_ac(x: torch.Tensor, hw, group=None) -> torch.Tensor:
     """Bilinear resize of NCHW ``x`` to ``hw`` with align_corners=True
     (``F.upsample_bilinear``, ``nn.UpsamplingBilinear2d``): the JAX
-    package's ``resize_bilinear_ac``."""
-    if tuple(x.shape[2:]) == tuple(hw):
+    package's ``resize_bilinear_ac``. ``group``: x is this rank's rows of
+    the crop and ``hw`` its rows of the output. The sample positions are the
+    whole crop's (output row i reads row i (H - 1) / (H' - 1)), so the rank
+    takes one neighbour row above and below, places them at their rows of a
+    crop-high tensor of zeros and resizes that with the same call as one
+    process: its rows of the output are one process's, bit for bit, at the
+    cost of a crop-high resize on each rank."""
+    h, w = x.shape[2:]
+    if (h, w) == tuple(hw):
         return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=True)
+    if group is None:
+        return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=True)
+    n = torch.distributed.get_world_size(group)
+    r = torch.distributed.get_rank(group)
+    rows, out_rows = h * n, hw[0] * n
+    scale = (rows - 1) / (out_rows - 1)
+    first = int(r * hw[0] * scale)
+    last = min(int(((r + 1) * hw[0] - 1) * scale) + 1, rows - 1)
+    if first < r * h - 1 or last > (r + 1) * h:
+        raise ValueError(f"a sharded resize of {rows} rows to {out_rows} reads rows "
+                         f"{first}..{last} beyond rank {r}'s {h} and one row of halo")
+    x = exchange_halo(x, 1, group)
+    lo, hi = max(r * h - 1, 0), min((r + 1) * h + 1, rows)
+    # the pad keeps x's memory format, so the one process's kernel runs
+    whole = F.pad(x[:, :, lo - r * h + 1:hi - r * h + 1], (0, 0, lo, rows - hi))
+    y = F.interpolate(whole, size=(out_rows, hw[1]), mode="bilinear", align_corners=True)
+    return y[:, :, r * hw[0]:(r + 1) * hw[0]]
+
+
+def resize_bilinear(x: torch.Tensor, hw, group=None) -> torch.Tensor:
+    """``F.interpolate(x, hw, "bilinear", align_corners=False,
+    antialias=False)``: half-pixel centres, no prefilter on a downscale
+    (DSSINet's pyramid). ``group``: x is this rank's rows of the crop; an x2
+    upsample then takes one neighbour row (``upsample``), and an x0.5
+    downsample of an even number of rows, the mean of each pair of rows, is
+    the rank's own."""
+    h, w = x.shape[2:]
+    if group is not None and tuple(hw) == (2 * h, 2 * w):
+        return upsample(x, 2, group=group)
+    if group is not None and (h % 2 or hw[0] != h // 2):
+        raise ValueError(f"a sharded bilinear resize of {h} rows to {hw[0]}: only x2 and "
+                         "x0.5 of an even shard shard over rows")
+    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False,
+                         antialias=False)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, group=None) -> torch.Tensor:

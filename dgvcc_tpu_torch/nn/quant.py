@@ -41,11 +41,14 @@ caller asks for ``"cpu"``, and raises when CUDA is asked for and absent.
 bf16 activations, cuDNN's convolution; no calibration.
 
 On a spatial serving mesh (``parallel/spatial.py::shard_graph_height``)
-the DG graph holds a rank's rows of each frame: each site taller than one
-row exchanges a halo of dilation (kh - 1) / 2 rows with the neighbour ranks
-(int8 rows at an int8 site, quantized first) and runs SAME on the haloed
-block, keeping its own output rows; each bilinear upsample reads one
-neighbour row. Pools, nearest upsampling, 1x1 sites, the classifier's
+the DG graph, and the graph of csrnet, mcnn, bl, sasnet or dssinet (a
+family with a ``row_rule``), holds a rank's rows of each frame: each site
+taller than one row exchanges a halo of dilation (kh - 1) / 2 rows with the
+ranks around it (int8 rows at an int8 site, quantized first) and runs SAME
+on the haloed block, keeping its own output rows; each bilinear resize
+reads one neighbour row (a forward reads the group from its site
+primitive's ``group``). Pools, nearest resizes at an integer ratio, the x0.5
+pyramid level, sasnet's cell pooling, 1x1 sites, the classifier's
 threshold and the bank are row-local.
 
 The whitening counters are refused as in the JAX package: they compute
@@ -62,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from dgvcc_tpu_torch.nn.collectives import exchange_halo
-from dgvcc_tpu_torch.nn.layers import resize_bilinear_ac, upsample
+from dgvcc_tpu_torch.nn.layers import resize_bilinear, resize_bilinear_ac, upsample
 from dgvcc_tpu_torch.nn.vgg import VGG16_CFG, VGG19_CFG, feature_layout
 from dgvcc_tpu_torch.ops.mem_attention import memory_attention_fused
 from dgvcc_tpu_torch.ops.qconv import pad_cin, qconv_int8, quantize_activation, same_padding
@@ -190,10 +193,13 @@ class _Graph:
     # the smallest dispatch batch at which ``quantize="auto"`` serves this
     # graph (serve.py::VideoCounter._prefers_int8); stored in artifacts
     int8_min_batch = 1
-    # the DG graph's rows sharded over a group (parallel/spatial.py::
+    # the graph's rows sharded over a group (parallel/spatial.py::
     # shard_graph_height): each site taller than one row convolves its
     # rows with the neighbours' halo and keeps its own output rows
     spatial_group = None
+    # the multiple of rows a rank's share must be (its model class's; None:
+    # the graph does not shard)
+    row_rule = None
 
     def _init_sites(self, sites, scales, dtype, device):
         self.dtype = dtype
@@ -356,6 +362,12 @@ class QuantizedDG(_Graph):
     eval mode within quantization tolerance. ``flags``: the model's
     ``use_mem``, ``use_cls``, ``cls_thrs`` and encoder geometry."""
 
+    @property
+    def row_rule(self) -> int:
+        from dgvcc_tpu_torch.models.dg import DGModel
+
+        return DGModel.row_rule
+
     def __init__(self, sites: Dict, scales: Dict[str, float], flags: Dict[str, Any],
                  mem: Optional[np.ndarray], dtype=torch.bfloat16, device="cuda",
                  weight_only: bool = False):
@@ -462,17 +474,28 @@ class QuantizedConvNet(_Graph):
     """Int8 serving graph of a feed-forward conv(+BN) baseline. A family is a
     fold (``fold(model) -> {site: {kernel, bias}}``, PReLU slopes under
     ``__extras__``) and a forward written against the site primitive
-    (``forward(qconv, x[, extras]) -> density NHWC``). The same forward
-    serves the fp folded graph (no scales), calibration and int8 serving."""
+    (``forward(qconv, x[, extras]) -> density NHWC``; ``qconv.group`` is
+    the graph's ``spatial_group``). The same forward serves the fp folded
+    graph (no scales), calibration and int8 serving. ``row_rule``: the
+    model's (``of``), for a graph that shards over rows."""
 
     def __init__(self, sites: Dict, scales: Dict[str, float], forward_fn: Callable,
                  fp_sites=frozenset(), extras: Optional[Dict] = None, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", row_rule: Optional[int] = None):
         self._init_sites(sites, scales, dtype, device)
         self.forward_fn = forward_fn
         self.fp_sites = frozenset(fp_sites)
+        self.row_rule = row_rule
         if extras is not None:
             self.qparams["extras"] = _tree_to(extras, self.device)
+
+    @classmethod
+    def of(cls, model, sites, scales, extras, dtype, device) -> "QuantizedConvNet":
+        """The graph of ``model``'s family (``_family_spec``) over ``sites``,
+        with the model's row rule."""
+        _, forward_fn, fp_sites = _family_spec(model)
+        return cls(sites, scales, forward_fn, fp_sites, extras, dtype, device,
+                   getattr(model, "row_rule", None))
 
     @classmethod
     def from_folded(cls, folded, scales, forward_fn, fp_sites, dtype=torch.bfloat16,
@@ -487,6 +510,7 @@ class QuantizedConvNet(_Graph):
         def qconv(t, name, **kw):
             return self._qconv(t, name, **kw)
 
+        qconv.group = self.spatial_group
         if "extras" in self.qparams:
             return self.forward_fn(qconv, x, self.qparams["extras"])
         return self.forward_fn(qconv, x)
@@ -589,7 +613,8 @@ def bl_forward(qconv, x, batch_norm: bool = False):
             x = qconv(x, f"features/conv{idx}")
         elif kind == "pool":
             x = _maxpool(x)
-    x = _nchw(resize_bilinear_ac, x, (2 * x.shape[1], 2 * x.shape[2]))
+    x = _nchw(resize_bilinear_ac, x, (2 * x.shape[1], 2 * x.shape[2]),
+              getattr(qconv, "group", None))
     x = qconv(x, "reg1")
     x = qconv(x, "reg2")
     return qconv(x, "reg3", relu=False).abs()
@@ -627,9 +652,12 @@ def sasnet_fold(model) -> Dict:
 
 
 def sasnet_forward(qconv, x, block_size: int = 32):
-    from dgvcc_tpu_torch.models.baselines.sasnet import resize_nearest
+    from dgvcc_tpu_torch.models.baselines.sasnet import check_shard_rows, resize_nearest
 
     size_hw = x.shape[1:3]
+    group = getattr(qconv, "group", None)
+    if group is not None:
+        check_shard_rows(size_hw[0], block_size)
     feats = []
     for st, lo, hi in _SAS_SPLITS:
         for kind, idx, _ in feature_layout(VGG16_CFG, True):
@@ -642,7 +670,7 @@ def sasnet_forward(qconv, x, block_size: int = 32):
         feats.append(x)
     outs = [qconv(qconv(feats[4], "ConvRelu_0"), "ConvRelu_1")]
     for k, skip in enumerate(reversed(feats[:4]), 1):
-        y = _nchw(resize_bilinear_ac, outs[-1], skip.shape[1:3])
+        y = _nchw(resize_bilinear_ac, outs[-1], skip.shape[1:3], group)
         y = qconv([skip, y], f"ConvRelu_{2 * k}")
         outs.append(qconv(y, f"ConvRelu_{2 * k + 1}"))
     full = feats[0].shape[1:3]
@@ -710,7 +738,7 @@ def dssinet_fold(model) -> Dict:
 
 
 def dssinet_forward(qconv, x, extras):
-    from dgvcc_tpu_torch.models.baselines.dssinet import _resize
+    group = getattr(qconv, "group", None)
 
     def prelu(t, name):
         a = extras[name].to(t.dtype)
@@ -746,8 +774,8 @@ def dssinet_forward(qconv, x, extras):
         return qconv(qconv(t, f"decoder{k}/c1"), f"decoder{k}/c2", relu=False)
 
     h, w = x.shape[1:3]
-    s1 = _nchw(_resize, x, (h * 2, w * 2))
-    s3 = _nchw(_resize, x, (h // 2, w // 2))
+    s1 = _nchw(resize_bilinear, x, (h * 2, w * 2), group)
+    s3 = _nchw(resize_bilinear, x, (h // 2, w // 2), group)
     f1_c2 = stage(prelu(stage(s1, "stage1", "f1"), "stage1_act"), "stage2", "f1")
     f2_c1 = stage(x, "stage1", "f2")
     f1_c2, f2_c1 = passing([f1_c2, f2_c1], "passing1")
@@ -764,9 +792,9 @@ def dssinet_forward(qconv, x, extras):
     f3_c4 = prelu(stage(f3_c3, "stage4", "f3"), "stage4_act")
     dens = prelu(decoder(f3_c4, 1), "out_prelu")
     for k, agg in zip((2, 3, 4), (agg1, agg2, agg3)):
-        dens = prelu(decoder(agg, k) + qconv(_up(dens, 2), f"pw{k - 1}", relu=False),
-                     "out_prelu")
-    return F.relu(decoder(agg4, 5) + qconv(_up(dens, 2), "pw4", relu=False))
+        dens = prelu(decoder(agg, k) + qconv(_up(dens, 2, group=group), f"pw{k - 1}",
+                                             relu=False), "out_prelu")
+    return F.relu(decoder(agg4, 5) + qconv(_up(dens, 2, group=group), "pw4", relu=False))
 
 
 _WHITENING = ("int8 quantization supports the DG family and the conv(+BN) baselines "
@@ -859,6 +887,7 @@ def build_quantized(model, calib_frames, dtype=torch.bfloat16, device="cuda",
         _, _, cin, cout = folded[k]["kernel"].shape
         if min(cin, cout) >= min_ch:
             scales[k] = max(v, 1e-12) / 127.0
-    q = QuantizedConvNet.from_folded(folded, scales, fwd_fn, fp_sites, dtype, device)
+    sites = quantize_sites(folded, lambda n: n not in fp_sites and n in scales)
+    q = QuantizedConvNet.of(model, sites, scales, folded.get("__extras__"), dtype, device)
     q.int8_min_batch = family_min_batch(model)
     return q

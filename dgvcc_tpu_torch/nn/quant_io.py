@@ -112,12 +112,10 @@ def load_quantized(path: str, dtype: Optional[torch.dtype] = None,
         q = QuantizedDG(doc["sites"], doc["scales"], QuantizedDG.model_flags(model),
                         doc.get("mem"), dt, device, bool(doc.get("weight_only", False)))
     elif doc["family"] == "convnet":
-        spec = _family_spec(model)
-        if spec is None:
+        if _family_spec(model) is None:
             raise ValueError(f"{path}: model {doc['model_name']!r} has no int8 serving spec")
-        _, fwd_fn, fp_sites = spec
-        q = QuantizedConvNet(doc["sites"], doc["scales"], fwd_fn, fp_sites,
-                             doc.get("extras"), dt, device)
+        q = QuantizedConvNet.of(model, doc["sites"], doc["scales"], doc.get("extras"), dt,
+                                device)
     else:
         raise ValueError(f"{path}: unknown family {doc['family']!r}")
     q.int8_min_batch = int(doc.get("int8_min_batch", family_min_batch(model)))

@@ -31,9 +31,11 @@ with the same frames and gets the whole batch's counts back:
   * ``shard="batch"``, every family: the batch is padded with zero frames
     to a multiple of N and each rank forwards its rows (the tiled path: its
     frames' tiles); the counts are all-gathered and sliced back to B;
-  * ``shard="spatial"``, the DG family (fp and int8): each frame's height
-    is padded to a multiple of lcm(bucket, 16 N), so that each rank's rows
-    pool to whole rows, and each rank forwards its rows with halo
+  * ``shard="spatial"``, the DG family and the baselines mcnn, csrnet,
+    bl, sasnet and dssinet (fp and int8): each frame's height is padded to
+    a multiple of lcm(bucket, R N), R the family's row rule
+    (``parallel/spatial.py::row_rule``: 16 for the DG family), so that each
+    rank's rows pool to whole rows, and each rank forwards its rows with halo
     exchanges (``parallel/spatial.py::shard_height``; the int8 graph's
     sites likewise); the tiled path splits each frame's tiles instead,
     padded with zero tiles of zero extent. Each rank masks its rows at
@@ -161,10 +163,11 @@ class VideoCounter:
         ``model`` may be None, and then the counter holds no fp weights."""
         if shard not in ("batch", "spatial"):
             raise ValueError(f"shard must be 'batch' or 'spatial', got {shard!r}")
+        self._row_rule = None
         if mesh is not None and shard == "spatial":
-            from dgvcc_tpu_torch.parallel.spatial import check_spatial_family
+            from dgvcc_tpu_torch.parallel.spatial import row_rule
 
-            check_spatial_family(model if model is not None else quantized)
+            self._row_rule = row_rule(model if model is not None else quantized)
         if quantize not in (False, True, "auto"):
             raise ValueError(f"quantize must be False, True or 'auto'; got {quantize!r}")
         self.auto = quantize == "auto"
@@ -396,12 +399,10 @@ class VideoCounter:
 
     def _padded_hw(self, h: int, w: int):
         """The bucketed (H, W); on a spatial mesh H is a multiple of
-        lcm(bucket, 16 N), each rank's rows a multiple of the U-Net's
-        deepest stride (the JAX package pads to lcm(bucket, N): ROADMAP.md,
-        Queue 3)."""
-        from dgvcc_tpu_torch.parallel.spatial import STRIDE
-
-        hb = math.lcm(self.bucket, STRIDE * self.n_shards) if self._spatial else self.bucket
+        lcm(bucket, R N), each rank's rows a multiple of the family's row
+        rule R (the JAX package pads to lcm(bucket, N): ROADMAP.md, Queue 3)."""
+        hb = (math.lcm(self.bucket, self._row_rule * self.n_shards) if self._spatial
+              else self.bucket)
         return math.ceil(h / hb) * hb, math.ceil(w / self.bucket) * self.bucket
 
     def _pad(self, frames: torch.Tensor, rows=None) -> torch.Tensor:

@@ -94,7 +94,9 @@ optimizer moments and EMA, gathered before rank 0 writes and sliced again
 on a load.
 
 ``mesh: {spatial: N}`` (the JAX trainer's ``:115-133``, ``:349-361``) runs
-N ranks on the rows of one crop (``parallel/spatial.py``): every rank loads
+N ranks on the rows of one crop (``parallel/spatial.py``; the DG family and
+the baselines mcnn, csrnet, bl with either loss, sasnet and dssinet, each a
+rank's rows a multiple of its family's row rule): every rank loads
 the whole global batch and keeps its rows, draws the one-process dropout
 masks, and computes its share of the one-process loss through halo
 exchanges and synced statistics; the gradients are summed. Validation and
@@ -349,7 +351,7 @@ class DGTrainer:
             spatial.shard_height(self.model, self.group)
             if cfg.train_dataset is not None:
                 crop = cfg.train_dataset.get("params", {}).get("crop_size", 320)
-                spatial.check_rank_rows(int(crop), self.sp)
+                spatial.check_rank_rows(int(crop), self.sp, spatial.row_rule(self.model))
         self.loss = LOSSES.build(cfg.loss["name"], **cfg.loss.get("params", {}))
 
         self.device_aug = bool(cfg.extra.get("device_aug"))

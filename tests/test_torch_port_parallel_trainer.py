@@ -171,7 +171,8 @@ def test_a_mesh_of_another_size_than_the_job_raises(ranks):
         assert "torchrun --nproc_per_node=4" in r["world"]
 
 
-def test_mesh_data_outside_torchrun_raises_with_the_command(data_root, tmp_path, monkeypatch):
+def test_mesh_data_outside_torchrun_raises_with_the_command(data_root, tmp_path, monkeypatch,
+                                                           capsys):
     for k in multihost.TORCHRUN_ENV:
         monkeypatch.delenv(k, raising=False)
     with pytest.raises(RuntimeError, match=r"torchrun --nproc_per_node=2 -m dgvcc_tpu_torch"):
@@ -179,9 +180,16 @@ def test_mesh_data_outside_torchrun_raises_with_the_command(data_root, tmp_path,
     path = _yaml(_dp_cfg(data_root, tmp_path, "x"), tmp_path / "x.yml")
     with pytest.raises(RuntimeError, match="torchrun"):
         main(["--config", path, "--task", "train", "--device", "cpu"])
+    # vis and generate run in one process, the mesh ignored, as the JAX
+    # command line runs them (generate then refuses the mode, not the mesh)
+    main(["--config", path, "--task", "vis", "--device", "cpu"])
+    assert {"img000.png", "img001.png"} <= set(os.listdir(tmp_path / "x" / "vis"))
+    with pytest.raises(ValueError, match="generate requires mode 'generation' or 'joint'"):
+        main(["--config", path, "--task", "generate", "--device", "cpu"])
+    out = capsys.readouterr().out
     for task in ("vis", "generate"):
-        with pytest.raises(SystemExit, match=f"--task {task} with mesh"):
-            main(["--config", path, "--task", task, "--device", "cpu"])
+        assert (f"[mesh] --task {task} runs in one process on one card: mesh: {{data: 2}} "
+                "is ignored for it") in out
     # serving on a mesh is ported: outside torchrun it names the command
     with pytest.raises(SystemExit, match=r"--task serve: .*torchrun --nproc_per_node=2 .*serve"):
         main(["--config", path, "--task", "serve", "--frames", str(tmp_path), "--device",

@@ -160,19 +160,24 @@ def test_mesh_counts_match_the_jax_mesh_and_one_device(ranks, jax_counts, pairs,
 
 
 def test_spatial_refuses_a_family_outside_the_dg_family(ranks):
+    """CCTrans's rows do not shard yet (the convolutional baselines' do:
+    tests/test_torch_port_spatial_baselines_serve.py)."""
     for r in ranks:
-        assert "'MCNN'" in r["counts"]["refused"]
+        assert "'ALTGVT'" in r["counts"]["refused"]
         assert "ROADMAP.md, Queue 1 item 1" in r["counts"]["refused"]
 
 
 def test_spatial_refuses_a_baselines_int8_graph(pairs, frames):
-    """The baselines' int8 graph (``QuantizedConvNet``, CCTrans's too) has no
-    rows to shard: refused with the same pointer, before the mesh is read."""
+    """CCTrans's int8 graph (a ``QuantizedConvNet`` without a row rule) has
+    no rows to shard: refused with the same pointer, before the mesh is
+    read."""
     from dgvcc_tpu_torch.nn.quant import QuantizedConvNet, build_quantized
+    from test_torch_port_serve_mesh_ranks import TINY_CCTRANS
 
-    calib = (frames["b4"].astype(np.float32) / 255.0 - 0.5) / 0.5
-    graph = build_quantized(pairs["mcnn"][2], calib, dtype=torch.float32, device="cpu")
-    assert isinstance(graph, QuantizedConvNet)
+    calib = (frames["b4"][:, :, :64].astype(np.float32) / 255.0 - 0.5) / 0.5
+    graph = build_quantized(MODELS.build("cctrans", **TINY_CCTRANS).eval(), calib,
+                            dtype=torch.float32, device="cpu")
+    assert isinstance(graph, QuantizedConvNet) and graph.row_rule is None
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 1"):
         VideoCounter(None, quantized=graph, mesh=object(), shard="spatial", device="cpu")
 

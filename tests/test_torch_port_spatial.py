@@ -56,6 +56,7 @@ import dgvcc_tpu_torch.losses  # noqa: F401
 from dgvcc_tpu_torch.cli.main import main
 from dgvcc_tpu_torch.core.config import Config
 from dgvcc_tpu_torch.core.registry import LOSSES, MODELS
+from dgvcc_tpu_torch.models.dg import DGModel
 from dgvcc_tpu_torch.nn.convert import dg_state_dict_from_flax
 from dgvcc_tpu_torch.nn.layers import BatchNorm2d, Conv2d, instance_norm, upsample
 from dgvcc_tpu_torch.parallel import launch, multihost, spatial
@@ -63,6 +64,7 @@ from dgvcc_tpu_torch.train import trainer as ptrainer
 from dgvcc_tpu_torch.train.state import create_train_state
 from dgvcc_tpu_torch.train.steps import build_train_step
 from dgvcc_tpu_torch.train.trainer import DGTrainer
+from test_torch_port_baselines import CCTRANS
 from test_torch_port_helpers import close, jax_variables, nchw
 from test_torch_port_mesh_ranks import layer_inputs, run_cases
 from test_torch_port_parallel_ranks import results, spec_file
@@ -151,7 +153,7 @@ def ranks(jax_inputs, data_root, jax_run, tmp_path_factory):  # noqa: F811
 
 def _refusal_cfgs(root, logs):
     base = _sp_cfg(root, logs, "r")
-    return {"family": dict(base, model={"name": "mcnn", "params": {}}),
+    return {"family": dict(base, model={"name": "cctrans", "params": CCTRANS}),
             "rows": dict(base, train_dataset=dict(base["train_dataset"], params=dict(
                 base["train_dataset"]["params"], crop_size=48))),
             "world": dict(base, mesh={"spatial": 4}),
@@ -291,10 +293,11 @@ def test_batch_placement_follows_jax():
 
 
 def test_a_ranks_rows_must_pool_to_whole_rows():
-    spatial.check_rank_rows(1024, 8)
-    spatial.check_rank_rows(64, 4)
+    rule = DGModel.row_rule
+    spatial.check_rank_rows(1024, 8, rule)
+    spatial.check_rank_rows(64, 4, rule)
     with pytest.raises(ValueError, match="pick a crop_size that is a multiple of 128"):
-        spatial.check_rank_rows(320, 8)
+        spatial.check_rank_rows(320, 8, rule)
 
 
 def test_cli_train_test_matches_the_jax_trainer_and_its_log(ranks, jax_run, capsys):
@@ -329,7 +332,7 @@ def test_cli_train_test_matches_the_jax_trainer_and_its_log(ranks, jax_run, caps
 
 
 @pytest.mark.parametrize("key,message", [
-    ("family", "mesh: {spatial: N} for model 'MCNN' is not ported"),
+    ("family", "mesh: {spatial: N} for model 'ALTGVT' is not ported"),
     ("rows", "needs each rank's rows to be a multiple of 16"),
     ("world", "mesh: {spatial: 4} but the job has 2 ranks"),
     ("nodes", "mesh spatial-axis sharding is single-node for now")])
@@ -353,11 +356,14 @@ def test_the_spatial_refusals_of_the_config(mesh, mode, error, message,
 
 def test_the_step_and_the_switch_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        spatial.shard_height(MODELS.build("mcnn"), None)
+        spatial.shard_height(MODELS.build("cctrans", **CCTRANS), None)
     model = MODELS.build("final", **PARITY)
-    for mode, loss in (("isw", LOSSES.build("mse")), ("final", LOSSES.build("bl"))):
+    # the Bayesian loss shards now (tests/test_torch_port_spatial_baselines.py);
+    # a loss function of a mode's own does not
+    for mode, loss_fn in (("isw", None), ("final", lambda *a: None)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            spatial.build_spatial_train_step(model, loss, mode, 1000.0, None)
+            spatial.build_spatial_train_step(model, LOSSES.build("mse"), mode, 1000.0, None,
+                                             loss_fn=loss_fn)
 
 
 def test_spatial_mesh_outside_torchrun_raises_with_the_command(data_root, tmp_path,  # noqa: F811

@@ -273,16 +273,25 @@ def test_the_model_axis_refuses_joint_and_custom_loss_modes(mode, message, data_
 
 
 def test_2d_mesh_outside_torchrun_raises_with_the_command(data_root, tmp_path,  # noqa: F811
-                                                          monkeypatch):
+                                                          monkeypatch, capsys):
     for k in multihost.TORCHRUN_ENV:
         monkeypatch.delenv(k, raising=False)
     with pytest.raises(RuntimeError, match=r"torchrun --nproc_per_node=4 -m dgvcc_tpu_torch"):
         DGTrainer(Config.from_dict(_tp_cfg(data_root, tmp_path, "x")), device="cpu")
     path = _yaml(_tp_cfg(data_root, tmp_path, "x"), tmp_path / "x.yml")
+    # vis and generate run in one process, the 2-D mesh ignored (generate
+    # then refuses the mode, not the mesh); aot still refuses the mesh
+    main(["--config", path, "--task", "vis", "--device", "cpu"])
+    assert {"img000.png", "img001.png"} <= set(os.listdir(tmp_path / "x" / "vis"))
+    with pytest.raises(ValueError, match="generate requires mode 'generation' or 'joint'"):
+        main(["--config", path, "--task", "generate", "--device", "cpu"])
+    out = capsys.readouterr().out
     for task in ("vis", "generate"):
-        with pytest.raises(SystemExit, match=re.escape(f"--task {task} with mesh: "
-                                                       "{data: 2, model: 2}")):
-            main(["--config", path, "--task", task, "--device", "cpu"])
+        assert (f"[mesh] --task {task} runs in one process on one card: mesh: {{data: 2, "
+                "model: 2} is ignored for it") in out
+    with pytest.raises(SystemExit, match=re.escape("--task aot with mesh: {data: 2, model: 2}")):
+        main(["--config", path, "--task", "aot", "--shapes", "1x64x64", "--out",
+              str(tmp_path / "x.aot"), "--device", "cpu"])
     # serving on a mesh is ported: the data axis's 2 ranks, as the JAX command
     # line serves it; outside torchrun it names the command
     with pytest.raises(SystemExit, match=r"--task serve: .*torchrun --nproc_per_node=2 .*serve"):
